@@ -20,6 +20,12 @@
 // columns for the accumulator, and skips key tiles past the diagonal when
 // causal.
 //
+// With a non-null `lse` it also writes each row's log-sum-exp of the scaled
+// logits, fp32 [B, H, Sq]: the running max plus the log of the denominator.
+// The TPU kernel keeps the same two numbers (l, m) lane-broadcast to 128 for
+// its backward; flash_bwd.cu reads this one array instead.  A row whose keys
+// are all masked still gets a finite value (-1e30 + log of the count).
+//
 // Grid: (ceil(Sq / 64), B * H), all blocks independent.  The TPU kernel's
 // sequential key-block grid axis becomes the loop over key tiles inside the
 // block.  Block: 128 threads.  Thread t owns query rows 4*(t/8) .. +3 and,
@@ -41,6 +47,7 @@ struct FwdParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] or null
   int B, H, Sq, Skv, D;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -190,6 +197,8 @@ flash_fwd_kernel(const FwdParams p) {
         const int d = cl + 8 * jj;
         if (d < D) sdt::store1(og + r * p.o_ss + d, acc[i][jj] * inv);
       }
+      if (p.lse != nullptr && cl == 0)
+        p.lse[static_cast<long long>(blockIdx.y) * p.Sq + q0 + r] = m[i] + logf(l[i]);
     }
   }
 }
@@ -223,7 +232,9 @@ cudaError_t dispatch(const FwdParams& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim
-// of every tensor is contiguous.  Returns the launch's cudaError_t.
+// of every tensor is contiguous.  `lse` is a contiguous fp32 [B, H, Sq]
+// output, or null when no backward follows.  Returns the launch's
+// cudaError_t.
 extern "C" int sdt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, int dtype, int B, int H, int Sq, int Skv,
                              int D, long long q_sb, long long q_ss,
@@ -231,10 +242,10 @@ extern "C" int sdt_flash_fwd(const void* q, const void* k, const void* v,
                              long long k_sh, long long v_sb, long long v_ss,
                              long long v_sh, long long o_sb, long long o_ss,
                              long long o_sh, float scale, int causal,
-                             void* stream) {
+                             float* lse, void* stream) {
   if (D <= 0 || D > 160 || D % 8 != 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdParams p{q,    k,    v,    o,    B,    H,    Sq,   Skv,
+  const FwdParams p{q,    k,    v,    o,    lse,  B,    H,    Sq,   Skv,
                     D,    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                     v_ss, v_sh, o_sb, o_ss, o_sh, scale, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

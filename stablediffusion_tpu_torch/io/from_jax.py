@@ -8,13 +8,15 @@ rule (:28-36), so that ``time_embedding.linear_1`` is still transposed.
 
 A tree is nested dicts of numpy arrays (``jax.device_get`` of a param tree
 gives one), so this module imports nothing of JAX.  Loading is strict: a key
-the module lacks, or a module parameter the tree lacks, raises.
+the module lacks, or a module parameter the tree lacks, raises.  LoRA trees
+(:func:`lora_from_jax`) keep their layout: the port's ``lora/core.py`` uses
+JAX's down [in, r] / up [r, out].
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -51,15 +53,10 @@ def to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def load_from_jax(
-    module: nn.Module, tree: Mapping, skip_prefixes: Iterable[str] = ()
-) -> nn.Module:
+def load_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a JAX-layout param tree into `module` (in place, keeping each
-    parameter's device and dtype).  Keys under `skip_prefixes` (parts of the
-    tree that the module does not port, such as the VAE encoder) are left
-    out; any other mismatch raises."""
-    skip = tuple(skip_prefixes)
-    flat = {k: v for k, v in flatten(tree).items() if not k.startswith(skip)}
+    parameter's device and dtype).  Any key mismatch raises."""
+    flat = flatten(tree)
     state = module.state_dict()
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))
@@ -82,3 +79,20 @@ def load_from_jax(
                 )
             dst.copy_(src.to(dst.dtype))
     return module
+
+
+def lora_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX LoRA tree {module path: {"down" [in, r], "up" [r, out][,
+    "alpha"]}} of numpy arrays as the port's LoRA, with the same paths and
+    layouts (``lora/core.py`` keeps JAX's down/up layout, so nothing is
+    transposed), fp32 on the CPU."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, factors in tree.items():
+        extra = set(factors) - {"down", "up", "alpha"}
+        if not {"down", "up"} <= set(factors) or extra:
+            raise KeyError(f"LoRA factors at {path!r} have keys {sorted(factors)}")
+        out[path] = {
+            name: torch.from_numpy(np.array(arr, dtype=np.float32))
+            for name, arr in factors.items()
+        }
+    return out

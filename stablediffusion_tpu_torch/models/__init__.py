@@ -1,1 +1,1 @@
-"""CLIP text encoder, UNet and VAE decoder as torch modules."""
+"""CLIP text encoder, UNet and VAE as torch modules."""

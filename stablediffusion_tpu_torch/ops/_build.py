@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -34,17 +34,32 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# C signature shared by the two attention entries: q, k, v, o, dtype,
-# B, H, Sq, Skv, D, 12 strides, scale[, causal], stream
+# C signature shared by the two forward entries: q, k, v, o, dtype,
+# B, H, Sq, Skv, D, 12 strides, scale (then flash_fwd: causal, lse; both:
+# stream)
 _ATTN_ARGS = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 6
     + [ctypes.c_longlong] * 12
     + [ctypes.c_float]
 )
-SIGNATURES = {
-    "flash_fwd": ("sdt_flash_fwd", _ATTN_ARGS + [ctypes.c_int, ctypes.c_void_p]),
-    "flash_stream": ("sdt_flash_stream", _ATTN_ARGS + [ctypes.c_void_p]),
+# the two backward entries (csrc/flash_bwd.cu): q, k, v, dO, lse, di, dq, dk,
+# dv, dtype, B, H, Sq, Skv, D, 21 strides, scale, causal, stream
+_BWD_ARGS = (
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] * 21
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+# one shared library per source file
+SOURCES = ("flash_fwd", "flash_stream", "flash_bwd")
+# kernel name -> (source, C symbol, argtypes)
+ENTRIES = {
+    "flash_fwd": ("flash_fwd", "sdt_flash_fwd",
+                  _ATTN_ARGS + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "flash_stream": ("flash_stream", "sdt_flash_stream", _ATTN_ARGS + [ctypes.c_void_p]),
+    "flash_bwd_dq": ("flash_bwd", "sdt_flash_bwd_dq", _BWD_ARGS),
+    "flash_bwd_dkv": ("flash_bwd", "sdt_flash_bwd_dkv", _BWD_ARGS),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -55,16 +70,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class LaunchCounter:
     """Plain-integer count of a kernel's launches, and the same launches by
     call shape: the wrapper calls :meth:`add` where it launches the kernel and
-    nowhere else.  ``by_shape`` maps (q shape, Skv, dtype, causal) to a count."""
+    nowhere else.  ``by_shape`` maps (q shape, Skv, dtype, causal, lse) to a
+    count; ``lse`` marks a forward that also wrote the log-sum-exp for a
+    backward."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
         self.by_shape: Dict[tuple, int] = {}
 
-    def add(self, q: torch.Tensor, k: torch.Tensor, causal: bool = False) -> None:
+    def add(self, q: torch.Tensor, k: torch.Tensor, causal: bool = False,
+            lse: bool = False) -> None:
         self.count += 1
-        key = (tuple(q.shape), k.shape[1], str(q.dtype).replace("torch.", ""), bool(causal))
+        key = (tuple(q.shape), k.shape[1], str(q.dtype).replace("torch.", ""),
+               bool(causal), bool(lse))
         self.by_shape[key] = self.by_shape.get(key, 0) + 1
 
     def reset(self) -> None:
@@ -105,8 +124,8 @@ def _start_build(name: str, out: Path) -> subprocess.Popen:
     )
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
-    """Compile every named kernel whose library is missing, one ``nvcc`` per
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source whose library is missing, one ``nvcc`` per
     source, all started together; returns name -> library path."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -134,23 +153,26 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
-    lib = _loaded.get(name)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, built first if needed, with the
+    argument types of its entries set."""
+    lib = _loaded.get(source)
     if lib is None:
-        path = build([name])[name]
+        path = build([source])[source]
         lib = ctypes.CDLL(str(path))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        for src, symbol, argtypes in ENTRIES.values():
+            if src == source:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _loaded[source] = lib
     return lib
 
 
 def entry(name: str):
     """The C entry point of kernel `name`."""
-    return getattr(load(name), SIGNATURES[name][0])
+    source, symbol, _ = ENTRIES[name]
+    return getattr(load(source), symbol)
 
 
 def check(name: str, err: int) -> None:
@@ -158,13 +180,11 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def attention_launch_args(
+def check_attention_inputs(
     name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d_min: int, d_max: int,
-) -> Tuple[torch.Tensor, List]:
-    """Check what a CUDA attention kernel takes, allocate its output, and
-    return (out, ctypes arguments up to and excluding the scale).  Raises on
-    anything the kernel does not take."""
+) -> None:
+    """Raise on any q/k/v that a CUDA attention kernel does not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name}: q, k, v must lie on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -186,16 +206,72 @@ def attention_launch_args(
     if B * H > 65535 or Sq == 0 or Skv == 0:
         raise ValueError(f"{name}: B*H={B * H}, Sq={Sq}, Skv={Skv} out of range")
     for t, tn in ((q, "q"), (k, "k"), (v, "v")):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: {tn}'s last dim must be contiguous")
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        if not vector_loadable(t):
             raise ValueError(
-                f"{name}: {tn} must be 16-byte aligned with strides that are "
-                "multiples of 8 elements (the kernel's 16-byte vector loads)"
+                f"{name}: {tn} must have a contiguous last dim, be 16-byte "
+                "aligned and have strides that are multiples of 8 elements "
+                "(the kernel's 16-byte vector loads)"
             )
+
+
+def vector_loadable(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte row loads can read `t` as it lies: last
+    dim contiguous, 16-byte aligned, the other strides multiples of 8."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:-1]))
+
+
+def strides3(t: torch.Tensor) -> List[int]:
+    """(batch, sequence, head) strides of a [B, S, H, D] tensor."""
+    return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def attention_launch_args(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    d_min: int, d_max: int,
+) -> Tuple[torch.Tensor, List]:
+    """Check what a CUDA attention forward takes, allocate its output, and
+    return (out, ctypes arguments up to and excluding the scale).  Raises on
+    anything the kernel does not take."""
+    check_attention_inputs(name, q, k, v, d_min, d_max)
+    B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     args = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]
-    args += [_DTYPE_CODES[q.dtype], B, H, Sq, Skv, D]
+    args += [_DTYPE_CODES[q.dtype], B, H, Sq, k.shape[1], D]
     for t in (q, k, v, out):
-        args += [t.stride(0), t.stride(1), t.stride(2)]
+        args += strides3(t)
     return out, args
+
+
+def bwd_launch_args(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, di: torch.Tensor, dq: Optional[torch.Tensor],
+    dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
+) -> List:
+    """The backward entries' ctypes arguments up to and excluding the scale.
+    q/k/v/dO are checked as the forward checks q/k/v; lse and di must be
+    contiguous fp32 [B, H, Sq]; an output that is None is not written by the
+    entry called (its pointer is null)."""
+    check_attention_inputs("flash_bwd", q, k, v, 8, 160)
+    B, Sq, H, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_bwd: dO {tuple(do.shape)} {do.dtype} does not match q")
+    if not vector_loadable(do):
+        raise ValueError("flash_bwd: dO is not laid out for 16-byte row loads")
+    for t, tn in ((lse, "lse"), (di, "di")):
+        if (t.shape != (B, H, Sq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"flash_bwd: {tn} must be contiguous fp32 [B, H, Sq] on q's device")
+    outs = [(dq, q), (dk, k), (dv, v)]
+    for t, like in outs:
+        if t is not None and (t.shape != like.shape or t.dtype != like.dtype
+                              or t.stride(-1) != 1):
+            raise ValueError("flash_bwd: a gradient output does not match its input")
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())  # noqa: E731
+    args = [ptr(t) for t in (q, k, v, do, lse, di, dq, dk, dv)]
+    args += [_DTYPE_CODES[q.dtype], B, H, Sq, k.shape[1], D]
+    for t in (q, k, v, do):
+        args += strides3(t)
+    for t, like in outs:
+        args += strides3(t if t is not None else like)
+    return args

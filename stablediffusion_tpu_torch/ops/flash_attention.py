@@ -4,9 +4,11 @@ and its plain PyTorch version.
 Port of ``stablediffusion_tpu/ops/flash_attention.py`` (the package's own
 Pallas kernel, ``flash_attention_streaming``).  Same function: online-softmax
 attention, fp32 running max / denominator / accumulator, keys past the
-sequence masked out, forward only, no mask argument.  On the main path it
-serves the VAE mid-block's single 512-wide head (``ops/attention.py`` routes
-every D > 160 here).
+sequence masked out, forward only, no mask argument.  It serves the VAE
+mid-block's single 512-wide head (``ops/attention.py`` routes every D > 160
+here), in the decode and, under ``torch.no_grad()``, in the training step's
+encode.  It has no backward, as its Pallas original has none: on CUDA under
+grad it raises rather than return an output without a ``grad_fn``.
 
 Layout: q [B, Sq, H, D], k/v [B, Skv, H, D] -> out [B, Sq, H, D].
 """
@@ -21,6 +23,7 @@ import torch
 from stablediffusion_tpu_torch.ops import _build
 
 FLASH_STREAM_LAUNCHES = _build.LaunchCounter("flash_stream")
+
 
 def flash_stream_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,9 +44,15 @@ def flash_stream(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v for head dims above 160.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the kernel or raise, also when a
+    gradient is needed."""
     if q.device.type == "cpu":
         return flash_stream_plain(q, k, v, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_stream under grad: the kernel is forward only and has no "
+            "backward; run it under torch.no_grad()"
+        )
     out, args = _build.attention_launch_args("flash_stream", q, k, v, 168, 1024)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)

@@ -1,9 +1,11 @@
-"""Shared scheduler math: beta schedules, timestep grids, the per-run Plan.
+"""Shared scheduler math: beta schedules, timestep grids, the per-run Plan,
+and the base class with the training-side ``add_noise`` / ``get_velocity``.
 
-Port of ``stablediffusion_tpu/schedulers/common.py:34-95,159-205``.  The
+Port of ``stablediffusion_tpu/schedulers/common.py:34-95,159-233``.  The
 tables are host-side numpy, as in the JAX package; the Plan holds them as
 numpy arrays and Python numbers, since the port's denoise loop is a Python
-loop and not a traced scan.
+loop and not a traced scan.  ``add_noise`` and ``get_velocity`` take
+per-sample timesteps as a tensor and index the fp32 table on its device.
 """
 
 from __future__ import annotations
@@ -110,3 +112,44 @@ def prediction_to_x0_eps(
     else:
         raise ValueError(f"unknown prediction_type {prediction_type!r}")
     return x0, eps
+
+
+def broadcast_to_sample(x: torch.Tensor, sample: torch.Tensor) -> torch.Tensor:
+    """A per-batch [B] (or scalar) tensor with trailing dims to broadcast
+    against sample [B, ...]."""
+    return x.reshape(x.shape + (1,) * (sample.dim() - x.dim()))
+
+
+class BaseScheduler:
+    """Config-bound tables and the training-side ops; subclasses implement
+    ``plan`` and ``step``."""
+
+    order = 1
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+        self.config = config
+        self._alphas_cumprod_np = make_alphas_cumprod(config)
+        self.alphas_cumprod = self._alphas_cumprod_np.astype(np.float32)
+
+    def _sqrt_ac(self, timesteps: torch.Tensor, sample: torch.Tensor):
+        """(sqrt(alpha_bar_t), sqrt(1 - alpha_bar_t)) in fp32, broadcast
+        against sample."""
+        table = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        ac = table[torch.as_tensor(timesteps, device=sample.device).long()]
+        return (broadcast_to_sample(ac.sqrt(), sample),
+                broadcast_to_sample((1.0 - ac).sqrt(), sample))
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """sqrt(ab_t) x0 + sqrt(1 - ab_t) noise (forward diffusion)."""
+        a, s = self._sqrt_ac(timesteps, original)
+        return (a * original + s * noise).to(original.dtype)
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """sqrt(ab_t) noise - sqrt(1 - ab_t) x0 (the v-prediction target)."""
+        a, s = self._sqrt_ac(timesteps, sample)
+        return (a * noise - s * sample).to(sample.dtype)
+
+    def scale_model_input(self, plan: Plan, sample: torch.Tensor, i: int):
+        return sample

@@ -11,22 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stablediffusion_tpu_torch.core.config import SchedulerConfig
 from stablediffusion_tpu_torch.schedulers.common import (
+    BaseScheduler,
     Plan,
-    make_alphas_cumprod,
     make_timestep_grid,
     prediction_to_x0_eps,
 )
 
 
-class DDIMScheduler:
+class DDIMScheduler(BaseScheduler):
     order = 1
-
-    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
-        self.config = config
-        self._alphas_cumprod_np = make_alphas_cumprod(config)
-        self.alphas_cumprod = self._alphas_cumprod_np.astype(np.float32)
 
     def plan(self, num_steps: int) -> Plan:
         timesteps = make_timestep_grid(self.config, num_steps)
@@ -42,9 +36,6 @@ class DDIMScheduler:
             num_steps=len(timesteps),
             step_ratio=self.config.num_train_timesteps // num_steps,
         )
-
-    def scale_model_input(self, plan: Plan, sample: torch.Tensor, i: int):
-        return sample
 
     def step(self, plan: Plan, i: int, model_output: torch.Tensor,
              sample: torch.Tensor) -> torch.Tensor:

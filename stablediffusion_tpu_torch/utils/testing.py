@@ -2,8 +2,9 @@
 
 Port of ``stablediffusion_tpu/utils/testing.py:17-55,78-134``
 (``random_params_like`` / ``random_model_params``, ``bench_tokenizer``,
-``random_full_model``), and the error rule that holds a CUDA kernel against
-its plain version.  The values follow ``random_params_like`` — 1-D
+``random_full_model``), a random training batch as
+``benchmarks/bench_train.py`` builds it, and the error rules that hold a CUDA
+kernel against its plain version.  The values follow ``random_params_like`` — 1-D
 parameters (norm scales, biases) are ones, the rest normal with std
 min(0.02, fan_in**-0.5) — but are drawn by a ``torch.Generator`` on the
 target device, so the two packages' weights differ.  Modules are built on the
@@ -64,6 +65,48 @@ def kernel_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
         "worst_over_limit": (diff / limit).max().item(),
         "typical_abs_ref": ref.abs().mean().item(),
         "rtol": rtol, "atol": atol, "tol_reason": reason,
+    }
+
+
+# Limit of the backward kernels' gradients (dq, dk, dv) against the plain
+# backward (ops/attention.flash_bwd_plain) evaluated in fp32 on the same
+# inputs, the same lse and the same forward output, per element:
+#   |out - ref| <= rtol*|ref| + atol_rel * max|ref|.
+# Both sides compute in fp32, so in fp32 they differ only by the order of
+# the sums, and in bf16 also by the kernel's one rounding of each gradient
+# (half a bf16 ulp, 2**-8 |ref|).  A gradient element is a sum over up to
+# 4096 query rows (dk, dv) or keys (dq) of terms of both signs, each itself
+# a product of sums over D: its sum-order noise scales with the size of the
+# terms, not with the (possibly cancelled) result, so the absolute part is
+# tied to the tensor's scale.  An fp32 sum of N such terms carries about
+# sqrt(N) * 6e-8 of relative noise, ~4e-6 at N = 4096; 2e-5 of the tensor's
+# max |ref| leaves room for that and stays far below a typical |ref| (a
+# dropped term of the backward, such as di, moves elements by O(max|ref|)).
+GRAD_TOL = {
+    torch.float32: (0.0, 2e-5, "fp32 in and out, fp32 inside on both sides: "
+                    "the order of sums over up to 4096 terms differs, noise "
+                    "~sqrt(N)*6e-8 of the terms' scale"),
+    torch.bfloat16: (2.0**-8, 2e-5, "the kernel rounds each fp32 gradient "
+                     "once to bf16 (at most 2**-8 |ref|), plus the fp32 "
+                     "order-of-sums noise"),
+}
+
+
+def grad_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far a backward kernel's gradient `out` lies from `ref`, the plain
+    backward evaluated in fp32 on the same inputs, under :data:`GRAD_TOL`
+    for out's dtype; ``worst_over_limit`` <= 1 means every element is within
+    its limit."""
+    rtol, atol_rel, reason = GRAD_TOL[out.dtype]
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    atol = atol_rel * ref.abs().max().item()
+    limit = ref.abs() * rtol + atol
+    return {
+        "max_abs_err": diff.max().item(),
+        "worst_over_limit": (diff / limit).max().item(),
+        "typical_abs_ref": ref.abs().mean().item(),
+        "atol": atol, "rtol": rtol, "tol_reason": reason,
     }
 
 
@@ -150,3 +193,16 @@ def random_full_model(
         SD15_UNET, SD15_VAE, SD15_TEXT_ENCODER, bench_tokenizer(),
         device=device, dtype=dtype, seed=seed,
     )
+
+
+def random_train_batch(B: int, res: int, generator: torch.Generator) -> dict:
+    """A training batch as ``benchmarks/bench_train.py:62-68`` builds it, on
+    `generator`'s device: "pixel_values" NHWC [B, res, res, 3] fp32, normal
+    with std 0.5, and "input_ids" [B, 77] uniform in [0, 49407)."""
+    device = generator.device
+    return {
+        "pixel_values": torch.randn(B, res, res, 3, generator=generator,
+                                    device=device) * 0.5,
+        "input_ids": torch.randint(0, 49407, (B, 77), generator=generator,
+                                   device=device),
+    }

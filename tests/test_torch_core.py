@@ -54,7 +54,10 @@ def _modules():
 def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter (this one
     has jax loaded by conftest), leaves jax and stablediffusion_tpu out of
-    sys.modules."""
+    sys.modules; the training slice's subpackages are among them."""
+    mods = _modules()
+    for sub in ("lora.core", "train.optim", "train.train_step", "schedulers.ddpm"):
+        assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -73,6 +76,8 @@ def test_package_source_scan():
     """No jax import, no stablediffusion_tpu import, no library attention,
     no torch.compile anywhere in the port's Python sources."""
     found = []
+    scanned = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")}
+    assert {"lora", "train", "ops", "models"} <= scanned
     for path in sorted(PKG.rglob("*.py")):
         src = path.read_text()
         if "scaled_dot_product_attention" in src:
@@ -98,8 +103,15 @@ def test_package_source_scan():
 
 
 def test_package_has_both_kernel_sources():
+    """Every kernel source the build names is in the package: the two
+    forwards and the backward."""
+    from stablediffusion_tpu_torch.ops import _build
+
     names = sorted(p.name for p in (PKG / "csrc").iterdir())
-    assert "flash_fwd.cu" in names and "flash_stream.cu" in names
+    for src in ("flash_fwd.cu", "flash_stream.cu", "flash_bwd.cu"):
+        assert src in names
+    assert sorted(f"{s}.cu" for s in _build.SOURCES) == sorted(n for n in names if n.endswith(".cu"))
+    assert {src for src, _, _ in _build.ENTRIES.values()} == set(_build.SOURCES)
 
 
 def test_kernel_library_name_tracks_its_sources(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port: CLIP, UNet and VAE decode against clip.apply,
-unet.apply and vae.decode on the tiny configs, in fp32 on the CPU.
+"""PyTorch/CUDA port: CLIP, UNet and the VAE against clip.apply,
+unet.apply, vae.decode, vae.encode and vae.sample_latent on the tiny
+configs, in fp32 on the CPU.
 
 Weights are JAX-initialised and carried into the port's modules by
 io/from_jax.py; inputs are made with numpy from a seed.
@@ -19,7 +20,7 @@ from stablediffusion_tpu_torch.core import config as tcfg
 from stablediffusion_tpu_torch.io.from_jax import load_from_jax
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
-from stablediffusion_tpu_torch.models.vae import UNPORTED_PREFIXES, AutoencoderKL
+from stablediffusion_tpu_torch.models.vae import AutoencoderKL, sample_latent
 
 # fp32 on both sides through a few layers of GEMMs/convs and norms: only the
 # order of the sums differs; 1e-4 absolute on O(1) outputs
@@ -104,8 +105,7 @@ def test_unet_rejects_unported_config():
 def test_vae_decode_matches_jax():
     jc = jcfg.tiny_vae_config()
     params = _init(jvae, jc)
-    model = load_from_jax(AutoencoderKL(tcfg.tiny_vae_config()), params,
-                          skip_prefixes=UNPORTED_PREFIXES)
+    model = load_from_jax(AutoencoderKL(tcfg.tiny_vae_config()), params)
     z = np.random.default_rng(3).standard_normal((2, 8, 8, 4)).astype(np.float32)
     ref = jax.jit(jvae.decode, static_argnums=1)(params, jc, jnp.asarray(z))
     with torch.no_grad():
@@ -114,15 +114,41 @@ def test_vae_decode_matches_jax():
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=ATOL)
 
 
+def test_vae_encode_matches_jax():
+    """encode (the asymmetric-pad stride-2 downsamplers, the mid-block,
+    quant_conv, the logvar clip) and sample_latent with the epsilon that
+    jax.random draws for the same key, injected."""
+    jc = jcfg.tiny_vae_config()
+    params = _init(jvae, jc)
+    model = load_from_jax(AutoencoderKL(tcfg.tiny_vae_config()), params)
+    img = np.random.default_rng(4).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    mean, logvar = jax.jit(jvae.encode, static_argnums=1)(params, jc, jnp.asarray(img))
+    key = jax.random.key(5)
+    ref = jvae.sample_latent(mean, logvar, key)
+    eps = np.array(jax.random.normal(key, mean.shape, mean.dtype))
+    with torch.no_grad():
+        m, lv = model.encode(torch.from_numpy(img).permute(0, 3, 1, 2))
+        lat = sample_latent(m, lv, eps=torch.from_numpy(eps).permute(0, 3, 1, 2))
+    assert m.shape == (2, 4, 16, 16)
+    for a, b in ((m, mean), (lv, logvar), (lat, ref)):
+        np.testing.assert_allclose(a.permute(0, 2, 3, 1).numpy(), np.asarray(b), atol=ATOL)
+    with pytest.raises(ValueError, match="generator"):
+        sample_latent(m, lv)
+
+
 def test_from_jax_is_strict():
     jc = jcfg.tiny_vae_config()
     params = _init(jvae, jc)
     model = AutoencoderKL(tcfg.tiny_vae_config())
-    with pytest.raises(KeyError, match="unexpected"):  # encoder keys not skipped
-        load_from_jax(model, params)
+    extra = dict(params, extra_conv={"weight": np.zeros((1, 1, 4, 4), np.float32)})
+    with pytest.raises(KeyError, match="unexpected"):
+        load_from_jax(model, extra)
     trimmed = {k: v for k, v in params.items() if k != "post_quant_conv"}
     with pytest.raises(KeyError, match="missing"):
-        load_from_jax(model, trimmed, skip_prefixes=UNPORTED_PREFIXES)
+        load_from_jax(model, trimmed)
+    no_encoder = {k: v for k, v in params.items() if k != "encoder"}
+    with pytest.raises(KeyError, match="missing"):
+        load_from_jax(model, no_encoder)
 
 
 def test_from_jax_layouts():

@@ -30,7 +30,7 @@ from stablediffusion_tpu_torch.core import config as tcfg
 from stablediffusion_tpu_torch.io.from_jax import load_from_jax
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
-from stablediffusion_tpu_torch.models.vae import UNPORTED_PREFIXES, AutoencoderKL
+from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from stablediffusion_tpu_torch.schedulers import make_scheduler
@@ -141,7 +141,7 @@ def models():
     tmodel = SDModel(
         unet_config=uc, unet=load_from_jax(UNet2DConditionModel(uc), up),
         vae_config=vc,
-        vae=load_from_jax(AutoencoderKL(vc), vp, skip_prefixes=UNPORTED_PREFIXES),
+        vae=load_from_jax(AutoencoderKL(vc), vp),
         text_encoder_config=tc, text_encoder=load_from_jax(CLIPTextModel(tc), tp),
         tokenizer=CLIPTokenizer(dict(jtok.vocab), merges),
     )
