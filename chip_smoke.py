@@ -17,9 +17,16 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    path launched, the UNet's also at B=16 (batch 8 under CFG), and a ragged
    VAE length, each in fp32 and bf16, against the plain version evaluated in
    fp32 on the same inputs under the per-element limit of
-   ``utils/testing.KERNEL_TOL``; times of the kernel, the plain version and
-   one library call (``F.scaled_dot_product_attention``, a yardstick the port
-   never calls) beside the card's bound.
+   ``utils/testing.KERNEL_TOL`` (the bf16 ``flash_fwd``, which rounds p to
+   bf16, against ``attention_p_rounded``, the same 64-key online softmax with
+   the same rounding, plus ``P_FLIP_RTOL`` times its p near a rounding
+   midpoint); at [2,4096,8,40] bf16 three wrong forwards (no accumulator
+   rescale, the scale applied twice, the accumulator kept in bf16 between
+   tiles) must break that limit.  Each kernel's device time (its own kernel events under
+   torch.profiler; the event-timed call, which includes the wrapper's host
+   work, beside it), the plain version's and one library call's
+   (``F.scaled_dot_product_attention``, a yardstick the port never calls)
+   beside the card's bound.
 4. Full width in bf16: one UNet forward at B=2 on the main path's weights,
    through the kernels and through the plain attention, each against an fp32
    copy with the plain attention.  The random weights' biases are ones, which
@@ -57,6 +64,7 @@ Exits nonzero, printing no result, when CUDA is not available.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import subprocess
@@ -73,9 +81,10 @@ HBM_BYTES_PER_S = 3.35e12
 # reference check: card (kernels) vs CPU (plain) in fp32 with TF32 off; the
 # sums run in other orders through 4 DDIM steps of the UNet
 REF_TOL = 1e-3
-# full-width bf16 UNet: the kernels' path keeps the probabilities in fp32
-# where the plain path rounds them to bf16, so it should lie no farther from
-# the fp32 model; 25% covers the bf16 rounding the two paths share
+# full-width bf16 UNet: both paths round the probabilities to bf16 for the
+# product with v (the kernel from its fp32 running max, the plain path after
+# the softmax), so the kernels' path should lie as far from the fp32 model
+# as the plain one; 25% covers the other bf16 roundings, which differ
 UNET_SLACK = 1.25
 # the training main path: batch 8 as benchmarks/bench_train.py (it fits the
 # card without checkpointing the UNet), one warm step and this many timed ones
@@ -84,6 +93,13 @@ TRAIN_STEPS = 3
 # train reference: loss and LoRA gradients, card (kernels) vs CPU (plain),
 # fp32 with TF32 off, relative to each tensor's largest element
 TRAIN_REF_TOL = 1e-3
+# exponentials a clock on one SM of an H100 SXM: 16 on the MUFU, plus the
+# 128 FMA lanes at 4 FMA-pipe operations each for a polynomial exp2 (range
+# reduction and three Horner steps, as FlashAttention-4 emulates it); and
+# the card's SMs
+MUFU_PER_CLOCK = 16
+FMA_EXP_PER_CLOCK = 128 / 4
+SMS = 132
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -100,35 +116,81 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, key: str, reps: int) -> float:
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    `key` (each wrapper launches it once a call), from torch.profiler's
+    kernel events over `reps` calls after one warm-up: the kernel's own
+    time, without the wrapper's host work.  The mean is over the events
+    the profiler kept: late in a long run it drops some, and a profiling
+    run that kept none is repeated."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and key in e.name]
+        if us:
+            return sum(us) / 1e3 / len(us)
+    raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
 def _pairs(Sq, Skv, causal):
     """(query, key) pairs a call computes: a causal call only j <= i."""
     return sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
 
 
-def _roofline(flops, nbytes, dtype):
-    """(least ms on the card, what bounds it): the larger of operations /
-    peak and bytes / HBM rate."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def _roofline(flops, nbytes, dtype, exps=0):
+    """(least ms on the card, what bounds it, each term in ms): the largest
+    of products / peak, exponentials on the MUFU and the FMA lanes together
+    / (SMs x their rate x the max SM clock), and bytes / HBM rate; products
+    and exponentials are both "operations".  Each term alone is a floor, so
+    their maximum is one.  ``exp_mufu`` (every exponential on the MUFU, as
+    the port's kernels compute them) is reported beside, not part of the
+    bound."""
+    clock = SMS * _sm_clock_hz()
+    terms = {"products": flops / PEAK_FLOPS[dtype] * 1e3,
+             "exp": exps / (clock * (MUFU_PER_CLOCK + FMA_EXP_PER_CLOCK)) * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound = max(terms.values())
+    terms["exp_mufu"] = exps / (clock * MUFU_PER_CLOCK) * 1e3
+    return bound, ("bytes" if bound == terms["bytes"] else "operations"), terms
 
 
 def _bound(B, Sq, H, D, Skv, causal, dtype, itemsize):
-    """The forward's bound: 4 operations per pair and head dim; q, k, v read
-    once, out written once."""
-    return _roofline(4 * B * H * _pairs(Sq, Skv, causal) * D,
-                     itemsize * B * H * D * (2 * Sq + 2 * Skv), dtype)
+    """The forward's bound: 4 operations per pair and head dim and one
+    exponential per pair; q, k, v read once, out written once."""
+    pairs = B * H * _pairs(Sq, Skv, causal)
+    return _roofline(4 * pairs * D, itemsize * B * H * D * (2 * Sq + 2 * Skv), dtype,
+                     exps=pairs)
 
 
 def _bwd_bound(kernel, B, Sq, H, D, Skv, causal, dtype, itemsize):
     """A backward kernel's bound on its own function.  dkv: s, dp, dV, dK,
     8 operations per pair and head dim; reads q, k, v, dO, lse, di, writes
     dK, dV.  dq: s, dp, dQ, 6 per pair; reads the same, writes dQ.  (The
-    pair together could do with 10: s and dp once.)"""
+    pair together could do with 10: s and dp once.)  Each kernel recomputes
+    p = exp(s - lse): one exponential per pair."""
     dkv = kernel == "flash_bwd_dkv"
-    flops = (8 if dkv else 6) * B * H * _pairs(Sq, Skv, causal) * D
+    pairs = B * H * _pairs(Sq, Skv, causal)
     rows = 2 * Sq + 2 * Skv + (2 * Skv if dkv else Sq)
-    return _roofline(flops, itemsize * B * H * D * rows + 2 * 4 * B * H * Sq, dtype)
+    return _roofline((8 if dkv else 6) * pairs * D,
+                     itemsize * B * H * D * rows + 2 * 4 * B * H * Sq, dtype, exps=pairs)
 
 
 def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
@@ -136,7 +198,11 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     import torch
     import torch.nn.functional as F
 
-    from stablediffusion_tpu_torch.utils.testing import kernel_error
+    from stablediffusion_tpu_torch.utils.testing import (
+        attention_p_rounded,
+        attention_wrong_variants,
+        kernel_error,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(1234)
     q = torch.randn(B, Sq, H, D, device="cuda", dtype=dtype, generator=g)
@@ -145,26 +211,43 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     kw = {"causal": True} if causal else {}
     out = kernel(q, k, v, **kw)
     torch.cuda.synchronize()
-    # the plain version in fp32 on the same input values: the kernels compute
-    # in fp32, so in bf16 only their output rounding separates the two
-    err = kernel_error(out, plain(q.float(), k.float(), v.float(), **kw))
+    # the plain version in fp32 on the same input values; the bf16 flash_fwd
+    # rounds p to bf16 from the running max of its 64-key tiles, and its
+    # plain version does the same
     dname = str(dtype).replace("torch.", "")
+    if (name, dname) == ("flash_fwd", "bfloat16"):
+        ref, flips = attention_p_rounded(q, k, v, causal)
+    else:
+        ref, flips = plain(q.float(), k.float(), v.float(), **kw), None
+    err = kernel_error(out, ref, flips)
+    teeth = None
+    if (name, B, Sq, H, D, Skv, dname) == ("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"):
+        teeth = {n: kernel_error(w, ref, flips)["worst_over_limit"]
+                 for n, w in attention_wrong_variants(q, k, v, causal).items()}
+        print(json.dumps({"p_round_rule_teeth": "wrong bf16 forwards against "
+                          "attention_p_rounded", "shape": [B, Sq, H, D], "skv": Skv,
+                          "worst_over_limit": teeth}), flush=True)
+    del ref, flips
     big = B * Sq * Skv * H >= 2**31  # plain logits of 8 GiB and up
-    ms = _time_ms(lambda: kernel(q, k, v, **kw), 10)
+    ms = _device_ms(lambda: kernel(q, k, v, **kw), name, 10)
+    event_ms = _time_ms(lambda: kernel(q, k, v, **kw), 10)
     plain_ms = _time_ms(lambda: plain(q, k, v, **kw), 2 if big else 5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 10
     )
-    bound_ms, bound_by = _bound(B, Sq, H, D, Skv, causal, dname, q.element_size())
+    bound_ms, bound_by, terms = _bound(B, Sq, H, D, Skv, causal, dname, q.element_size())
     row = dict(kernel=name, shape=[B, Sq, H, D], skv=Skv, dtype=dname,
                causal=causal, launches=launches, launches_batch1=launches_batch1,
-               **err, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+               **err, kernel_ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bound_terms_ms=terms)
     print(json.dumps(row), flush=True)
     if not err["worst_over_limit"] <= 1.0:
         raise AssertionError(f"{name} {row['shape']} Skv={Skv} {dname}: max abs err "
                              f"{err['max_abs_err']}, {err['worst_over_limit']} x its limit")
+    if teeth is not None and not min(teeth.values()) > 1.0:
+        raise AssertionError(f"the bf16 limit accepts a wrong forward: {teeth}")
     del q, k, v, out
     torch.cuda.empty_cache()
     return row
@@ -630,9 +713,12 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
             del wrong
         del refs, f32
         torch.cuda.empty_cache()
-        fwd_lse_ms = _time_ms(lambda: _launch_fwd(q, k, v, scale, causal, with_lse=True), 5)
-        dkv_ms = _time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, di, scale, causal), 5)
-        dq_ms = _time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, di, scale, causal), 5)
+        fwd_lse_ms = _device_ms(lambda: _launch_fwd(q, k, v, scale, causal, with_lse=True),
+                                "flash_fwd", 5)
+        dkv_ms = _device_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, di, scale, causal),
+                            "flash_bwd_dkv", 5)
+        dq_ms = _device_ms(lambda: flash_bwd_dq(q, k, v, do, lse, di, scale, causal),
+                           "flash_bwd_dq", 5)
         plain_ms = _time_ms(lambda: flash_bwd_plain(q, k, v, out, do, lse, scale, causal), 3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -642,7 +728,8 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
     dname = str(dtype).replace("torch.", "")
     rows = []
     for name, ms, outs in (("flash_bwd_dkv", dkv_ms, ("dk", "dv")), ("flash_bwd_dq", dq_ms, ("dq",))):
-        bound_ms, bound_by = _bwd_bound(name, B, Sq, H, D, Skv, causal, dname, q.element_size())
+        bound_ms, bound_by, terms = _bwd_bound(name, B, Sq, H, D, Skv, causal, dname,
+                                               q.element_size())
         row = dict(kernel=name, shape=[B, Sq, H, D], skv=Skv, dtype=dname, causal=causal,
                    launches=launches,
                    max_abs_err=max(errs[o]["max_abs_err"] for o in outs),
@@ -651,7 +738,7 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
                    atol=min(errs[o]["atol"] for o in outs), rtol=errs[outs[0]]["rtol"],
                    lse_worst_over_limit=lse_err["worst_over_limit"], fwd_lse_ms=fwd_lse_ms,
                    kernel_ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, bound_terms_ms=terms)
         rows.append(row)
         print(json.dumps(row), flush=True)
     if rejected is not None:
@@ -783,6 +870,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    print(f"max SM clock {_sm_clock_hz() / 1e6:.0f} MHz (the bound's exponential rate)",
+          flush=True)
     t = time.perf_counter()
     _build.build()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t:.3f} s",
@@ -842,8 +931,10 @@ def main() -> int:
             "launches": by_path["train" if name.startswith("flash_bwd") else "txt2img"],
             "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "event_ms": row.get("event_ms"),
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bound_by": row["bound_by"], "bound_terms_ms": row["bound_terms_ms"],
+            "library_ms": row["library_ms"],
             "shape": row["shape"], "skv": row["skv"], "dtype": row["dtype"],
             "cases": len(mine),
             "worst_over_limit": max(r["worst_over_limit"] for r in mine),

@@ -1,5 +1,5 @@
 // Shared helpers of the attention kernels: 8-element (16-byte for bf16,
-// 2x16-byte for fp32) vector loads into fp32, and the store back.
+// 2x16-byte for fp32) vector loads into fp32, the store back, and cp.async.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +57,27 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld_s, const T* src,
 #pragma unroll
     for (int i = 0; i < 8; ++i) dst[r * ld_s + d8 + i] = tmp[i] * mul;
   }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16-byte global -> shared copy that bypasses L1; with `valid` false nothing
+// is read and the 16 bytes are zero-filled (source size 0).
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace sdt

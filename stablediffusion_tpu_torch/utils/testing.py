@@ -38,9 +38,9 @@ from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 
 # Limit of an attention kernel's output against its plain version evaluated in
 # fp32 on the same input values, per element: |out - ref| <= rtol*|ref| + atol.
-# Both kernels load bf16 inputs into fp32 and compute in fp32 (probabilities
-# included), so the two differ by the order of the fp32 sums and, in bf16, by
-# the kernel's one rounding of its output.
+# The kernels load bf16 inputs exactly and accumulate in fp32, so the two
+# differ by the order of the fp32 sums and, in bf16, by the kernel's one
+# rounding of its output.
 KERNEL_TOL = {
     torch.float32: (0.0, 1e-5, "fp32 in, fp32 accumulation on both sides: only "
                     "the order of the sums differs (about 3e-6 at the main-path "
@@ -50,22 +50,98 @@ KERNEL_TOL = {
                      "order-of-sums noise"),
 }
 
+# The bf16 flash_fwd also rounds each probability p to bf16 for its product
+# with v, as the JAX kernel does (`p.astype(v.dtype)`), p = exp(s - m) taken
+# from the running max m of its 64-key tiles.  Its plain version is therefore
+# that same online softmax in fp32 with the same rounding
+# (:func:`attention_p_rounded`), and the two compute each fp32 p to within
+# P_EPS of each other: the logits' fp32 sums run in another order, and the
+# kernel's exp2 is the hardware's approximation, each worth about 2**-20 of p
+# at these magnitudes.  A p that lies within P_EPS of a bf16 rounding midpoint
+# may round the other way in the kernel, which moves it by one bf16 ulp, at
+# most 2**-7 of itself: the limit gains 2**-7 * (sum of p |v| over those p)
+# over the denominator, per element.  Only about one p in 2**8 is that close.
+P_EPS = 2.0**-16
+P_FLIP_RTOL = 2.0**-7
 
-def kernel_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
-    """How far a kernel's `out` lies from `ref`, the plain version evaluated
+
+def kernel_error(out: torch.Tensor, ref: torch.Tensor,
+                 flips: Optional[torch.Tensor] = None) -> dict:
+    """How far a kernel's `out` lies from `ref`, its plain version evaluated
     in fp32 on the same inputs, under :data:`KERNEL_TOL` for out's dtype.
+    With `flips` (from :func:`attention_p_rounded`, for a kernel that rounds
+    p to bf16) the limit also takes :data:`P_FLIP_RTOL` times it.
     ``worst_over_limit`` <= 1 means every element is within its limit;
     ``typical_abs_ref`` is the mean |ref|, the scale the limit applies to."""
     rtol, atol, reason = KERNEL_TOL[out.dtype]
     ref = ref.float()
     diff = (out.float() - ref).abs()
     limit = ref.abs() * rtol + atol
+    if flips is not None:
+        limit = limit + P_FLIP_RTOL * flips.float()
+        reason += ("; against the same tiles with p rounded to bf16, plus 2**-7 of "
+                   "p|v| / l over the p within 2**-16 of a rounding midpoint")
     return {
         "max_abs_err": diff.max().item(),
         "worst_over_limit": (diff / limit).max().item(),
         "typical_abs_ref": ref.abs().mean().item(),
         "rtol": rtol, "atol": atol, "tol_reason": reason,
     }
+
+
+def attention_p_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False, block: int = 64,
+                        scale: Optional[float] = None, rescale: bool = True,
+                        acc_dtype: torch.dtype = torch.float32):
+    """The plain version of the bf16 flash_fwd, in fp32 on q/k/v's device:
+    online softmax over key tiles of `block`; each p = exp(s - m), m the
+    running max, is rounded to bf16 for its product with v, and the
+    denominator l sums the fp32 p.  Returns (out, flips), both fp32
+    [B, Sq, H, D]; flips is the sum of p |v| / l over the p within
+    :data:`P_EPS` of a bf16 rounding midpoint (see :func:`kernel_error`).
+    Wrong kernels, to show that the rule has teeth: `rescale=False` never
+    rescales the accumulator when the running max grows (l still is);
+    `acc_dtype=torch.bfloat16` keeps the accumulator in bf16 between tiles."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, S, D]
+    B, H, Sq, D = qf.shape
+    dev = q.device
+    m = torch.full((B, H, Sq, 1), -1e30, device=dev)
+    l = torch.zeros((B, H, Sq, 1), device=dev)
+    acc = torch.zeros((B, H, Sq, D), device=dev)
+    flips = torch.zeros((B, H, Sq, D), device=dev)
+    rows = torch.arange(Sq, device=dev)[:, None]
+    for k0 in range(0, kf.shape[2], block):
+        kt, vt = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2], device=dev)[None, :]
+            s = s.masked_fill(keys > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        near = ((p * (1 - P_EPS)).to(torch.bfloat16)
+                != (p * (1 + P_EPS)).to(torch.bfloat16))
+        acc = (acc * alpha if rescale else acc) + p.to(torch.bfloat16).float() @ vt
+        acc = acc.to(acc_dtype).float()
+        flips = flips * alpha + (p * near) @ vt.abs()
+        m = m_new
+    return (acc / l).transpose(1, 2), (flips / l).transpose(1, 2)
+
+
+def attention_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = False, block: int = 64) -> dict:
+    """Three wrong bf16 attention forwards, each rounded to q's dtype as a
+    kernel rounds its output: "no_rescale" (the accumulator is not rescaled
+    when the running max grows), "scale_twice" (the logits scaled by
+    scale**2) and "acc_bf16" (the accumulator kept in bf16 between tiles of
+    `block` keys); all otherwise :func:`attention_p_rounded`."""
+    scale = q.shape[-1] ** -0.5
+    variants = {"no_rescale": dict(rescale=False), "scale_twice": dict(scale=scale * scale),
+                "acc_bf16": dict(acc_dtype=torch.bfloat16)}
+    return {n: attention_p_rounded(q, k, v, causal, block, **kw)[0].to(q.dtype)
+            for n, kw in variants.items()}
 
 
 # Limit of the backward kernels' gradients (dq, dk, dv) against the plain

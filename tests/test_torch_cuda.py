@@ -25,7 +25,7 @@ from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
 )
-from stablediffusion_tpu_torch.utils.testing import grad_error, kernel_error
+from stablediffusion_tpu_torch.utils.testing import attention_p_rounded, grad_error, kernel_error
 
 pytestmark = pytest.mark.cuda
 
@@ -37,11 +37,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _within_limit(out, plain, q, k, v, **kw):
+def _within_limit(out, plain, q, k, v, p_rounded=False, **kw):
     """The kernel's output against the plain version evaluated in fp32 on the
     same input values, under the per-element limit of KERNEL_TOL (stated
-    there with its reason)."""
-    err = kernel_error(out, plain(q.float(), k.float(), v.float(), **kw))
+    there with its reason); with `p_rounded` (the bf16 flash_fwd, which
+    rounds p to bf16) the plain version is attention_p_rounded, and the
+    limit takes its term for p near a rounding midpoint."""
+    if p_rounded:
+        err = kernel_error(out, *attention_p_rounded(q, k, v, **kw))
+    else:
+        err = kernel_error(out, plain(q.float(), k.float(), v.float(), **kw))
     assert err["worst_over_limit"] <= 1.0, err
 
 
@@ -56,21 +61,41 @@ def _qkv(device, dtype, B, Sq, H, D, Skv):
     "B, Sq, H, D, Skv, causal",
     [(2, 4096, 8, 40, 4096, False), (2, 1024, 8, 80, 77, False),
      (2, 256, 8, 160, 256, False), (2, 77, 12, 64, 77, True),
-     (3, 100, 2, 24, 50, False)],
+     (3, 100, 2, 24, 50, False), (2, 300, 2, 40, 4100, False),
+     (2, 1101, 8, 64, 1101, False), (1, 1101, 4, 24, 77, False),
+     (1, 200, 2, 40, 200, True), (2, 64, 8, 160, 77, False)],
 )
 def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
+    """Every head-dim bucket of both kernels, with the bf16 tensor-core
+    kernel's traps: D = 24 and 40 (the k16 steps read zero-filled columns up
+    to the next multiple of 16), Skv = 77 and 4100 (a ragged last key tile,
+    whose V rows must be zero in shared memory), ragged Sq = 1101, causal.
+    The lse written when a backward follows is finite on every row (every
+    row sees at least one key, so none is fully masked; the kernels would
+    give such a row -1e30 + log of its count) and matches the plain one."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     before = FLASH_FWD_LAUNCHES.count
     out = flash_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert FLASH_FWD_LAUNCHES.count == before + 1
-    _within_limit(out, attention_plain, q, k, v, causal=causal)
+    _within_limit(out, attention_plain, q, k, v, p_rounded=dtype == torch.bfloat16,
+                  causal=causal)
+    with torch.no_grad():
+        out_lse, lse = _fwd_with_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out_lse, out) and torch.isfinite(lse).all()
+    ref_lse = attention_plain_lse(q.float(), k.float(), v.float(), causal=causal)[1]
+    assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sq, H, D, Skv", [(4096, 1, 512, 4100), (300, 2, 192, 77), (64, 1, 1024, 33)])
-def test_flash_stream_matches_plain(cuda, dtype, Sq, H, D, Skv):
-    q, k, v = _qkv(cuda, dtype, 1, Sq, H, D, Skv)
+@pytest.mark.parametrize("B, Sq, H, D, Skv", [
+    (1, 4096, 1, 512, 4100), (1, 300, 2, 192, 77), (1, 64, 1, 1024, 33),
+    (8, 4096, 1, 512, 4096), (1, 1001, 1, 512, 4096), (2, 77, 1, 520, 130)])
+def test_flash_stream_matches_plain(cuda, dtype, B, Sq, H, D, Skv):
+    """Every head-dim bucket, the VAE's [1|8, 4096, 1, 512], a ragged Sq and
+    a head dim that leaves a partial K chunk (520 = 8 * 64 + 8)."""
+    q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     before = FLASH_STREAM_LAUNCHES.count
     out = flash_stream(q, k, v)
     torch.cuda.synchronize()
@@ -78,11 +103,13 @@ def test_flash_stream_matches_plain(cuda, dtype, Sq, H, D, Skv):
     _within_limit(out, flash_stream_plain, q, k, v)
 
 
-def test_strided_inputs(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_inputs(cuda, dtype):
     """q/k/v read by stride: slices of a fused [B, S, 3, H, D] projection."""
-    qkv = torch.randn(2, 128, 3, 4, 64, device=cuda)
+    qkv = torch.randn(2, 128, 3, 4, 64, device=cuda).to(dtype)
     q, k, v = qkv.unbind(2)
-    _within_limit(attention(q, k, v), attention_plain, q, k, v)
+    _within_limit(attention(q, k, v), attention_plain, q, k, v,
+                  p_rounded=dtype == torch.bfloat16)
 
 
 def test_refusals(cuda):
@@ -140,7 +167,9 @@ def _fwd_with_lse(q, k, v, causal):
 def test_flash_attn_fn_matches_plain_autograd(cuda, causal):
     """Gradients through FlashAttnFn (the kernels) against torch autograd of
     attention_plain, fp32, with dO strided (a transposed view) so that the
-    wrapper's layout check acts."""
+    wrapper's layout check acts.  (fp32 runs the scalar forward; the bf16
+    tensor-core forward under the backward is held in phase 8 of
+    chip_smoke.py and in test_flash_bwd_matches_plain.)"""
     q, k, v = _qkv(cuda, torch.float32, 2, 200, 3, 40, 200 if causal else 77)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = attention(*leaves, causal=causal)

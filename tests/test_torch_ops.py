@@ -198,3 +198,39 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 8, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         attention_launch_args("flash_fwd", x, x, x, 8, 160)
+
+
+# (B, Sq, H, D, Skv, the key block _lib_flash picks): more than one key
+# block, so the JAX kernel runs its online softmax (with one block it
+# normalises p before rounding it); 2100 keys are padded to 2304
+@pytest.mark.parametrize("B, Sq, H, D, Skv, block",
+                         [(1, 256, 2, 40, 2048, 1024), (2, 128, 2, 64, 2100, 256)])
+def test_bf16_p_rounding_rule_has_teeth(r, B, Sq, H, D, Skv, block):
+    """The bf16 rule of utils/testing.kernel_error against
+    attention_p_rounded (p rounded to bf16 from the running max of each key
+    tile): the JAX library flash kernel in bf16, run in Pallas interpret
+    mode, lies within it against its own key blocks, where the plain
+    version in fp32 without the rounding rejects it; forwards that
+    skip the accumulator's rescale, scale the logits twice, or keep the
+    accumulator in bf16 between 64-key tiles all break it by a large
+    factor."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from stablediffusion_tpu.ops.attention import _lib_flash
+    from stablediffusion_tpu_torch.utils.testing import (
+        attention_p_rounded,
+        attention_wrong_variants,
+        kernel_error,
+    )
+
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(r, B, Sq, H, D, Skv))
+    with pltpu.force_tpu_interpret_mode():
+        lib = _lib_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+                         D**-0.5)
+    lib = torch.from_numpy(np.array(lib.astype(jnp.float32))).to(torch.bfloat16)
+    assert kernel_error(lib, *attention_p_rounded(q, k, v, block=block))["worst_over_limit"] <= 1.0
+    assert kernel_error(lib, attention_plain(q.float(), k.float(), v.float()))[
+        "worst_over_limit"] > 1.0
+    ref, flips = attention_p_rounded(q, k, v)
+    for name, wrong in attention_wrong_variants(q, k, v).items():
+        assert kernel_error(wrong, ref, flips)["worst_over_limit"] > 10.0, name
