@@ -6,7 +6,9 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
 
 1. Card and build: print the card's name and power limit, build the three
    CUDA sources of ``stablediffusion_tpu_torch/csrc`` (one nvcc each, all
-   started together), set and print the TF32 switches.
+   started together), print each kernel's registers and spilled bytes
+   (``-Xptxas -v``; a spill in ``flash_bwd.cu`` fails the run), set and
+   print the TF32 switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
    three 512x512, 20-step DDIM, CFG 7.5 requests through the pipeline call
    (batch 1, batch 1 with another seed, a two-prompt batch).  Outputs must be
@@ -49,10 +51,14 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
 8. Backward kernels against their plain version: every (shape, dtype,
    causal) the train path launched, each also in the other dtype, CLIP's
    causal shape and a ragged Sq; ``flash_bwd_dq`` and ``flash_bwd_dkv``
-   against ``flash_bwd_plain`` evaluated in fp32 per element under
-   ``utils/testing.GRAD_TOL``, the forward's lse against
-   ``attention_plain_lse``, and once a backward without di that the rule must
-   reject; kernel, plain and SDPA-backward times beside the bound.
+   evaluated per element under ``utils/testing.GRAD_TOL``: in bf16 against
+   ``attention_bwd_rounded`` (p and ds rounded to bf16 where the kernels and
+   the JAX library round them) plus ``P_FLIP_RTOL`` times its flip term, in
+   fp32 against ``flash_bwd_plain``; the forward's lse against
+   ``attention_plain_lse``; at [8,4096,8,40] bf16 four wrong backwards (di
+   = 0, dK/dV kept in bf16 between query tiles, ds unscaled, p from the row
+   max) must break the rule; kernel, plain and SDPA-backward times beside
+   the bound.
 9. Train reference: a narrow SD1.5-layout model, card against CPU, fp32:
    loss and every LoRA gradient of one ``loss_fn`` + backward.
 
@@ -669,15 +675,17 @@ def _train_bwd_cases(by_shape):
 
 def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
     """Both backward kernels and the forward's lse at one shape against
-    their plain versions evaluated in fp32 on the same inputs; times of each
-    kernel, of the plain backward, and of SDPA's backward (autograd of
+    their plain versions evaluated in fp32 on the same inputs (bf16:
+    ``attention_bwd_rounded``, which rounds p and ds to bf16 where the
+    kernels and the JAX library do, under ``GRAD_TOL`` plus its flip term;
+    fp32: ``flash_bwd_plain`` under ``GRAD_TOL``); times of each kernel, of
+    the plain backward, and of SDPA's backward (autograd of
     F.scaled_dot_product_attention minus its forward), beside each kernel's
-    bound.  With `teeth`, a backward that drops di must break the rule."""
+    bound.  With `teeth`, four wrong bf16 backwards must break the rule."""
     import torch
     import torch.nn.functional as F
 
     from stablediffusion_tpu_torch.ops.attention import (
-        _bwd_plain_from_di,
         _launch_fwd,
         _row_dot,
         attention_plain_lse,
@@ -685,13 +693,19 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
         flash_bwd_dq,
         flash_bwd_plain,
     )
-    from stablediffusion_tpu_torch.utils.testing import grad_error, kernel_error
+    from stablediffusion_tpu_torch.utils.testing import (
+        attention_bwd_rounded,
+        attention_bwd_wrong_variants,
+        grad_error,
+        kernel_error,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(4321)
     q, k, v = (torch.randn(B, S, H, D, device="cuda", dtype=dtype, generator=g)
                for S in (Sq, Skv, Skv))
     do = torch.randn(B, Sq, H, D, device="cuda", dtype=dtype, generator=g)
     scale = D**-0.5
+    rounded = dtype == torch.bfloat16
     with torch.no_grad():
         out, lse = _launch_fwd(q, k, v, scale, causal, with_lse=True)
         di = _row_dot(out, do)
@@ -700,18 +714,23 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
         torch.cuda.synchronize()
         lse_err = kernel_error(lse, attention_plain_lse(
             q.float(), k.float(), v.float(), causal=causal)[1])
-        f32 = [t.float() for t in (q, k, v, out, do)]
-        refs = flash_bwd_plain(*f32, lse, scale, causal)
-        errs = {n: grad_error(t, r) for n, t, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+        if rounded:
+            refs, flips = attention_bwd_rounded(q, k, v, out, do, lse, scale, causal)
+        else:
+            refs = flash_bwd_plain(*(t.float() for t in (q, k, v, out, do)), lse, scale, causal)
+            flips = (None,) * 3
+        errs = {n: grad_error(t, r, f)
+                for n, t, r, f in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, flips)}
         rejected = None
         if teeth:
-            # the rule's teeth: the same backward with di = 0, rounded as the
-            # kernel rounds its output, must fail it where di enters (dq, dk)
-            wrong = _bwd_plain_from_di(*f32[:3], f32[4], lse, torch.zeros_like(di), scale, causal)
-            rejected = {n: grad_error(w.to(dtype), r)["worst_over_limit"]
-                        for n, w, r in zip(("dq", "dk"), wrong[:2], refs[:2])}
-            del wrong
-        del refs, f32
+            # the rule's teeth: wrong backwards, each rounded to bf16 as the
+            # kernels round their outputs, must fail it
+            rejected = {
+                name: max(grad_error(w, r, f)["worst_over_limit"]
+                          for w, r, f in zip(wrong, refs, flips))
+                for name, wrong in attention_bwd_wrong_variants(
+                    q, k, v, out, do, lse, scale, causal).items()}
+        del refs, flips
         torch.cuda.empty_cache()
         fwd_lse_ms = _device_ms(lambda: _launch_fwd(q, k, v, scale, causal, with_lse=True),
                                 "flash_fwd", 5)
@@ -736,17 +755,18 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
                    worst_over_limit=max(errs[o]["worst_over_limit"] for o in outs),
                    typical_abs_ref=min(errs[o]["typical_abs_ref"] for o in outs),
                    atol=min(errs[o]["atol"] for o in outs), rtol=errs[outs[0]]["rtol"],
+                   ref="attention_bwd_rounded" if rounded else "flash_bwd_plain",
                    lse_worst_over_limit=lse_err["worst_over_limit"], fwd_lse_ms=fwd_lse_ms,
                    kernel_ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms_ms=terms)
         rows.append(row)
         print(json.dumps(row), flush=True)
     if rejected is not None:
-        print(json.dumps({"grad_rule_teeth": "flash_bwd_plain with di = 0 against the "
-                          "right backward", "shape": [B, Sq, H, D], "skv": Skv,
+        print(json.dumps({"grad_rule_teeth": "wrong bf16 backwards against "
+                          "attention_bwd_rounded", "shape": [B, Sq, H, D], "skv": Skv,
                           "dtype": dname, "worst_over_limit": rejected}), flush=True)
         if not min(rejected.values()) > 1.0:
-            raise AssertionError(f"the gradient rule accepts a backward without di: {rejected}")
+            raise AssertionError(f"the bf16 gradient rule accepts a wrong backward: {rejected}")
     bad = [r for r in rows if not (r["worst_over_limit"] <= 1.0 and r["lse_worst_over_limit"] <= 1.0)]
     if bad:
         raise AssertionError(f"backward kernels outside the rule: {bad}")
@@ -876,6 +896,14 @@ def main() -> int:
     _build.build()
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t:.3f} s",
           flush=True)
+    for source, log in sorted(_build.BUILD_LOGS.items()):
+        usage = _build.ptxas_usage(log)
+        print(json.dumps({"ptxas": source, "kernels": usage}), flush=True)
+        spilled = [u for u in usage if u["spill_bytes"]]
+        if source == "flash_bwd" and spilled:
+            raise AssertionError(f"flash_bwd kernels spill registers: {spilled}")
+    if set(_build.SOURCES) - set(_build.BUILD_LOGS):
+        print("ptxas: the libraries were built by an earlier run; no report", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "

@@ -266,63 +266,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 // the -1e30 mask in the log2 domain of the scaled logits
 constexpr float kMaskLog2 = sdt::kNegInf * kLog2e;
 
-using bf16 = __nv_bfloat16;
-using sdt::cp_async16;
+using sdt::bf16;
 using sdt::cp_async_commit;
 using sdt::cp_async_wait;
-using sdt::smem_u32;
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned& r0, unsigned& r1,
-                                            unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned& r0, unsigned& r1,
-                                                  unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 rounded to bf16, `lo` in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Copy `rows` rows of a tile (row stride `ld_g` elements) into shared rows of
-// DP + 8 elements, in 16-byte chunks; rows at or past `valid` and columns at
-// or past D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, long long ld_g,
-                                           int rows, int valid, int D) {
-  constexpr int kChunks = DP / 8;
-  constexpr int ld = DP + 8;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c - r * kChunks) * 8;
-    const bool ok = r < valid && col < D;
-    cp_async16(smem_u32(dst + r * ld + col), ok ? src + r * ld_g + col : src, ok);
-  }
-}
+using sdt::exp2_approx;
+using sdt::mma_bf16;
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -357,12 +305,12 @@ flash_fwd_tc_kernel(const FwdParams p) {
   auto stage_kv = [&](int kt, int buf) {
     const int k0 = kt * kTcBK;
     const int valid = min(kTcBK, p.Skv - k0);
-    stage_tile<DP>(Ks + buf * kTcBK * ld, kg + static_cast<long long>(k0) * p.k_ss, p.k_ss,
+    sdt::stage_tile<DP, kThreads>(Ks + buf * kTcBK * ld, kg + static_cast<long long>(k0) * p.k_ss, p.k_ss,
                    kTcBK, valid, p.D);
-    stage_tile<DP>(Vs + buf * kTcBK * ld, vg + static_cast<long long>(k0) * p.v_ss, p.v_ss,
+    sdt::stage_tile<DP, kThreads>(Vs + buf * kTcBK * ld, vg + static_cast<long long>(k0) * p.v_ss, p.v_ss,
                    kTcBK, valid, p.D);
   };
-  stage_tile<DP>(Qs, qg, p.q_ss, kBQ, min(kBQ, p.Sq - q0), p.D);
+  sdt::stage_tile<DP, kThreads>(Qs, qg, p.q_ss, kBQ, min(kBQ, p.Sq - q0), p.D);
   stage_kv(0, 0);
   cp_async_commit();
 
@@ -385,11 +333,7 @@ flash_fwd_tc_kernel(const FwdParams p) {
 
     if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kK16; ++kk) {
-        const int r = wrow + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int c = kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(smem_u32(Qs + r * ld + c), qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
-      }
+      for (int kk = 0; kk < kK16; ++kk) sdt::load_a<ld>(Qs, wrow, kk, qa[kk]);
     }
 
     // s = q k^T for this warp's 16 rows and the tile's 64 keys
@@ -401,12 +345,10 @@ flash_fwd_tc_kernel(const FwdParams p) {
     for (int kk = 0; kk < kK16; ++kk) {
 #pragma unroll
       for (int jp = 0; jp < kS8 / 2; ++jp) {
-        const int r = jp * 16 + (lane & 7) + (lane >> 4) * 8;  // key
-        const int c = kk * 16 + ((lane >> 3) & 1) * 8;         // head dim
-        unsigned b0, b1, b2, b3;
-        ldmatrix_x4(smem_u32(Kb + r * ld + c), b0, b1, b2, b3);
-        mma_bf16(s[2 * jp], qa[kk], b0, b1);
-        mma_bf16(s[2 * jp + 1], qa[kk], b2, b3);
+        unsigned b[4];
+        sdt::load_b_rows<ld>(Kb, jp * 16, kk, b);  // keys jp*16.., head dims of step kk
+        mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
       }
     }
 
@@ -460,18 +402,13 @@ flash_fwd_tc_kernel(const FwdParams p) {
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk) {
       unsigned a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      sdt::c_to_a(s[2 * kk], s[2 * kk + 1], a);
 #pragma unroll
       for (int np = 0; np < kN8 / 2; ++np) {
-        const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;  // key
-        const int c = np * 16 + (lane >> 4) * 8;                     // head dim
-        unsigned b0, b1, b2, b3;
-        ldmatrix_x4_trans(smem_u32(Vb + r * ld + c), b0, b1, b2, b3);
-        mma_bf16(o[2 * np], a, b0, b1);
-        mma_bf16(o[2 * np + 1], a, b2, b3);
+        unsigned b[4];
+        sdt::load_b_cols<ld>(Vb, kk * 16, np * 16, b);  // keys of step kk, head dims np*16..
+        mma_bf16(o[2 * np], a, b[0], b[1]);
+        mma_bf16(o[2 * np + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // the next iteration's copy overwrites this buffer

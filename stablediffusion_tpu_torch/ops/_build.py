@@ -20,6 +20,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers and spills of every kernel, in BUILD_LOGS
 )
 
 # C signature shared by the two forward entries: q, k, v, o, dtype,
@@ -63,6 +65,8 @@ ENTRIES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source this process compiled (ptxas -v included)
+BUILD_LOGS: Dict[str, str] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -146,11 +150,33 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
                     tmp.unlink(missing_ok=True)
                 else:
                     os.replace(tmp, paths[n])
+                    BUILD_LOGS[n] = log
             if failures:
                 raise RuntimeError("\n".join(failures))
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return paths
+
+
+def ptxas_usage(log: str) -> List[dict]:
+    """Registers and spilled bytes (stores + loads) of each kernel in an
+    nvcc log with ``-Xptxas -v``; kernels named like
+    ``flash_bwd_dq_tc_kernel<48>`` or ``flash_stream_kernel<bf16, 512>``."""
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_(?:(?!flash_)\w)*?_kernel)I(\w*?)Li(\d+)E", m.group(1))
+            dtype = {"": "", "f": "float, "}.get(k.group(2), "bf16, ") if k else ""
+            name = f"{k.group(1)}<{dtype}{k.group(3)}>" if k else m.group(1)
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill})
+    return rows
 
 
 def load(source: str) -> ctypes.CDLL:

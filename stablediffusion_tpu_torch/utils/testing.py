@@ -34,6 +34,7 @@ from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.ops.attention import _row_dot
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 
 # Limit of an attention kernel's output against its plain version evaluated in
@@ -168,22 +169,139 @@ GRAD_TOL = {
 }
 
 
-def grad_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+def grad_error(out: torch.Tensor, ref: torch.Tensor,
+               flips: Optional[torch.Tensor] = None) -> dict:
     """How far a backward kernel's gradient `out` lies from `ref`, the plain
     backward evaluated in fp32 on the same inputs, under :data:`GRAD_TOL`
     for out's dtype; ``worst_over_limit`` <= 1 means every element is within
-    its limit."""
+    its limit.  With `flips` (from :func:`attention_bwd_rounded`, for the
+    bf16 kernels, which round p and ds to bf16) the limit also takes
+    :data:`P_FLIP_RTOL` times it."""
     rtol, atol_rel, reason = GRAD_TOL[out.dtype]
     ref = ref.float()
     diff = (out.float() - ref).abs()
     atol = atol_rel * ref.abs().max().item()
     limit = ref.abs() * rtol + atol
+    if flips is not None:
+        limit = limit + P_FLIP_RTOL * flips.float()
+        reason += ("; against the same backward with p and ds rounded to bf16, plus "
+                   "2**-7 of the terms whose p or ds lies near a rounding midpoint")
     return {
         "max_abs_err": diff.max().item(),
         "worst_over_limit": (diff / limit).max().item(),
         "typical_abs_ref": ref.abs().mean().item(),
         "atol": atol, "rtol": rtol, "tol_reason": reason,
     }
+
+
+# The bf16 backward kernels round p to bf16 for dV += p^T dO and
+# ds = scale * p * (dp - di) to bf16 for dK += ds^T q and dQ += ds k, as the
+# JAX library kernels do (`p.T.astype(do.dtype)`, `ds.T.astype(do.dtype)`
+# after `ds *= sm_scale`, `ds.astype(k.dtype)`); their plain version
+# (:func:`attention_bwd_rounded`) rounds at the same places.  The kernel's
+# fp32 p differs from the plain one by exp2's approximation and the order of
+# the logits' sums, about 2**-20 of p, as in the forward; its ds also by the
+# order of dp's sum over D, an absolute error of a few fp32 ulps of
+# |dp| + |di| that (dp - di) may not shrink with it.  So a p within P_EPS of
+# itself, or a ds within P_EPS * scale * p * (|dp| + |di|) of a bf16
+# rounding midpoint may round the other way in the kernel: the limit takes
+# 2**-7 of the term that p or ds enters, summed over those.
+
+
+def _near_midpoint(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Whether x moved by up to w either way may round to another bf16."""
+    return (x - w).to(torch.bfloat16) != (x + w).to(torch.bfloat16)
+
+
+def _scaled_logits(q, k, scale, causal):
+    """fp32 q k^T * scale of one batch element, [H, Sq, Skv] from [H, S, D];
+    -inf past the diagonal when `causal`."""
+    s = (q @ k.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
+def _bwd_rounded_one(q, k, v, do, lse, di, scale, causal, scale_ds, acc_tile):
+    """:func:`attention_bwd_rounded` for one batch element, fp32 [H, S, D]
+    and [H, Sq] in; returns (dq, dk, dv, flips of each)."""
+    p = torch.exp(_scaled_logits(q, k, scale, causal) - lse[..., None])
+    dp = do @ v.transpose(-1, -2)
+    c = scale if scale_ds else 1.0
+    ds = p * (dp - di[..., None]) * c
+    w = P_EPS * c * p * (dp.abs() + di.abs()[..., None])
+    del dp
+    near_ds = _near_midpoint(ds, w)
+    del w
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    fdv = (p * _near_midpoint(p, P_EPS * p)).transpose(-1, -2) @ do.abs()
+    del p
+    ads = ds.abs() * near_ds
+    del ds, near_ds
+    fdk, fdq = ads.transpose(-1, -2) @ q.abs(), ads @ k.abs()
+    del ads
+    dq = dsb @ k
+    if acc_tile is None:
+        dv, dk = pb.transpose(-1, -2) @ do, dsb.transpose(-1, -2) @ q
+    else:  # a wrong kernel: dK and dV rounded to bf16 after each query tile
+        dv, dk = torch.zeros_like(v), torch.zeros_like(k)
+        for t in range(0, q.shape[1], acc_tile):
+            rows = slice(t, t + acc_tile)
+            dv = (dv + pb[:, rows].transpose(-1, -2) @ do[:, rows]).to(torch.bfloat16).float()
+            dk = (dk + dsb[:, rows].transpose(-1, -2) @ q[:, rows]).to(torch.bfloat16).float()
+    return dq, dk, dv, fdq, fdk, fdv
+
+
+def attention_bwd_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                          scale: Optional[float] = None, causal: bool = False, *,
+                          di: Optional[torch.Tensor] = None, scale_ds: bool = True,
+                          acc_tile: Optional[int] = None):
+    """The plain version of the bf16 backward kernels, in fp32 on q's
+    device: p = exp(s - lse), masked to 0 past the diagonal when `causal`;
+    dV = bf16(p)^T dO; ds = scale * p * (dO v^T - di) with
+    di = rowsum(O * dO); dK = bf16(ds)^T q, dQ = bf16(ds) k.  q, k, v, o, dO
+    are [B, S, H, D], lse fp32 [B, H, Sq].  Returns ((dq, dk, dv), (flips of
+    dq, dk, dv)), all fp32 [B, S, H, D]: a flip term is the sum of |the other
+    factor| * p (or |ds|) over the p (or ds) near a bf16 rounding midpoint
+    (see the note above; :func:`grad_error` takes 2**-7 of it).  One batch
+    element at a time, so that the [H, Sq, Skv] tensors stay small.  Wrong
+    kernels, for the rule's teeth: `di` in place of rowsum(O * dO);
+    `scale_ds=False` leaves the scale out of ds; `acc_tile` rounds dK and dV
+    to bf16 after every `acc_tile` query rows."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    di = _row_dot(o, do) if di is None else di
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, D]
+    per_b = [_bwd_rounded_one(qf[b], kf[b], vf[b], dof[b], lse[b].float(), di[b].float(),
+                              scale, causal, scale_ds, acc_tile)
+             for b in range(q.shape[0])]
+    out = [torch.stack(ts).transpose(1, 2) for ts in zip(*per_b)]
+    return tuple(out[:3]), tuple(out[3:])
+
+
+def attention_bwd_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                                 scale: Optional[float] = None,
+                                 causal: bool = False) -> dict:
+    """Four wrong bf16 backwards, each (dq, dk, dv) rounded to q's dtype as
+    a kernel rounds its output; otherwise :func:`attention_bwd_rounded`:
+    "no_di" (di = 0), "acc_bf16" (dK and dV kept in bf16 between 64-row
+    query tiles), "ds_unscaled" (the scale left out of ds, so of dk and dq)
+    and "lse_max_only" (p from the row max of the scaled logits, an lse
+    without log l)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qf, kf = (t.float().transpose(1, 2) for t in (q, k))
+    row_max = torch.stack([_scaled_logits(qf[b], kf[b], scale, causal).amax(-1)
+                           for b in range(q.shape[0])])
+    variants = {"no_di": dict(di=torch.zeros_like(lse)), "acc_bf16": dict(acc_tile=64),
+                "ds_unscaled": dict(scale_ds=False), "lse_max_only": dict(lse=row_max)}
+    out = {}
+    for name, kw in variants.items():
+        grads, _ = attention_bwd_rounded(q, k, v, o, do, scale=scale, causal=causal,
+                                         **{"lse": lse, **kw})
+        out[name] = tuple(g.to(q.dtype) for g in grads)
+    return out
 
 
 def random_module(cls, config, device: torch.device, dtype: torch.dtype,

@@ -25,7 +25,12 @@ from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
 )
-from stablediffusion_tpu_torch.utils.testing import attention_p_rounded, grad_error, kernel_error
+from stablediffusion_tpu_torch.utils.testing import (
+    attention_bwd_rounded,
+    attention_p_rounded,
+    grad_error,
+    kernel_error,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,33 +133,90 @@ def test_refusals(cuda):
         attention(wide, wide, wide, causal=True)
 
 
+def _bwd_within_rule(grads, q, k, v, out, do, lse, causal):
+    """Each gradient against the plain backward evaluated in fp32 on the same
+    q, k, v, dO, forward output and lse, under GRAD_TOL (stated there with
+    its reason): fp32 against flash_bwd_plain; bf16 against
+    attention_bwd_rounded, which rounds p and ds to bf16 where the kernels
+    and the JAX library do, plus 2**-7 of its flip term."""
+    if q.dtype == torch.bfloat16:
+        refs, flips = attention_bwd_rounded(q, k, v, out, do, lse, causal=causal)
+    else:
+        refs = flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
+                               causal=causal)
+        flips = (None,) * 3
+    for g, r, f in zip(grads, refs, flips):
+        assert g.dtype == q.dtype and g.shape == r.shape
+        err = grad_error(g, r, f)
+        assert err["worst_over_limit"] <= 1.0, err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "B, Sq, H, D, Skv, causal",
     [(2, 1024, 8, 40, 1024, False), (2, 256, 4, 80, 77, False),
      (2, 256, 4, 160, 256, False), (2, 77, 12, 64, 77, True),
-     (3, 100, 2, 24, 50, False), (1, 130, 2, 160, 200, True)],
+     (3, 100, 2, 24, 50, False), (1, 130, 2, 160, 200, True),
+     (8, 77, 12, 64, 77, True), (2, 1101, 8, 64, 1101, False),
+     (1, 300, 2, 80, 1101, False), (2, 1101, 2, 40, 77, False),
+     (1, 200, 2, 24, 300, True), (2, 64, 8, 160, 77, False),
+     (1, 200, 2, 128, 150, False), (1, 100, 2, 96, 130, True),
+     (1, 90, 2, 136, 100, False)],
 )
 def test_flash_bwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
-    """Both backward kernels against flash_bwd_plain evaluated in fp32 on the
-    same q, k, v, dO, forward output and lse, under GRAD_TOL; ragged and
-    causal cases included.  The forward's lse against attention_plain_lse."""
+    """Both backward kernels against their plain version (_bwd_within_rule)
+    at every head-dim bucket and at the tensor-core kernels' traps: D = 24,
+    40 and 136 (the k16 steps read zero-filled columns up to the next
+    multiple of 16, and no column past D is stored), D = 128 and up (dkv's
+    two warps per 16 keys), Skv = 77, 50 and 1101 (a ragged last key tile),
+    ragged Sq (100, 130, 1101, 300), causal (CLIP's [8, 77, 12, 64], and
+    tiles cut by the diagonal).  The forward's lse against
+    attention_plain_lse."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     do = torch.randn_like(q)
     with torch.no_grad():
         out, lse = _fwd_with_lse(q, k, v, causal)
-    ref_out, ref_lse = attention_plain_lse(q.float(), k.float(), v.float(), causal=causal)
+    ref_lse = attention_plain_lse(q.float(), k.float(), v.float(), causal=causal)[1]
     assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
     before = (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count)
     grads = flash_bwd(q, k, v, out, do, lse, causal=causal)
     torch.cuda.synchronize()
     assert (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count) == (before[0] + 1, before[1] + 1)
-    refs = flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
-                           causal=causal)
-    for g, r in zip(grads, refs):
-        assert g.dtype == dtype and g.shape == r.shape
-        err = grad_error(g, r)
-        assert err["worst_over_limit"] <= 1.0, err
+    _bwd_within_rule(grads, q, k, v, out, do, lse, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give bit-identical
+    gradients."""
+    q, k, v = _qkv(cuda, dtype, 2, 1024, 4, 40, 1024)
+    do = torch.randn_like(q)
+    with torch.no_grad():
+        out, lse = _fwd_with_lse(q, k, v, False)
+    first = flash_bwd(q, k, v, out, do, lse)
+    second = flash_bwd(q, k, v, out, do, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B, Sq, H, D, Skv, causal",
+                         [(2, 300, 4, 40, 300, False), (2, 256, 4, 80, 77, False),
+                          (2, 77, 12, 64, 77, True), (1, 128, 2, 160, 130, False)])
+def test_flash_attn_fn_bf16_matches_rounded(cuda, B, Sq, H, D, Skv, causal):
+    """bf16 gradients through FlashAttnFn (the forward with lse, then both
+    backward kernels), with dO a transposed view so that the wrapper's
+    layout check makes it contiguous, against attention_bwd_rounded
+    evaluated on the forward's own output and lse, under the bf16 rule."""
+    q, k, v = _qkv(cuda, torch.bfloat16, B, Sq, H, D, Skv)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves, causal=causal)
+    assert out.grad_fn is not None and "FlashAttnFn" in type(out.grad_fn).__name__
+    do = torch.randn(B, H, Sq, D, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    grads = torch.autograd.grad(out, leaves, do)
+    with torch.no_grad():
+        out_lse, lse = _fwd_with_lse(q, k, v, causal)
+    assert torch.equal(out_lse, out.detach())
+    _bwd_within_rule(grads, q, k, v, out.detach(), do, lse, causal)
 
 
 def _fwd_with_lse(q, k, v, causal):
@@ -167,9 +229,8 @@ def _fwd_with_lse(q, k, v, causal):
 def test_flash_attn_fn_matches_plain_autograd(cuda, causal):
     """Gradients through FlashAttnFn (the kernels) against torch autograd of
     attention_plain, fp32, with dO strided (a transposed view) so that the
-    wrapper's layout check acts.  (fp32 runs the scalar forward; the bf16
-    tensor-core forward under the backward is held in phase 8 of
-    chip_smoke.py and in test_flash_bwd_matches_plain.)"""
+    wrapper's layout check acts.  (fp32 runs the scalar kernels; bf16
+    through FlashAttnFn is test_flash_attn_fn_bf16_matches_rounded.)"""
     q, k, v = _qkv(cuda, torch.float32, 2, 200, 3, 40, 200 if causal else 77)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = attention(*leaves, causal=causal)

@@ -19,7 +19,7 @@ from stablediffusion_tpu_torch.ops.attention import (
     attention_plain,
     flash_fwd,
 )
-from stablediffusion_tpu_torch.ops._build import attention_launch_args
+from stablediffusion_tpu_torch.ops._build import attention_launch_args, ptxas_usage
 from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
@@ -198,6 +198,27 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 8, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         attention_launch_args("flash_fwd", x, x, x, 8, 160)
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """chip_smoke.py's register report: nvcc's ``-Xptxas -v`` lines of two
+    kernels (a template instance with a spill, one with a type argument)
+    read back as name, registers and spilled bytes."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a_12_flash_bwd_cu_2b"
+        "23flash_bwd_dkv_tc_kernelILi80EEEvNS_9BwdParamsE' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    16 bytes stack frame, 16 bytes spill stores, 36 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1c_15_flash_stream_cu_3d"
+        "19flash_stream_kernelI13__nv_bfloat16Li512EEEvNS_12StreamParamsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 1 barriers",
+    ])
+    assert ptxas_usage(log) == [
+        {"kernel": "flash_bwd_dkv_tc_kernel<80>", "registers": 255, "spill_bytes": 52},
+        {"kernel": "flash_stream_kernel<bf16, 512>", "registers": 254, "spill_bytes": 0},
+    ]
 
 
 # (B, Sq, H, D, Skv, the key block _lib_flash picks): more than one key
