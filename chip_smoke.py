@@ -61,6 +61,21 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    the bound.
 9. Train reference: a narrow SD1.5-layout model, card against CPU, fp32:
    loss and every LoRA gradient of one ``loss_fn`` + backward.
+10. Serving: a full-width SD1.5 folder written by ``save_sd_model`` (random
+   weights, a synthetic byte-level BPE vocabulary) is loaded by the HTTP
+   worker (``serve.worker``, max_batch 4) on 127.0.0.1, every tensor equal
+   to the saved one, and asked over loopback: 512x512 txt2img under six
+   schedulers switched by the model block, img2img at strength 0.6 from the
+   first reply's JPEG, blend4 inpainting, a 768x768 request with the tiled
+   decode, a request naming LoRAs (answered on the error channel), a burst
+   of four that the batcher merges, and one request twice alone (the same
+   bytes).  Each request's launches must equal what its plan implies.
+   Walls, images/s, group sizes, JPEG time, and merged against solo pixels
+   (the kernels themselves batch-invariant, bit for bit).
+11. The forward kernels at every shape the serving path launched that no
+   earlier phase held, under phase 3's rules and times.
+12. Inpaint reference: concat9 on a narrow 9-channel model, card against
+   CPU, fp32, the same injected draws, a stochastic scheduler.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -259,17 +274,18 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     return row
 
 
-def _cases(by_shape):
-    """Every (kernel, B, Sq, H, D, Skv, causal) the main path launched, the
-    UNet's (flash_fwd, not causal) at batch 1 also at B=16, and a ragged VAE
-    length."""
+def _cases(by_shape, widen=True):
+    """Every (kernel, B, Sq, H, D, Skv, causal) a path launched; with
+    `widen`, the UNet's (flash_fwd, not causal) at batch 1 also at B=16,
+    and a ragged VAE length."""
     cases = set()
     for name, shapes in by_shape.items():
         for (qs, skv, _dtype, causal, _lse) in shapes:
             cases.add((name, *qs, skv, causal))
-            if name == "flash_fwd" and not causal and qs[0] == 2:
+            if widen and name == "flash_fwd" and not causal and qs[0] == 2:
                 cases.add((name, 16, *qs[1:], skv, causal))
-    cases.add(("flash_stream", 1, 4096, 1, 512, 4100, False))
+    if widen:
+        cases.add(("flash_stream", 1, 4096, 1, 512, 4100, False))
     return sorted(cases)
 
 
@@ -875,6 +891,360 @@ def phase_train_reference():
         raise AssertionError(f"train step on the card disagrees with the CPU: {worst}")
 
 
+# -- the serving slice ---------------------------------------------------------
+
+SERVE_SCHEDULERS = ("DDIM", "euler_a", "DPM++ 2M Karras", "DPM++ 2M SDE Karras",
+                    "uni_pc", "heun")
+SERVE_STEPS = 20
+SERVE_BURST = 4  # the worker's max_batch and the burst's size
+# merged against solo, raw uint8 pixels: the kernels are batch-invariant
+# (checked bit-exact below), but cuDNN's and cuBLAS's algorithms for the
+# bf16 convolutions and GEMMs are chosen by batch size, so their rounding
+# differs, and CFG 7.5 amplifies it through 20 steps; held at 16 levels
+SERVE_MERGED_LEVELS = 16
+
+
+def _post(port: int, body: dict, timeout: float = 900.0):
+    """(HTTP status, JSON reply, wall seconds) of one POST to the worker."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t = time.perf_counter()
+        conn.request("POST", "/", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        reply = json.loads(resp.read())
+        return resp.status, reply, time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def _folder_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_serve(card: str):
+    """Serving: a full-width SD1.5 folder written by ``save_sd_model``,
+    loaded by the HTTP worker (``serve.worker``) on 127.0.0.1 and asked
+    over loopback, with exact launch counts per request from the plans."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.loader import save_sd_model
+    from stablediffusion_tpu_torch.models.vae import VAEAttention
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES, flash_fwd
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.schedulers import make_scheduler
+    from stablediffusion_tpu_torch.serve.handler import decode_image_b64, encode_images_b64
+    from stablediffusion_tpu_torch.serve.worker import build, parse_args
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        synthetic_clip_tokenizer,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    server = thread = None
+    try:
+        # 1. write the folder
+        model = random_full_model("sd15", device="cuda", seed=4)
+        model.tokenizer = synthetic_clip_tokenizer()
+        folder = os.path.join(root, "sd15_chip")
+        t = time.perf_counter()
+        save_sd_model(model, folder)
+        save_s = time.perf_counter() - t
+        # 2. load it: the worker's own --model_name load, onto the card
+        t = time.perf_counter()
+        server = build(parse_args([
+            "--host", "127.0.0.1", "--port", "0", "--model_dir", root,
+            "--model_name", "chip", "--model_type", "sd15",
+            "--max_batch", str(SERVE_BURST), "--batch_window_ms", "200"]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        handler = server.handler
+        loaded = handler.model
+        n_tensors = 0
+        for comp in ("unet", "vae", "text_encoder"):
+            a, b = getattr(model, comp).state_dict(), getattr(loaded, comp).state_dict()
+            if a.keys() != b.keys():
+                raise AssertionError(f"{comp}: loaded keys differ from the saved ones")
+            for k in a:
+                if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])):
+                    raise AssertionError(f"{comp}.{k}: loaded tensor differs from the saved one")
+            n_tensors += len(a)
+        print(json.dumps({"serve_folder": "full-width SD1.5, random weights (seed 4), "
+                          "synthetic byte-level BPE", "bytes": _folder_bytes(folder),
+                          "tensors_equal": n_tensors, "save_s": save_s,
+                          "load_s": load_s, "card": card}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+        # 3. the worker in a thread
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+
+        # the launches a request must make, from its plan: one CLIP encode
+        # each for the prompts and the negatives, two attentions per
+        # transformer block per UNet evaluation, one mid-block attention
+        # per VAE encode and per decode tile
+        n_clip = loaded.text_encoder_config.num_hidden_layers
+        n_tf, n_dec = _count_blocks(loaded)
+        n_enc = sum(isinstance(m, VAEAttention) for m in loaded.vae.encoder.modules())
+        probe = StableDiffusionUnifiedPipeline(device="cuda")
+
+        def evals(name, steps, strength=1.0):
+            sched = make_scheduler(name, loaded.scheduler_config)
+            return probe.get_timesteps(sched, steps, strength, None)[0].num_steps
+
+        def want(n_evals, streams):
+            return {"flash_fwd": 2 * n_clip + 2 * n_tf * n_evals, "flash_stream": streams}
+
+        counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+        for c in counters.values():
+            c.reset()
+        base = dict(prompt="a photograph of an astronaut riding a horse", height=512,
+                    width=512, num_inference_steps=SERVE_STEPS, guidance_scale=7.5)
+        mask = np.zeros((1, 512, 512, 3), np.uint8)
+        mask[:, 128:384, 128:384] = 255
+        mask_b64 = encode_images_b64(mask)[0]
+        rows = []
+
+        def ask(label, body, expect, batch1_txt2img=False):
+            before = {n: c.count for n, c in counters.items()}
+            status, reply, wall = _post(port, {"id": label, "input": body})
+            got = {n: c.count - before[n] for n, c in counters.items()}
+            row = {"serve_request": label, "status": status, "wall_s": wall,
+                   "launches": got, "expected_launches": expect,
+                   "seed": reply.get("seed"), "card": card}
+            print(json.dumps(row), flush=True)
+            if expect is not None:
+                if status != 200 or "error" in reply:
+                    raise AssertionError(f"{label}: {reply.get('error')}\n"
+                                         f"{reply.get('traceback')}")
+                if reply["seed"] != body["seed"] or len(reply["images"]) != 1:
+                    raise AssertionError(f"{label}: seed {reply['seed']} or images wrong")
+                px = decode_image_b64(reply["images"][0])
+                if px.shape != (body["height"], body["width"], 3) or not np.isfinite(px).all():
+                    raise AssertionError(f"{label}: image {px.shape}")
+                if got != expect:
+                    raise AssertionError(f"{label}: launches {got} != expected {expect}")
+            rows.append(dict(row, batch1_txt2img=batch1_txt2img))
+            return reply
+
+        # 4. the requests
+        first = None
+        for k, name in enumerate(SERVE_SCHEDULERS):
+            reply = ask(f"txt2img {name}", {**base, "seed": 100 + k,
+                                            "model": {"scheduler": name}},
+                        want(evals(name, SERVE_STEPS), n_dec), batch1_txt2img=True)
+            first = first or reply
+        ask("img2img strength 0.6", {**base, "seed": 7, "image": first["images"][0],
+                                     "strength": 0.6, "model": {"scheduler": "DDIM"}},
+            want(evals("DDIM", SERVE_STEPS, 0.6), n_enc + n_dec))
+        ask("inpaint blend4 strength 1.0", {**base, "seed": 8, "image": first["images"][0],
+                                            "mask_image": mask_b64, "strength": 1.0},
+            want(evals("DDIM", SERVE_STEPS), n_enc + n_dec))
+        # 768x768: 96x96 latents decode in 2x2 tiles of 64 (stride 48)
+        tiles = (-(-96 // 48)) ** 2
+        ask("txt2img 768x768 vae_tiling", {**base, "seed": 9, "height": 768, "width": 768,
+                                           "num_inference_steps": 10, "vae_tiling": True},
+            want(evals("DDIM", 10), tiles * n_dec))
+        err = ask("loras on the error channel", {**base, "seed": 10,
+                                                 "model": {"loras": [{"name": "x"}]}}, None)
+        if "error" not in err or "item 14" not in err["error"]:
+            raise AssertionError(f"loras request: {err}")
+
+        # the burst: concurrent batchable requests the batcher merges
+        prompts = ["a red bicycle by a canal", "a lighthouse at dusk",
+                   "a bowl of ramen", "a snowy mountain village"]
+        burst = [{**base, "prompt": p, "seed": 200 + i} for i, p in enumerate(prompts)]
+        merged_before = server.batcher.merged_calls
+        before = {n: c.count for n, c in counters.items()}
+        replies = [None] * SERVE_BURST
+
+        def go(i):
+            replies[i] = _post(port, {"id": f"burst-{i}", "input": burst[i]})
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(SERVE_BURST)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        burst_s = time.perf_counter() - t
+        got = {n: c.count - before[n] for n, c in counters.items()}
+        groups = server.batcher.merged_calls - merged_before
+        sizes = sorted(r[1].get("batched", 0) for r in replies if r is not None)
+        bad = [r for r in replies if r is None or r[0] != 200 or "error" in r[1]]
+        if bad:
+            raise AssertionError(f"burst: {bad}")
+        # each merged call: one CLIP pass each way over the group, one UNet
+        # evaluation per step, one decode launch for the group
+        expect = {n: groups * v for n, v in want(evals("DDIM", SERVE_STEPS), n_dec).items()}
+        print(json.dumps({"serve_burst": SERVE_BURST, "merged_calls": groups,
+                          "batched_per_reply": sizes, "wall_s": burst_s,
+                          "images_per_s": SERVE_BURST / burst_s,
+                          "reply_walls_s": [r[2] for r in replies],
+                          "launches": got, "expected_launches": expect,
+                          "card": card}), flush=True)
+        if max(sizes) < 2:
+            raise AssertionError(f"the batcher merged none of the burst: {sizes}")
+        if got != expect:
+            raise AssertionError(f"burst: launches {got} != expected {expect}")
+
+        # solo against merged, and the same request twice alone
+        solo = [ask(f"burst request 0 alone #{j}", {**burst[0]},
+                    want(evals("DDIM", SERVE_STEPS), n_dec), batch1_txt2img=True)
+                for j in range(2)]
+        serve_launches = {n: c.count for n, c in counters.items()}
+        serve_by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+        if min(serve_launches.values()) == 0:
+            raise AssertionError(f"a kernel of the serving path never launched: {serve_launches}")
+        if solo[0]["images"] != solo[1]["images"]:
+            raise AssertionError("the same request twice gave different images")
+        jpeg_diff = np.abs(decode_image_b64(solo[0]["images"][0])
+                           - decode_image_b64(replies[0][1]["images"][0])) * 255
+        walls = sorted(r["wall_s"] for r in rows if r["batch1_txt2img"])
+        t = time.perf_counter()
+        px = (decode_image_b64(solo[0]["images"][0]) * 255).round().astype(np.uint8)[None]
+        for _ in range(10):
+            encode_images_b64(px)
+        jpeg_ms = (time.perf_counter() - t) / 10 * 1e3
+
+        # the raw pixels of the same merged call and the solo one, through
+        # the handler's own pipeline call, and the kernels' batch invariance
+        merged_args = dict(base, prompt=prompts, negative_prompt=[""] * SERVE_BURST,
+                           seed=[b["seed"] for b in burst])
+        solo_args = dict(base, prompt=prompts[:1], negative_prompt=[""], seed=[burst[0]["seed"]])
+        raw_merged = handler._generate(merged_args).images[0].astype(np.int16)
+        raw_solo = handler._generate(solo_args).images[0].astype(np.int16)
+        raw_diff = np.abs(raw_merged - raw_solo)
+        _profile("the burst's merged call: 4 prompts (B=8 under CFG), 512x512, 20 DDIM "
+                 "steps, CFG 7.5, uint8 out", lambda: handler._generate(merged_args))
+        g = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v = (torch.randn(8, 4096, 8, 40, device="cuda", dtype=torch.bfloat16,
+                               generator=g) for _ in range(3))
+        kernel_invariant = torch.equal(flash_fwd(q, k, v)[2:4], flash_fwd(q[2:4], k[2:4], v[2:4]))
+        summary = {
+            "serve_summary": "HTTP over loopback, full-width SD1.5 512x512, CFG 7.5",
+            "p50_wall_s_batch1_txt2img": walls[len(walls) // 2],
+            "batch1_txt2img_walls_s": walls, "jpeg_encode_ms_512": jpeg_ms,
+            "repeat_bit_identical": True, "merged_vs_solo_jpeg_max_levels": float(jpeg_diff.max()),
+            "merged_vs_solo_raw_max_levels": int(raw_diff.max()),
+            "merged_vs_solo_raw_mean_levels": float(raw_diff.mean()),
+            "merged_vs_solo_limit_levels": SERVE_MERGED_LEVELS,
+            "flash_fwd_batch_invariant_bitwise": kernel_invariant,
+            "launches": serve_launches, "card": card}
+        print(json.dumps(summary), flush=True)
+        if not kernel_invariant:
+            raise AssertionError("flash_fwd gives another result for a sample in a larger batch")
+        if raw_diff.max() > SERVE_MERGED_LEVELS:
+            raise AssertionError(f"merged and solo differ by {raw_diff.max()} levels")
+        return serve_launches, serve_by_shape
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if thread is not None:
+            thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serve_kernels(by_shape, checked):
+    """Phase 3's check and times at every shape the serving path launched
+    that no earlier phase held (768x768, the merged burst's B=8 and B=4)."""
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import attention_plain, flash_fwd
+    from stablediffusion_tpu_torch.ops.flash_attention import flash_stream, flash_stream_plain
+
+    fns = {"flash_fwd": (flash_fwd, attention_plain),
+           "flash_stream": (flash_stream, flash_stream_plain)}
+    rows, seen = [], []
+    for (name, B, Sq, H, D, Skv, causal) in _cases(by_shape, widen=False):
+        if (name, B, Sq, H, D, Skv, causal) in checked:
+            seen.append([name, B, Sq, H, D, Skv, causal])
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            key = ((B, Sq, H, D), Skv, str(dtype).replace("torch.", ""), causal, False)
+            row = kernel_case(name, *fns[name], B, Sq, H, D, Skv, dtype, causal,
+                              by_shape[name].get(key, 0), 0)
+            rows.append(dict(row, path="serve"))
+    print(json.dumps({"serve_shapes_held_by_earlier_phases": seen}), flush=True)
+    return rows
+
+
+def phase_inpaint_reference():
+    """concat9 inpainting, card (kernels) against CPU (plain attention),
+    fp32, on a narrow 9-channel model from the tiny configs at SD1.5 head
+    dims (a VAE whose mid-block takes flash_stream), the same weights and
+    the same injected draws, through a stochastic scheduler."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import (
+        SD15_TEXT_ENCODER,
+        tiny_unet_config,
+        tiny_vae_config,
+    )
+    from stablediffusion_tpu_torch.models.wrapper import SDModel
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
+
+    ucfg = dataclasses.replace(
+        tiny_unet_config(cross_attention_dim=768, in_channels=9),
+        block_out_channels=(320, 640), num_attention_heads=8,
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"), norm_num_groups=32)
+    vcfg = dataclasses.replace(tiny_vae_config(), block_out_channels=(64, 192))
+    tcfg = dataclasses.replace(SD15_TEXT_ENCODER, num_hidden_layers=2)
+    cpu = random_model(ucfg, vcfg, tcfg, bench_tokenizer(), device="cpu",
+                       dtype=torch.float32, seed=5)
+    gpu = SDModel(unet_config=ucfg, unet=copy.deepcopy(cpu.unet).cuda(), vae_config=vcfg,
+                  vae=copy.deepcopy(cpu.vae).cuda(), text_encoder_config=tcfg,
+                  text_encoder=copy.deepcopy(cpu.text_encoder).cuda(), tokenizer=cpu.tokenizer)
+    r = np.random.default_rng(12)
+    steps, hw = 4, 16
+    draws = {"latents": r.standard_normal((1, hw, hw, 4)).astype(np.float32),
+             "encode": r.standard_normal((1, hw, hw, 4)).astype(np.float32),
+             "encode_masked": r.standard_normal((1, hw, hw, 4)).astype(np.float32),
+             "steps": r.standard_normal((steps, 1, hw, hw, 4)).astype(np.float32)}
+    image = r.uniform(0, 1, (1, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((32, 32), np.float32)
+    mask[8:24, 8:24] = 1.0
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        model.set_scheduler("DPM++ 2M SDE Karras")
+        pipe = StableDiffusionUnifiedPipeline(device=name, dtype=torch.float32)
+        f0, s0 = FLASH_FWD_LAUNCHES.count, FLASH_STREAM_LAUNCHES.count
+        outs[name] = pipe(model, prompt="a small red house", image=image, mask_image=mask,
+                          num_inference_steps=steps, guidance_scale=7.5, seed=0,
+                          draws=draws, output_type="np").images
+        if name == "cuda" and (FLASH_FWD_LAUNCHES.count == f0
+                               or FLASH_STREAM_LAUNCHES.count == s0):
+            raise AssertionError("concat9 reference on the card launched no kernel")
+    err = float(np.abs(outs["cpu"] - outs["cuda"]).max())
+    print(json.dumps({"inpaint_reference": "concat9, narrow 9-channel SD1.5 layout, "
+                      "DPM++ 2M SDE Karras, card vs CPU, fp32", "images_max_abs_err": err,
+                      "tol": REF_TOL}), flush=True)
+    if not err <= REF_TOL:
+        raise AssertionError(f"concat9 on the card disagrees with the CPU: {err}")
+
+
 def main() -> int:
     import torch
 
@@ -921,10 +1291,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += phase_train_kernels(train_by_shape)
     phase_train_reference()
+    torch.cuda.empty_cache()
+
+    serve_launches, serve_by_shape = phase_serve(smi)
+    torch.cuda.empty_cache()
+    checked = {(r["kernel"], *r["shape"], r["skv"], r["causal"]) for r in rows}
+    rows += phase_serve_kernels(serve_by_shape, checked)
+    phase_inpaint_reference()
 
     # one line per kernel, at its heaviest main-path shape; launches from the
     # path that needs the kernel (txt2img for the forwards, training for the
-    # backward), with both paths' counts beside
+    # backward), with every path's counts beside
     main_case = {
         "flash_fwd": dict(shape=[2, 4096, 8, 40], skv=4096, dtype="bfloat16"),
         "flash_stream": dict(shape=[1, 4096, 1, 512], skv=4096, dtype="float32"),
@@ -951,7 +1328,8 @@ def main() -> int:
                    and r.get("path") != "train"
                    and all(r[k] == v for k, v in want.items()))
         mine = [r for r in rows if r["kernel"] == name]
-        by_path = {"txt2img": launches.get(name, 0), "train": train_launches[name]}
+        by_path = {"txt2img": launches.get(name, 0), "serve": serve_launches.get(name, 0),
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],

@@ -10,6 +10,7 @@ so ``dataclasses.asdict`` of a preset here equals that of its counterpart.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -35,6 +36,23 @@ class CLIPTextConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "CLIPTextConfig":
+        archs = d.get("architectures") or []
+        return cls(
+            vocab_size=d.get("vocab_size", 49408),
+            hidden_size=d.get("hidden_size", 768),
+            intermediate_size=d.get("intermediate_size", 3072),
+            num_hidden_layers=d.get("num_hidden_layers", 12),
+            num_attention_heads=d.get("num_attention_heads", 12),
+            max_position_embeddings=d.get("max_position_embeddings", 77),
+            hidden_act=d.get("hidden_act", "quick_gelu"),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+            projection_dim=d.get("projection_dim", d.get("hidden_size", 768)),
+            with_projection="CLIPTextModelWithProjection" in archs,
+            eos_token_id=d.get("eos_token_id", 49407),
+        )
 
 
 # openai/clip-vit-large-patch14 — the SD1.5 text encoder
@@ -79,6 +97,25 @@ class VAEConfig:
     @property
     def vae_scale_factor(self) -> int:
         return 2 ** (len(self.block_out_channels) - 1)
+
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "VAEConfig":
+        return cls(
+            in_channels=d.get("in_channels", 3),
+            out_channels=d.get("out_channels", 3),
+            block_out_channels=tuple(d.get("block_out_channels", (128, 256, 512, 512))),
+            layers_per_block=d.get("layers_per_block", 2),
+            latent_channels=d.get("latent_channels", 4),
+            norm_num_groups=d.get("norm_num_groups", 32),
+            sample_size=d.get("sample_size", 512),
+            scaling_factor=d.get("scaling_factor", 0.18215),
+            force_upcast=bool(d.get("force_upcast", True)),
+            latents_mean=tuple(d["latents_mean"]) if d.get("latents_mean") else None,
+            latents_std=tuple(d["latents_std"]) if d.get("latents_std") else None,
+            shift_factor=d.get("shift_factor"),
+            use_quant_conv=bool(d.get("use_quant_conv", True)),
+            use_post_quant_conv=bool(d.get("use_post_quant_conv", True)),
+        )
 
 
 SD15_VAE = VAEConfig()
@@ -142,8 +179,47 @@ class UNetConfig:
         t = self.transformer_layers_per_block
         return t[i] if isinstance(t, tuple) else t
 
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "UNetConfig":
+        heads = d.get("num_attention_heads")
+        if heads is None:
+            # SD1.x/2.x quirk: `attention_head_dim` holds the head *count*
+            heads = d.get("attention_head_dim", 8)
+        if isinstance(heads, list):
+            heads = tuple(heads)
+        tf_layers = d.get("transformer_layers_per_block", 1)
+        if isinstance(tf_layers, list):
+            tf_layers = tuple(tf_layers)
+        return cls(
+            sample_size=d.get("sample_size", 64),
+            in_channels=d.get("in_channels", 4),
+            out_channels=d.get("out_channels", 4),
+            down_block_types=tuple(d["down_block_types"]),
+            up_block_types=tuple(d["up_block_types"]),
+            block_out_channels=tuple(d["block_out_channels"]),
+            layers_per_block=d.get("layers_per_block", 2),
+            transformer_layers_per_block=tf_layers,
+            num_attention_heads=heads,
+            cross_attention_dim=d.get("cross_attention_dim", 768),
+            use_linear_projection=bool(d.get("use_linear_projection", False)),
+            norm_num_groups=d.get("norm_num_groups", 32),
+            norm_eps=d.get("norm_eps", 1e-5),
+            flip_sin_to_cos=bool(d.get("flip_sin_to_cos", True)),
+            freq_shift=d.get("freq_shift", 0),
+            addition_embed_type=d.get("addition_embed_type"),
+            addition_time_embed_dim=d.get("addition_time_embed_dim"),
+            projection_class_embeddings_input_dim=d.get(
+                "projection_class_embeddings_input_dim"
+            ),
+            time_embedding_dim=d.get("time_embedding_dim"),
+        )
+
 
 SD15_UNET = UNetConfig()
+
+# 9-channel inpainting UNet (runwayml/stable-diffusion-inpainting): the
+# pipeline's concat9 mode feeds [latents, mask, masked-image latents]
+SD15_INPAINT_UNET = dataclasses.replace(SD15_UNET, in_channels=9)
 
 
 def tiny_unet_config(
@@ -169,8 +245,8 @@ def tiny_unet_config(
 
 @dataclass(frozen=True)
 class SchedulerConfig:
-    """Shared scheduler config; this slice's DDIM reads the beta schedule,
-    timestep spacing, prediction type and the DDIM flags."""
+    """Shared scheduler config of the 15 schedulers; the registry
+    (``schedulers/__init__.py``) overrides fields per name."""
 
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
@@ -188,6 +264,11 @@ class SchedulerConfig:
     solver_type: str = "bh2"
     rescale_betas_zero_snr: bool = False
     shift: float = 3.0
+
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "SchedulerConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 SD15_SCHEDULER = SchedulerConfig()

@@ -1,1 +1,1 @@
-"""Weight exchange with the JAX package's param trees."""
+"""Checkpoint IO: diffusers folders, safetensors, and weight exchange with the JAX package's param trees."""

@@ -1,0 +1,286 @@
+"""Diffusers-layout checkpoint folders -> SDModel, and back.
+
+Port of the SD1.x subset of ``stablediffusion_tpu/io/loader.py``:
+``resolve_checkpoint`` (:42, local folders only), ``_find_weights`` (:169,
+the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
+``_resolve_scheduler_name`` (:252), ``load_sd_model`` (:275),
+``save_sd_model`` (:497, floating point only) and the config writers
+(:649-680).
+
+The port's modules carry diffusers' parameter names and torch layouts, which
+are what diffusers files hold, so a component loads by a strict copy into
+its ``state_dict``: no transposes, ``position_ids`` dropped, and every
+missing, unexpected or misshapen key raises.  Components are built on the
+meta device and filled straight from the safetensors mmap on their device.
+Not ported here (each raises and names its ROADMAP §1 item): SDXL folders
+(item 13), A1111 single files (item 14), int8-on-disk folders and
+``quantize=`` (item 16), SD3 (item 18).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from stablediffusion_tpu_torch.core.config import (
+    CLIPTextConfig,
+    SchedulerConfig,
+    UNetConfig,
+    VAEConfig,
+    default_dtype,
+    resolve_device,
+)
+from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile, save_safetensors
+from stablediffusion_tpu_torch.models.clip import CLIPTextModel
+from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
+from stablediffusion_tpu_torch.models.vae import AutoencoderKL
+from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
+
+DEFAULT_CHECKPOINTS = {
+    "sd15": "runwayml/stable-diffusion-v1-5",
+    "sdxl": "stabilityai/stable-diffusion-xl-base-1.0",
+}
+REGISTRY_PREFIX = "OnMoon"
+
+_LATER = {
+    "sdxl": "SDXL folders come with ROADMAP §1 item 13",
+    "single_file": "A1111 single-file checkpoints come with ROADMAP §1 item 14",
+    "int8": "int8 checkpoints and quantize= come with ROADMAP §1 item 16",
+    "sd3": "SD3 comes with ROADMAP §1 item 18",
+}
+
+
+def resolve_checkpoint(
+    model_type: str, model_name: Optional[str] = None, cache_dir: Optional[str] = None
+) -> str:
+    """model_name -> local path: ``{type}_{name}`` under the model dir
+    (``SDTPU_MODEL_DIR``, default ``models``), a single file given by path
+    or name, or the default checkpoint's folder name.  Local only: a
+    checkpoint that is not on disk raises ``FileNotFoundError``."""
+    cache_dir = cache_dir or os.environ.get("SDTPU_MODEL_DIR", "models")
+    if model_name and model_name.endswith((".safetensors", ".ckpt")):
+        for cand in (model_name, os.path.join(cache_dir, model_name)):
+            if os.path.isfile(cand):
+                return cand
+        raise FileNotFoundError(f"single-file checkpoint {model_name!r} not "
+                                f"found (also tried under {cache_dir})")
+    if model_name is None:
+        repo = DEFAULT_CHECKPOINTS[model_type]
+        local = os.path.join(cache_dir, repo.split("/")[-1])
+    else:
+        local = os.path.join(cache_dir, f"{model_type}_{model_name}")
+        repo = f"{REGISTRY_PREFIX}/{model_type}_{model_name}"
+    if os.path.isdir(local):
+        return local
+    raise FileNotFoundError(
+        f"checkpoint {repo!r} not found locally at {local} (the port reads "
+        "local folders only)"
+    )
+
+
+def _read_json(path: str) -> dict:
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _find_weights(folder: str, variant: Optional[str] = "fp16"):
+    """The weight file(s) of a component folder, the `variant` first; a
+    sharded checkpoint through its index json."""
+    names = os.listdir(folder)
+    for base in ("diffusion_pytorch_model", "model"):
+        for v in ([f".{variant}", ""] if variant else [""]):
+            idx = f"{base}{v}.safetensors.index.json"
+            if idx in names:
+                index = _read_json(os.path.join(folder, idx))
+                shards = sorted(set(index["weight_map"].values()))
+                return [os.path.join(folder, s) for s in shards]
+            fn = f"{base}{v}.safetensors"
+            if fn in names:
+                return [os.path.join(folder, fn)]
+    raise FileNotFoundError(f"no safetensors weights in {folder}")
+
+
+def load_component_state(folder: str, module: nn.Module,
+                         variant: Optional[str] = "fp16") -> nn.Module:
+    """Copy a component folder's tensors into `module`'s state dict, each
+    cast to the dtype of the parameter or buffer it fills, on its device.
+    Strict: a missing, unexpected or misshapen key raises."""
+    targets = module.state_dict(keep_vars=True)
+    seen = set()
+    files = [SafetensorsFile(p) for p in _find_weights(folder, variant)]
+    try:
+        for f in files:
+            if f.metadata.get("sdtpu_quant") or f.metadata.get("sdtpu_layout"):
+                raise NotImplementedError(f"{folder}: {_LATER['int8']}")
+            for name in f.keys():
+                if name.endswith("position_ids"):
+                    continue
+                if name not in targets:
+                    raise KeyError(f"{folder}: unexpected tensor {name!r}")
+                if f.shape(name) != tuple(targets[name].shape):
+                    raise ValueError(f"{folder}: {name} has shape {f.shape(name)}, "
+                                     f"the module {tuple(targets[name].shape)}")
+                with torch.no_grad():
+                    targets[name].copy_(f.torch_tensor(name))
+                seen.add(name)
+    finally:
+        for f in files:
+            f.close()
+    missing = sorted(set(targets) - seen)
+    if missing:
+        raise KeyError(f"{folder}: {len(missing)} tensors missing, e.g. {missing[:5]}")
+    return module
+
+
+def _empty_module(cls, config, device: torch.device, dtype: torch.dtype) -> nn.Module:
+    with torch.device("meta"):
+        module = cls(config)
+    return module.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+
+
+# converter --scheduler_type choice -> serving registry name
+_CONVERTER_SCHEDULER_NAMES = {
+    "ddim": "DDIM",
+    "pndm": "PNDM",
+    "lms": "lms",
+    "heun": "heun",
+    "euler": "euler",
+    "euler-ancestral": "euler_a",
+    "dpm": "DPM++ 2M",
+}
+
+
+def _resolve_scheduler_name(path: str, scheduler_name: Optional[str]) -> str:
+    """None means auto: a folder's recorded ``_scheduler_type``
+    (model_index.json) before the DDIM default."""
+    if scheduler_name is not None:
+        return scheduler_name
+    idx = os.path.join(path, "model_index.json")
+    if os.path.exists(idx):
+        stype = _read_json(idx).get("_scheduler_type")
+        if stype:
+            return _CONVERTER_SCHEDULER_NAMES.get(stype, stype)
+    return "DDIM"
+
+
+def load_sd_model(
+    path: str,
+    model_type: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+    variant: Optional[str] = "fp16",
+    scheduler_name: Optional[str] = None,
+) -> SDModel:
+    """Load a diffusers-layout SD1.x folder onto `device` (default
+    ``cuda``; raises without a card unless ``device="cpu"``).  The UNet and
+    the VAE are held in `dtype` (default: the device's compute dtype), the
+    text encoder in fp32, as ``utils/testing.random_model`` holds them."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    if os.path.isfile(path):
+        raise NotImplementedError(f"{path}: {_LATER['single_file']}")
+    if model_type is None:
+        model_type = "sdxl" if os.path.isdir(os.path.join(path, "text_encoder_2")) else "sd15"
+    if model_type != "sd15":
+        raise NotImplementedError(f"model type {model_type!r}: "
+                                  f"{_LATER.get(model_type, 'not an SD1.x folder')}")
+    idx = os.path.join(path, "model_index.json")
+    if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
+        raise NotImplementedError(f"{path}: {_LATER['int8']}")
+    scheduler_name = _resolve_scheduler_name(path, scheduler_name)
+
+    unet_cfg = UNetConfig.from_diffusers_dict(_read_json(os.path.join(path, "unet", "config.json")))
+    vae_cfg = VAEConfig.from_diffusers_dict(_read_json(os.path.join(path, "vae", "config.json")))
+    te_cfg = CLIPTextConfig.from_diffusers_dict(
+        _read_json(os.path.join(path, "text_encoder", "config.json")))
+    sched_path = os.path.join(path, "scheduler", "scheduler_config.json")
+    sched_cfg = (SchedulerConfig.from_diffusers_dict(_read_json(sched_path))
+                 if os.path.exists(sched_path) else SchedulerConfig())
+
+    def _load(sub, cls, config, dt):
+        return load_component_state(os.path.join(path, sub),
+                                     _empty_module(cls, config, device, dt), variant)
+
+    return SDModel(
+        unet_config=unet_cfg,
+        unet=_load("unet", UNet2DConditionModel, unet_cfg, dtype),
+        vae_config=vae_cfg,
+        vae=_load("vae", AutoencoderKL, vae_cfg, dtype),
+        text_encoder_config=te_cfg,
+        text_encoder=_load("text_encoder", CLIPTextModel, te_cfg, torch.float32),
+        tokenizer=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer")),
+        scheduler_config=sched_cfg,
+        scheduler_name=scheduler_name,
+        model_type=model_type,
+        path=path,
+    )
+
+
+def _dump_component(path: str, sub: str, module: nn.Module, cfg_dict: dict,
+                    fname: str = "diffusion_pytorch_model",
+                    variant: Optional[str] = None) -> None:
+    """One diffusers component folder: safetensors of the state dict in the
+    module's dtypes, plus config.json."""
+    d = os.path.join(path, sub)
+    os.makedirs(d, exist_ok=True)
+    suffix = f".{variant}" if variant else ""
+    save_safetensors(module.state_dict(), os.path.join(d, f"{fname}{suffix}.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg_dict, f, indent=2)
+
+
+def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
+                  quantize: Optional[str] = None) -> None:
+    """Write a diffusers-layout folder that ``load_sd_model`` (and the JAX
+    package's) reads back: per-component safetensors and configs, the
+    tokenizer, the scheduler config, and model_index.json naming the active
+    scheduler."""
+    if quantize:
+        raise NotImplementedError(_LATER["int8"])
+    os.makedirs(path, exist_ok=True)
+    _dump_component(path, "unet", model.unet, _unet_cfg_dict(model.unet_config),
+                    variant=variant)
+    _dump_component(path, "vae", model.vae, _vae_cfg_dict(model.vae_config), variant=variant)
+    _dump_component(path, "text_encoder", model.text_encoder,
+                    _clip_cfg_dict(model.text_encoder_config), fname="model", variant=variant)
+    if hasattr(model.tokenizer, "save_pretrained"):
+        model.tokenizer.save_pretrained(os.path.join(path, "tokenizer"))
+    os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(model.scheduler_config), f, indent=2)
+    index = {"_class_name": "StableDiffusionPipeline",
+             "_scheduler_type": model.scheduler_name}
+    with open(os.path.join(path, "model_index.json"), "w") as f:
+        json.dump(index, f)
+
+
+def _unet_cfg_dict(c: UNetConfig) -> dict:
+    d = dataclasses.asdict(c)
+    d["down_block_types"] = list(c.down_block_types)
+    d["up_block_types"] = list(c.up_block_types)
+    d["block_out_channels"] = list(c.block_out_channels)
+    if isinstance(c.num_attention_heads, tuple):
+        d["num_attention_heads"] = list(c.num_attention_heads)
+    if isinstance(c.transformer_layers_per_block, tuple):
+        d["transformer_layers_per_block"] = list(c.transformer_layers_per_block)
+    return d
+
+
+def _vae_cfg_dict(c: VAEConfig) -> dict:
+    d = dataclasses.asdict(c)
+    d["block_out_channels"] = list(c.block_out_channels)
+    return d
+
+
+def _clip_cfg_dict(c: CLIPTextConfig) -> dict:
+    d = dataclasses.asdict(c)
+    d["architectures"] = [
+        "CLIPTextModelWithProjection" if c.with_projection else "CLIPTextModel"
+    ]
+    return d

@@ -1,7 +1,8 @@
 """AutoencoderKL as a torch module: encoder, decoder and the quant convs.
 
-Port of ``stablediffusion_tpu/models/vae.py:37-121`` (``encode``,
-``sample_latent``, ``decode`` and the mid-block).  Module names follow
+Port of ``stablediffusion_tpu/models/vae.py:37-121,229-360`` (``encode``,
+``sample_latent``, ``decode``, the mid-block, and the tiled decode and
+encode).  Module names follow
 diffusers' AutoencoderKL, so ``state_dict()`` keys equal the JAX param tree's
 keys (``encoder.down_blocks.0.downsamplers.0.conv.weight``,
 ``decoder.mid_block.attentions.0.to_q.weight`` ...).  The mid-block attention
@@ -10,7 +11,8 @@ the flash_stream kernel on the card; that kernel is forward only, so the
 encoder runs under ``torch.no_grad()`` on the card, as the training step
 runs it.
 
-``encode`` and ``decode`` take and return NCHW.
+``encode`` and ``decode`` take and return NCHW, as do ``tiled_decode`` and
+``tiled_encode``.
 """
 
 from __future__ import annotations
@@ -206,3 +208,81 @@ def sample_latent(
         eps = torch.randn(mean.shape, generator=generator, device=mean.device,
                           dtype=mean.dtype)
     return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+
+
+# -- tiled decode and encode (diffusers' enable_vae_tiling) -------------------
+
+
+def _linear_blend(prev: torch.Tensor, cur: torch.Tensor, extent: int, axis: int):
+    """Blend cur's leading `extent` rows (axis 2) or columns (axis 3) into
+    prev's trailing ones with a linear ramp (AutoencoderKL.blend_v/h)."""
+    shape = [1, 1, 1, 1]
+    shape[axis] = extent
+    ramp = (torch.arange(extent, device=cur.device, dtype=cur.dtype) / extent).reshape(shape)
+    prev_edge = prev.narrow(axis, prev.shape[axis] - extent, extent)
+    blended = prev_edge * (1.0 - ramp) + cur.narrow(axis, 0, extent) * ramp
+    return torch.cat([blended, cur.narrow(axis, extent, cur.shape[axis] - extent)], dim=axis)
+
+
+def _tiled_apply(fn, x: torch.Tensor, tile: int, out_tile: int, overlap: float):
+    """Run `fn` over [B, C, tile, tile] windows of NCHW `x` that overlap by
+    `overlap` of a tile; fn's outputs (spatial size `out_tile`) are
+    linear-blended at the seams, stitched and cropped to the full output
+    size.  Every window has the same shape: the edge windows are
+    edge-padded."""
+    B, C, H, W = x.shape
+    b_in = int(tile * overlap)
+    if b_in <= 0 or b_in >= tile or (b_in * out_tile) % tile != 0:
+        raise ValueError(
+            f"tile={tile}, out_tile={out_tile}, overlap={overlap}: "
+            "tile*overlap must be a positive integer < tile whose scaled "
+            "extent (tile*overlap*out_tile/tile) is integral"
+        )
+    stride = tile - b_in
+    blend = b_in * out_tile // tile
+    row_limit = out_tile - blend  # the stride in output units
+    n_i, n_j = -(-H // stride), -(-W // stride)
+    Hp, Wp = (n_i - 1) * stride + tile, (n_j - 1) * stride + tile
+    if Hp != H or Wp != W:
+        x = F.pad(x, (0, Wp - W, 0, Hp - H), mode="replicate")
+
+    rows = [[fn(x[:, :, i * stride:i * stride + tile, j * stride:j * stride + tile])
+             for j in range(n_j)] for i in range(n_i)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        pieces = []
+        for j, t in enumerate(row):
+            if i > 0:
+                t = _linear_blend(rows[i - 1][j], t, blend, axis=2)
+            if j > 0:
+                # against the raw left tile, as diffusers' blend_h
+                t = _linear_blend(row[j - 1], t, blend, axis=3)
+            pieces.append(t[:, :, :row_limit, :row_limit])
+        out_rows.append(torch.cat(pieces, dim=3))
+    out = torch.cat(out_rows, dim=2)
+    return out[:, :, : H * out_tile // tile, : W * out_tile // tile]
+
+
+def tiled_decode(vae: AutoencoderKL, latents: torch.Tensor, tile_latent: int = 64,
+                 overlap: float = 0.25) -> torch.Tensor:
+    """``decode`` in overlapping 64-latent (512-pixel) tiles with blended
+    seams: the memory of a 512x512 decode at any size, one mid-block
+    attention a tile."""
+    B, C, H, W = latents.shape
+    if H <= tile_latent and W <= tile_latent:
+        return vae.decode(latents)
+    vf = vae.config.vae_scale_factor
+    return _tiled_apply(vae.decode, latents, tile_latent, tile_latent * vf, overlap)
+
+
+def tiled_encode(vae: AutoencoderKL, pixels: torch.Tensor, tile_sample: int = 512,
+                 overlap: float = 0.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encode`` in overlapping 512-pixel tiles; the moments are blended in
+    latent space.  Returns (mean, logvar) like ``encode``."""
+    B, C, H, W = pixels.shape
+    if H <= tile_sample and W <= tile_sample:
+        return vae.encode(pixels)
+    vf = vae.config.vae_scale_factor
+    out = _tiled_apply(lambda t: torch.cat(vae.encode(t), dim=1), pixels,
+                       tile_sample, tile_sample // vf, overlap)
+    return out.chunk(2, dim=1)

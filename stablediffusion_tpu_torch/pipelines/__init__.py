@@ -1,1 +1,1 @@
-"""The txt2img pipeline."""
+"""The unified txt2img / img2img / inpaint pipeline."""

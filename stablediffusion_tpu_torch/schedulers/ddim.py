@@ -1,12 +1,13 @@
 """DDIM (Song et al. 2020), deterministic eta = 0.
 
-Port of ``stablediffusion_tpu/schedulers/ddim.py:24-80`` (``plan`` and
-``step``).  The step runs in fp32 and casts back to the sample's dtype; the
-per-step scalars are taken from the fp32 alpha table in fp32, as the JAX
-step computes them.
+Port of ``stablediffusion_tpu/schedulers/ddim.py``.  The step runs in fp32
+and casts back to the sample's dtype; the per-step scalars are taken from
+the fp32 alpha table in fp32, as the JAX step computes them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,14 +17,19 @@ from stablediffusion_tpu_torch.schedulers.common import (
     Plan,
     make_timestep_grid,
     prediction_to_x0_eps,
+    reject_custom_sigmas,
 )
 
 
 class DDIMScheduler(BaseScheduler):
     order = 1
 
-    def plan(self, num_steps: int) -> Plan:
-        timesteps = make_timestep_grid(self.config, num_steps)
+    def plan(self, num_steps: int, timesteps: Optional[np.ndarray] = None,
+             sigmas: Optional[np.ndarray] = None) -> Plan:
+        reject_custom_sigmas(self, sigmas)
+        if timesteps is None:
+            timesteps = make_timestep_grid(self.config, num_steps)
+        timesteps = np.asarray(timesteps, np.int64)
         final_alpha = (
             1.0 if self.config.set_alpha_to_one else float(self._alphas_cumprod_np[0])
         )
@@ -37,19 +43,19 @@ class DDIMScheduler(BaseScheduler):
             step_ratio=self.config.num_train_timesteps // num_steps,
         )
 
-    def step(self, plan: Plan, i: int, model_output: torch.Tensor,
-             sample: torch.Tensor) -> torch.Tensor:
-        """x_{t-1} from x_t and the model output at step index i."""
+    def step(self, plan: Plan, state, i: int, model_output: torch.Tensor,
+             sample: torch.Tensor, noise: Optional[torch.Tensor] = None):
+        """(x_{t-1}, state) from x_t and the model output at step index i."""
         t = int(plan.timesteps[i])
-        prev_t = t - plan.step_ratio
+        prev_t = t - (plan.step_ratio or self.config.num_train_timesteps // plan.num_steps)
         f32 = np.float32
         ac_t = f32(plan.alphas_cumprod[t])
         ac_prev = (
             f32(plan.alphas_cumprod[prev_t]) if prev_t >= 0
             else f32(plan.final_alpha_cumprod)
         )
-        alpha_t = float(np.sqrt(ac_t))
-        sigma_t = float(np.sqrt(f32(1.0) - ac_t))
+        alpha_t = np.sqrt(ac_t)
+        sigma_t = np.sqrt(f32(1.0) - ac_t)
 
         sample32 = sample.float()
         x0, eps = prediction_to_x0_eps(
@@ -60,5 +66,5 @@ class DDIMScheduler(BaseScheduler):
             x0 = x0.clamp(-1.0, 1.0)
             eps = (sample32 - alpha_t * x0) / sigma_t
         # eta = 0: x_{t-1} = sqrt(ac_prev) x0 + sqrt(1 - ac_prev) eps
-        prev = float(np.sqrt(ac_prev)) * x0 + float(np.sqrt(f32(1.0) - ac_prev)) * eps
-        return prev.to(sample.dtype)
+        prev = np.sqrt(ac_prev) * x0 + np.sqrt(f32(1.0) - ac_prev) * eps
+        return prev.to(sample.dtype), state

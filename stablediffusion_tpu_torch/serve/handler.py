@@ -1,0 +1,249 @@
+"""Serving request router (the runpod-worker handler).
+
+Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
+  * request schema {id, input: {mode?, model?, params?, prompt...}};
+  * the "inference" mode; an optional model block {type, name, scheduler,
+    prediction_type} hot-reloads the model from a diffusers folder under the
+    model dir and switches the scheduler;
+  * `params` merge into the top-level arguments; a seed is drawn when absent
+    and echoed;
+  * images come back as base64 JPEG, or as URLs through an upload sink;
+  * every failure answers on the error channel ({"error", "traceback"}).
+
+Not ported here; each answers on the error channel and names its ROADMAP §1
+item: the "constructor" (item 14), "train" (item 19) and "inference_wandb"
+(item 21) modes, the model block's "loras" (item 14) and "quantize" (item
+16), SD3 (item 18), SDXL (item 13) and a serving mesh (item 20).  The model
+has no ``load_textual_inversion`` or ``load_ip_adapter``, so those keys
+answer "not supported", as they do for JAX model types without them.
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+import io
+import logging
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from stablediffusion_tpu_torch.core.config import resolve_device
+from stablediffusion_tpu_torch.io.loader import load_sd_model, resolve_checkpoint
+from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+logger = logging.getLogger(__name__)
+
+INFERENCE_ARG_KEYS = (
+    "prompt",
+    "prompt_2",
+    "negative_prompt",
+    "negative_prompt_2",
+    "height",
+    "width",
+    "num_images_per_prompt",
+    "num_inference_steps",
+    "denoising_start",
+    "denoising_end",
+    "guidance_scale",
+    "guidance_rescale",
+    "clip_skip",
+    "prompt_weighting",
+    "seed",
+    "image",
+    "strength",
+    "image_guidance_scale",
+    "mask_image",
+    "masked_image_latents",
+    "padding_mask_crop",
+    "cache_interval",
+    "vae_tiling",
+    "freeu",
+    "pag_scale",
+    "pag_applied_layers",
+    "hires_scale",
+    "hires_strength",
+    "hires_steps",
+    "timesteps",
+    "sigmas",
+    "control_image",
+    "controlnet_conditioning_scale",
+    "cross_attention_kwargs",
+    "ip_adapter_image",
+    "ip_adapter_scale",
+    # SD3-family extras
+    "prompt_3",
+    "negative_prompt_3",
+    "max_sequence_length",
+)
+
+
+def _later(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what}: not ported yet, it comes with ROADMAP §1 item {item}")
+
+
+def encode_images_b64(images01: np.ndarray, fmt: str = "JPEG") -> list:
+    """[B, H, W, 3] in [0, 1] float or uint8 -> base64 strings."""
+    from PIL import Image
+
+    from stablediffusion_tpu_torch.utils.images import as_uint8
+
+    out = []
+    for im in as_uint8(images01):
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format=fmt, quality=95)
+        out.append(base64.b64encode(buf.getvalue()).decode("ascii"))
+    return out
+
+
+def decode_image_b64(data: str) -> np.ndarray:
+    from PIL import Image
+
+    im = Image.open(io.BytesIO(base64.b64decode(data))).convert("RGB")
+    return np.asarray(im, np.float32) / 255.0
+
+
+class Handler:
+    """Request router bound to one model slot, on one device: the model's,
+    or ``cuda`` unless `device` says otherwise (raises without a card)."""
+
+    def __init__(
+        self,
+        model: Optional[SDModel] = None,
+        model_dir: Optional[str] = None,
+        uploader=None,
+        mesh=None,
+        device: Union[str, torch.device, None] = None,
+    ):
+        from stablediffusion_tpu_torch.serve.upload import make_uploader
+
+        if mesh is not None:
+            raise _later("a serving mesh", 20)
+        self.device = model.device if model is not None and device is None \
+            else resolve_device(device)
+        self.model = model
+        self.model_dir = model_dir
+        # bumped on every request that may change the model's state; the
+        # Batcher snapshots it at enqueue and re-runs requests queued under
+        # another state serially (see serve/batcher.py)
+        self.model_generation = 0
+        # BUCKET_ENDPOINT_URL-gated image sink: URLs in place of base64
+        self.uploader = uploader if uploader is not None else make_uploader()
+
+    # -- model hot-swap --------------------------------------------------------
+    def maybe_reload_model(self, model_cfg: Dict[str, Any]) -> None:
+        mtype = model_cfg.get("type", getattr(self.model, "model_type", "sd15"))
+        if mtype == "sd3":
+            raise _later("SD3 models", 18)
+        name = model_cfg.get("name")
+        if name is not None:
+            path = resolve_checkpoint(mtype, name, cache_dir=self.model_dir)
+            if self.model is None or self.model.path not in (path, os.path.abspath(path)):
+                logger.info("loading model %s (%s)", name, path)
+                self.model = load_sd_model(path, model_type=mtype, device=self.device)
+        if self.model is None:
+            raise ValueError("no model loaded and no model.name provided")
+        if model_cfg.get("prediction_type"):
+            # applies even when the checkpoint was already loaded
+            if self.model.scheduler_config.prediction_type != model_cfg["prediction_type"]:
+                self.model.scheduler_config = dataclasses.replace(
+                    self.model.scheduler_config,
+                    prediction_type=model_cfg["prediction_type"],
+                )
+                self.model._scheduler = None  # rebuilt from the new config
+        if "loras" in model_cfg:
+            if model_cfg["loras"]:
+                self.model.load_loras(model_cfg["loras"], lora_dir=self.model_dir)
+            else:
+                self.model.delete_adapters()
+        if "scheduler" in model_cfg:
+            self.model.set_scheduler(model_cfg["scheduler"])
+        for key, method, item in (("textual_inversion", "load_textual_inversion", 14),
+                                  ("ip_adapter", "load_ip_adapter", 15)):
+            if model_cfg.get(key) and not hasattr(self.model, method):
+                raise ValueError(
+                    f"{key} is not supported for model type {self.model.model_type!r} "
+                    f"(ROADMAP §1 item {item})")
+        if model_cfg.get("quantize"):
+            raise _later("quantize", 16)
+
+    # -- entry ----------------------------------------------------------------
+    def __call__(self, request_input: Dict[str, Any], request_id: str = "") -> Dict:
+        t0 = time.time()
+        try:
+            mode = request_input.get("mode", "inference")
+            if "model" in request_input and request_input["model"]:
+                self.maybe_reload_model(request_input["model"])
+                self.model_generation += 1
+            if self.model is None:
+                raise ValueError("no model loaded")
+
+            args = dict(request_input.get("params") or {})
+            for k in INFERENCE_ARG_KEYS:
+                if k in request_input:
+                    args[k] = request_input[k]
+            if args.get("seed") is None:
+                args["seed"] = int(np.random.randint(0, int(1e9)))
+
+            if mode == "inference":
+                return self.inference_mode(args, t0, request_id=request_id)
+            if mode in _LATER_MODES:
+                raise _later(f"mode {mode!r}", _LATER_MODES[mode])
+            raise ValueError(f"unknown mode {mode!r}")
+        except Exception as e:  # the error channel
+            logger.error("request %s failed: %s", request_id, e)
+            return {
+                "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc(),
+            }
+
+    # -- modes ----------------------------------------------------------------
+    def _generate(self, args: Dict[str, Any], output_type: str = "uint8"):
+        """One pipeline call.  "uint8" quantizes on the card and copies; the
+        batcher passes "uint8_device" to copy on its postprocess thread."""
+        for key in ("image", "mask_image"):
+            if isinstance(args.get(key), str):
+                args = dict(args, **{key: decode_image_b64(args[key])})
+        pipe = StableDiffusionUnifiedPipeline(do_cfg=True, output_type=output_type,
+                                              device=self.device)
+        return pipe(self.model, **args)
+
+    def warmup(self, steps: int = 25, size: Optional[int] = None, batches=(1,)) -> float:
+        """One generation per batch size before serving, so the first
+        requests do not pay for the kernels' build, the cuDNN algorithm
+        search or the allocator's growth.  Returns seconds spent."""
+        t0 = time.time()
+        for k in batches:
+            args: Dict[str, Any] = {
+                "prompt": "warmup",
+                "num_inference_steps": int(steps),
+                "num_images_per_prompt": int(k),
+                "seed": 0,
+            }
+            if size:
+                args["height"] = args["width"] = int(size)
+            self._generate(args)
+        dt = time.time() - t0
+        logger.info("warmup: batches %s, %d steps in %.1f s", tuple(batches), steps, dt)
+        return dt
+
+    def inference_mode(self, args: Dict[str, Any], t0: float, request_id: str = "") -> Dict:
+        out = self._generate(args)
+        if self.uploader is not None:
+            images = self.uploader.upload(out.images, request_id)
+        else:
+            images = encode_images_b64(out.images)
+        return {
+            "images": images,
+            "seed": out.seed,
+            "time_sec": round(time.time() - t0, 3),
+        }
+
+
+# the JAX handler's other modes -> the ROADMAP §1 item that brings them
+_LATER_MODES = {"constructor": 14, "train": 19, "inference_wandb": 21}

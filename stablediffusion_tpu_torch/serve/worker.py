@@ -1,0 +1,167 @@
+"""HTTP serving worker.
+
+Port of ``stablediffusion_tpu/serve/worker.py``: a threaded HTTP server that
+takes the job schema {id, input: {...}} by POST /, answers health checks on
+GET /, and merges concurrent txt2img requests through the micro-batcher
+(``--max_batch`` > 1)::
+
+    python -m stablediffusion_tpu_torch.serve.worker \\
+        --model_dir D --model_name N --model_type sd15 [--warmup]
+
+loads the diffusers folder ``D/sd15_N`` onto the card and serves it on
+``--port`` (8000).  The server, its handler and its batcher are one object
+(``make_server``), so a program can run one in a thread and shut it down.
+``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) and ``--quantize`` (item
+16) raise; the web UI (item 17) and the serverless-queue entry are not
+ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional, Sequence
+
+from stablediffusion_tpu_torch.serve.batcher import Batcher
+from stablediffusion_tpu_torch.serve.handler import Handler
+
+logger = logging.getLogger(__name__)
+
+
+class Server(ThreadingHTTPServer):
+    """The HTTP server with its handler and, when max_batch > 1, its
+    batcher.  Requests the batcher does not take run one at a time (the
+    model slot has a single writer)."""
+
+    # the stdlib accept backlog is 5: size it for a burst of clients
+    request_queue_size = 128
+
+    def __init__(self, addr, handler: Handler, batcher: Optional[Batcher] = None):
+        super().__init__(addr, _HTTPHandler)
+        self.handler = handler
+        self.batcher = batcher
+        self._lock = threading.Lock()
+
+    def trigger(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Job entry: {id, input: {mode?, model?, params?, prompt...}}."""
+        if self.batcher is not None:
+            return self.batcher.submit(request.get("input") or {}, request.get("id", ""))
+        with self._lock:
+            return self.handler(request.get("input") or {}, request.get("id", ""))
+
+    def server_close(self):
+        super().server_close()
+        if self.batcher is not None:
+            self.batcher.close()
+
+
+class _HTTPHandler(BaseHTTPRequestHandler):
+    def do_POST(self):  # noqa: N802
+        length = int(self.headers.get("Content-Length", 0))
+        try:
+            request = json.loads(self.rfile.read(length) or b"{}")
+        except json.JSONDecodeError as e:
+            self._reply(400, {"error": f"bad json: {e}"})
+            return
+        result = self.server.trigger(request)
+        self._reply(200 if "error" not in result else 500, result)
+
+    def do_GET(self):  # noqa: N802 — health check
+        if self.path.rstrip("/"):
+            self._reply(404, {"error": f"no page {self.path!r}: the web UI is not "
+                                       "ported yet (ROADMAP §1 item 17)"})
+            return
+        self._reply(200, {"status": "ok", "model": getattr(
+            self.server.handler.model, "model_type", None)})
+
+    def _reply(self, code: int, obj: Dict):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):
+        logger.info("%s " + fmt, self.client_address[0], *args)
+
+
+def make_server(handler: Handler, host: str = "0.0.0.0", port: int = 8000,
+                max_batch: int = 8, batch_window_ms: float = 25.0) -> Server:
+    """A server bound to (host, port); port 0 picks a free one
+    (``server.server_address``).  max_batch=1 serves strictly serially."""
+    batcher = (Batcher(handler, max_batch=max_batch, window_ms=batch_window_ms)
+               if max_batch > 1 else None)
+    return Server((host, port), handler, batcher)
+
+
+def serve_http(port: int = 8000, max_batch: int = 8, batch_window_ms: float = 25.0,
+               host: str = "0.0.0.0", **handler_kw) -> None:
+    """Serve until interrupted."""
+    server = make_server(Handler(**handler_kw), host, port, max_batch, batch_window_ms)
+    logger.info("serving on %s:%d (max_batch=%d)", host, server.server_address[1], max_batch)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--model_dir", type=str, default=None)
+    p.add_argument("--model_type", type=str, default="sd15")
+    p.add_argument("--model_name", type=str, default=None,
+                   help="load this checkpoint before serving")
+    p.add_argument("--max_batch", type=int, default=8,
+                   help="HTTP micro-batch cap; 1 = serial")
+    p.add_argument("--batch_window_ms", type=float, default=25.0)
+    p.add_argument("--mesh_dp", type=int, default=0)
+    p.add_argument("--mesh_tp", type=int, default=1)
+    p.add_argument("--quantize", default=None)
+    p.add_argument("--warmup", action="store_true",
+                   help="run each batch size the batcher forms (powers of two "
+                        "up to --max_batch) once before serving")
+    return p.parse_args(argv)
+
+
+def build(args: argparse.Namespace) -> Server:
+    """The server that ``main`` runs: the handler, the preloaded model,
+    the warmup, the batcher."""
+    if args.mesh_dp or args.mesh_tp > 1:
+        raise NotImplementedError("--mesh_dp/--mesh_tp: not ported yet, they come with "
+                                  "ROADMAP §1 item 20")
+    if args.quantize:
+        raise NotImplementedError("--quantize: not ported yet, it comes with ROADMAP §1 "
+                                  "item 16")
+    handler = Handler(model_dir=args.model_dir)
+    if args.model_name:
+        handler.maybe_reload_model({"type": args.model_type, "name": args.model_name})
+    if args.warmup:
+        if handler.model is None:
+            logger.warning("--warmup ignored: no model preloaded")
+        else:
+            # the batcher pads merged groups to powers of two
+            batches = [1]
+            while batches[-1] * 2 <= args.max_batch:
+                batches.append(batches[-1] * 2)
+            handler.warmup(batches=tuple(batches))
+    return make_server(handler, args.host, args.port, args.max_batch, args.batch_window_ms)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    server = build(parse_args(argv))
+    logger.info("serving on %s:%d", *server.server_address[:2])
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

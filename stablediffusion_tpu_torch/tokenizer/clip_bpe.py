@@ -3,8 +3,8 @@
 Port of ``stablediffusion_tpu/tokenizer/clip_bpe.py`` (``CLIPTokenizer``
 :135, its pure-Python merge loop and text cleaning).  Word BPE over UTF-8
 bytes through the reversible byte table, the ``</w>`` end-of-word marker,
-vocab.json + merges.txt files, bos/eos wrapping, truncation and right
-padding.  The JAX package's native C++ merge loop (``native/bpe.cpp``) and
+vocab.json + merges.txt files (read and written), bos/eos wrapping,
+truncation and right padding.  The JAX package's native C++ merge loop (``native/bpe.cpp``) and
 textual-inversion triggers are not ported in this slice.
 """
 
@@ -156,6 +156,29 @@ class CLIPTokenizer:
             pad_token_id=pad_token_id,
             **kw,
         )
+
+    def save_pretrained(self, path: str) -> None:
+        """Write a diffusers-layout tokenizer folder (the inverse of
+        ``from_pretrained``): vocab.json, merges.txt and
+        special_tokens_map.json."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(self.vocab, f, ensure_ascii=False)
+        merges = sorted(self.bpe_ranks.items(), key=lambda kv: kv[1])
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+            for (a, b), _ in merges:
+                f.write(f"{a} {b}\n")
+        decoder = {i: t for t, i in self.vocab.items()}
+        special = {
+            "bos_token": decoder[self.bos_token_id],
+            "eos_token": decoder[self.eos_token_id],
+        }
+        if self.pad_token_id != self.eos_token_id:
+            special["pad_token"] = decoder.get(self.pad_token_id, "!")
+        with open(os.path.join(path, "special_tokens_map.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(special, f, ensure_ascii=False)
 
     def _bpe(self, token: str) -> List[str]:
         cached = self._cache.get(token)

@@ -35,7 +35,7 @@ from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.ops.attention import _row_dot
-from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
+from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer, _bytes_to_unicode
 
 # Limit of an attention kernel's output against its plain version evaluated in
 # fp32 on the same input values, per element: |out - ref| <= rtol*|ref| + atol.
@@ -336,6 +336,25 @@ def bench_tokenizer(pad_token_id: Optional[int] = None) -> CLIPTokenizer:
     vocab["<|startoftext|>"] = 49406
     vocab["<|endoftext|>"] = 49407
     return CLIPTokenizer(vocab, [], pad_token_id=pad_token_id)
+
+
+def synthetic_clip_tokenizer() -> CLIPTokenizer:
+    """A byte-level CLIP BPE vocabulary in the real one's layout, for a
+    full-width model that must round-trip through a checkpoint folder: the
+    256 byte tokens (ids 0-255), their ``</w>`` forms (256-511), a few
+    merges of common English pairs, and bos 49406 / eos 49407, all inside
+    the 49408-row embedding table.  The real vocabulary is not in the
+    repository."""
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    merges = [("t", "h"), ("th", "e</w>"), ("a", "n"), ("an", "d</w>"), ("i", "n"),
+              ("o", "f</w>"), ("r", "e"), ("o", "n</w>"), ("e", "r</w>"), ("a", "t")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab["<|startoftext|>"] = 49406
+    vocab["<|endoftext|>"] = 49407
+    return CLIPTokenizer(vocab, merges)
 
 
 def random_model(

@@ -25,7 +25,7 @@ PKG = pathlib.Path(tcfg.__file__).resolve().parent.parent
 @pytest.mark.parametrize(
     "name",
     [
-        "SD15_TEXT_ENCODER", "SD15_UNET", "SD15_VAE", "SD15_SCHEDULER",
+        "SD15_TEXT_ENCODER", "SD15_UNET", "SD15_INPAINT_UNET", "SD15_VAE", "SD15_SCHEDULER",
         "tiny_clip_config", "tiny_clip_config_proj", "tiny_unet_config",
         "tiny_vae_config", "SchedulerConfig",
     ],
@@ -54,9 +54,11 @@ def _modules():
 def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter (this one
     has jax loaded by conftest), leaves jax and stablediffusion_tpu out of
-    sys.modules; the training slice's subpackages are among them."""
+    sys.modules; the training and serving slices' modules are among them."""
     mods = _modules()
-    for sub in ("lora.core", "train.optim", "train.train_step", "schedulers.ddpm"):
+    for sub in ("lora.core", "train.optim", "train.train_step", "schedulers.ddpm",
+                "io.loader", "io.safetensors_io", "serve.handler", "serve.worker",
+                "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms"):
         assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
@@ -77,7 +79,7 @@ def test_package_source_scan():
     no torch.compile anywhere in the port's Python sources."""
     found = []
     scanned = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")}
-    assert {"lora", "train", "ops", "models"} <= scanned
+    assert {"lora", "train", "ops", "models", "io", "serve", "schedulers"} <= scanned
     for path in sorted(PKG.rglob("*.py")):
         src = path.read_text()
         if "scaled_dot_product_attention" in src:
@@ -154,9 +156,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from stablediffusion_tpu_torch.pipelines.unified import (
         StableDiffusionUnifiedPipeline,
     )
+    from stablediffusion_tpu_torch.io.loader import load_sd_model
+    from stablediffusion_tpu_torch.serve.handler import Handler
+    from stablediffusion_tpu_torch.serve.worker import build, parse_args, serve_http
     from stablediffusion_tpu_torch.utils.testing import random_full_model, random_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_sd_model("no-such-folder")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Handler()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(parse_args(["--model_dir", "no-such-dir", "--model_name", "x"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_http(port=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StableDiffusionUnifiedPipeline()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,0 +1,199 @@
+"""PyTorch/CUDA port: checkpoint folders, safetensors and the tokenizer's
+save, against the JAX package, on the CPU.
+
+A folder written by the JAX package's ``save_sd_model`` loads into the port,
+and one written by the port's loads into the JAX package's
+``load_sd_model``, with every tensor equal both ways; the tiny txt2img from
+the loaded folders agrees within 1e-4.
+"""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stablediffusion_tpu.io import loader as jloader
+from stablediffusion_tpu.io.safetensors_io import load_safetensors as jload_safetensors
+from stablediffusion_tpu.io.torch_convert import deconvert_tensor, flatten
+from stablediffusion_tpu.pipelines.unified import (
+    StableDiffusionUnifiedPipeline as JPipeline,
+)
+from stablediffusion_tpu_torch.core import config as tcfg
+from stablediffusion_tpu_torch.io import loader
+from stablediffusion_tpu_torch.io.safetensors_io import (
+    SafetensorsFile,
+    save_safetensors,
+)
+from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
+from torch_port_helpers import tiny_port_model, to_jax_model, torch_single_thread  # noqa: F401
+
+COMPONENTS = ("unet", "vae", "text_encoder")
+
+
+@pytest.fixture(scope="module")
+def folders(tmp_path_factory):
+    """(port model, its JAX twin, a JAX-written folder, a port-written one)."""
+    tm = tiny_port_model(seed=3)
+    tm.set_scheduler("euler_a")
+    jm = to_jax_model(tm)
+    jm.set_scheduler("euler_a")
+    jdir = str(tmp_path_factory.mktemp("jax_saved"))
+    tdir = str(tmp_path_factory.mktemp("port_saved"))
+    jloader.save_sd_model(jm, jdir)
+    loader.save_sd_model(tm, tdir)
+    return tm, jm, jdir, tdir
+
+
+def _assert_same_weights(port_model, jax_model):
+    for comp in COMPONENTS:
+        sd = getattr(port_model, comp).state_dict()
+        flat = flatten(getattr(jax_model, f"{comp}_params"))
+        assert set(sd) == set(flat), comp
+        for k, v in flat.items():
+            np.testing.assert_array_equal(sd[k].numpy(), deconvert_tensor(k, np.asarray(v)),
+                                          err_msg=k)
+
+
+def test_jax_folder_loads_into_the_port(folders):
+    tm, jm, jdir, _ = folders
+    got = loader.load_sd_model(jdir, device="cpu")
+    assert got.path == jdir and got.model_type == "sd15"
+    assert got.scheduler_name == "euler_a"  # model_index.json's _scheduler_type
+    for comp in COMPONENTS:
+        a, b = getattr(got, comp).state_dict(), getattr(tm, comp).state_dict()
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), (comp, k)
+    assert got.unet_config == tm.unet_config and got.vae_config == tm.vae_config
+    assert got.text_encoder_config == tm.text_encoder_config
+    assert got.scheduler_config == tm.scheduler_config
+    _assert_same_weights(got, jm)
+
+
+def test_port_folder_loads_into_jax(folders):
+    tm, jm, _, tdir = folders
+    got = jloader.load_sd_model(tdir)
+    assert got.scheduler_name == "euler_a"
+    _assert_same_weights(tm, got)
+    np.testing.assert_array_equal(got.tokenizer("a cat and a dog"),
+                                  tm.tokenizer("a cat and a dog"))
+    for sub in ("unet", "vae", "text_encoder"):
+        cfg = json.load(open(os.path.join(tdir, sub, "config.json")))
+        ref = json.load(open(os.path.join(folders[2], sub, "config.json")))
+        assert cfg == ref, sub
+
+
+def test_txt2img_from_loaded_folders_matches_jax(folders):
+    _, _, jdir, tdir = folders
+    tm = loader.load_sd_model(jdir, device="cpu", scheduler_name="DDIM")
+    jm = jloader.load_sd_model(tdir, scheduler_name="DDIM")
+    lat = np.random.default_rng(8).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    common = dict(prompt="a cat", num_inference_steps=3, guidance_scale=7.5,
+                  output_type="np", seed=0)
+    ref = JPipeline(do_cfg=True)(jm, latents=jnp.asarray(lat), **common).images
+    out = StableDiffusionUnifiedPipeline(device="cpu")(
+        tm, latents=torch.from_numpy(lat), **common).images
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4)
+
+
+def test_fp16_variant_sharded_index_and_dtype(folders, tmp_path):
+    """The fp16 variant is found first, a sharded index is followed, each
+    tensor is cast to its parameter's dtype, and position_ids are dropped."""
+    tm, _, jdir, _ = folders
+    d = str(tmp_path / "m")
+    loader.save_sd_model(tm, d, variant="fp16")
+    assert os.path.exists(os.path.join(d, "unet", "diffusion_pytorch_model.fp16.safetensors"))
+    # shard the VAE in two through an index, with a stray position_ids
+    sd = tm.vae.state_dict()
+    names = sorted(sd)
+    shards = {"a.safetensors": names[: len(names) // 2], "b.safetensors": names[len(names) // 2:]}
+    vdir = os.path.join(d, "vae")
+    os.remove(os.path.join(vdir, "diffusion_pytorch_model.fp16.safetensors"))
+    for fname, keys in shards.items():
+        extra = {"position_ids": torch.arange(4)} if fname == "a.safetensors" else {}
+        save_safetensors({**{k: sd[k].half() for k in keys}, **extra}, os.path.join(vdir, fname))
+    index = {"weight_map": {k: f for f, ks in shards.items() for k in ks}}
+    json.dump(index, open(os.path.join(vdir, "diffusion_pytorch_model.safetensors.index.json"), "w"))
+    got = loader.load_sd_model(d, device="cpu", dtype=torch.bfloat16)
+    assert next(got.unet.parameters()).dtype == torch.bfloat16
+    assert next(got.text_encoder.parameters()).dtype == torch.float32
+    for k, v in got.vae.state_dict().items():
+        assert torch.equal(v, sd[k].half().to(torch.bfloat16)), k
+
+
+def test_strict_keys_and_unported_formats(folders, tmp_path):
+    tm, _, jdir, _ = folders
+    d = str(tmp_path / "m")
+    loader.save_sd_model(tm, d)
+    path = os.path.join(d, "vae", "diffusion_pytorch_model.safetensors")
+    sd = dict(tm.vae.state_dict())
+    save_safetensors({**sd, "extra.weight": torch.zeros(2)}, path)
+    with pytest.raises(KeyError, match="unexpected"):
+        loader.load_sd_model(d, device="cpu")
+    sd.pop("decoder.conv_out.bias")
+    save_safetensors(sd, path)
+    with pytest.raises(KeyError, match="missing"):
+        loader.load_sd_model(d, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        loader.save_sd_model(tm, str(tmp_path / "q"), quantize="w8")
+    os.makedirs(os.path.join(d, "text_encoder_2"))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        loader.load_sd_model(d, device="cpu")
+    single = tmp_path / "model.safetensors"
+    save_safetensors({"x": torch.zeros(1)}, str(single))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        loader.load_sd_model(str(single), device="cpu")
+
+
+def test_resolve_checkpoint_is_local_only(tmp_path):
+    os.makedirs(tmp_path / "sd15_mine")
+    assert loader.resolve_checkpoint("sd15", "mine", cache_dir=str(tmp_path)) == str(
+        tmp_path / "sd15_mine")
+    with pytest.raises(FileNotFoundError, match="locally"):
+        loader.resolve_checkpoint("sd15", "absent", cache_dir=str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        loader.resolve_checkpoint("sd15", "absent.safetensors", cache_dir=str(tmp_path))
+
+
+def test_safetensors_bf16_through_torch_interchanges_with_jax(tmp_path):
+    """bf16 written through torch reads back bit-exact, and the JAX codec
+    (ml_dtypes) reads the same values."""
+    p = str(tmp_path / "t.safetensors")
+    t = {"w": torch.randn(3, 5).to(torch.bfloat16), "i": np.arange(4, dtype=np.int64)}
+    save_safetensors(t, p, metadata={"k": "v"})
+    with SafetensorsFile(p) as f:
+        assert f.metadata == {"k": "v"} and f.dtype_str("w") == "BF16"
+        assert torch.equal(f.torch_tensor("w"), t["w"])
+        np.testing.assert_array_equal(f.tensor("i"), t["i"])
+        with pytest.raises(TypeError, match="torch_tensor"):
+            f.tensor("w")
+    ref = jload_safetensors(p)
+    np.testing.assert_array_equal(np.asarray(ref["w"], np.float32), t["w"].float().numpy())
+
+
+def test_tokenizer_save_pretrained_round_trip(tmp_path):
+    tok = tiny_port_model().tokenizer
+    tok.save_pretrained(str(tmp_path))
+    back = CLIPTokenizer.from_pretrained(str(tmp_path))
+    assert back.vocab == tok.vocab and back.bpe_ranks == tok.bpe_ranks
+    np.testing.assert_array_equal(back("a cat, a dog"), tok("a cat, a dog"))
+
+
+def test_config_from_diffusers_dict_matches_jax(folders):
+    from stablediffusion_tpu.core import config as jcfg
+
+    _, _, jdir, _ = folders
+    for sub, name in (("unet", "UNetConfig"), ("vae", "VAEConfig"),
+                      ("text_encoder", "CLIPTextConfig")):
+        d = json.load(open(os.path.join(jdir, sub, "config.json")))
+        assert (getattr(tcfg, name).from_diffusers_dict(d).__dict__
+                == getattr(jcfg, name).from_diffusers_dict(d).__dict__)
+    d = {"attention_head_dim": [5, 10], "down_block_types": ["a"], "up_block_types": ["b"],
+         "block_out_channels": [32], "prediction_type": "v_prediction", "unknown": 1}
+    assert tcfg.UNetConfig.from_diffusers_dict(d).num_attention_heads == (5, 10)
+    assert (tcfg.SchedulerConfig.from_diffusers_dict(d).prediction_type == "v_prediction")
+    assert tcfg.SD15_INPAINT_UNET.in_channels == 9

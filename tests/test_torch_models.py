@@ -21,6 +21,7 @@ from stablediffusion_tpu_torch.io.from_jax import load_from_jax
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL, sample_latent
+from torch_port_helpers import torch_single_thread  # noqa: F401
 
 # fp32 on both sides through a few layers of GEMMs/convs and norms: only the
 # order of the sums differs; 1e-4 absolute on O(1) outputs

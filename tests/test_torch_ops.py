@@ -24,6 +24,7 @@ from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
 )
+from torch_port_helpers import torch_single_thread  # noqa: F401
 
 # fp32 elementwise/normalisation ops on both sides: only evaluation order and
 # libm differ (a few ulp); 1e-5 absolute at O(1) values

@@ -36,6 +36,7 @@ from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPi
 from stablediffusion_tpu_torch.schedulers import make_scheduler
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 from stablediffusion_tpu_torch.utils import images as timages
+from torch_port_helpers import torch_single_thread  # noqa: F401
 
 
 # -- DDIM ---------------------------------------------------------------------
@@ -66,7 +67,7 @@ def test_ddim_plan_and_step_match_jax(overrides, steps):
         x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
         eps = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
         ref, _ = js.step(jp, (), i, jnp.asarray(eps), jnp.asarray(x))
-        out = ts.step(tp, i, torch.from_numpy(eps), torch.from_numpy(x))
+        out, _ = ts.step(tp, (), i, torch.from_numpy(eps), torch.from_numpy(x))
         # same fp32 scalars and fp32 elementwise ops: ulp-level differences
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
@@ -75,12 +76,16 @@ def test_ddim_step_keeps_sample_dtype():
     s = make_scheduler("DDIM")
     plan = s.plan(20)
     x = torch.randn(1, 4, 8, 8, dtype=torch.bfloat16)
-    assert s.step(plan, 3, x.float(), x).dtype == torch.bfloat16
+    assert s.step(plan, (), 3, x.float(), x)[0].dtype == torch.bfloat16
 
 
 def test_other_schedulers_name_their_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        make_scheduler("euler_a")
+    """Every JAX scheduler name builds in the port (slice 5 ported the other
+    13); an unknown name raises as in the JAX registry."""
+    from stablediffusion_tpu.schedulers import SCHEDULER_NAMES as JNAMES
+
+    for name in JNAMES:
+        assert make_scheduler(name).config is not None
     with pytest.raises(ValueError):
         make_scheduler("no-such-scheduler")
 

@@ -1,0 +1,296 @@
+"""PyTorch/CUDA port: the serving handler, the HTTP worker and the batcher,
+on a tiny CPU model.
+
+Mirrors ``tests/test_serve.py:26-136,355-430`` (router modes, seed echo,
+params merge, img2img through base64, scheduler swap, error channel, HTTP
+round trip, batcher merge / buckets / errors), plus the port's own: a model
+block that loads a diffusers folder, and the features that answer on the
+error channel with their ROADMAP item.
+"""
+
+import http.client
+import json
+import threading
+
+import numpy as np
+import pytest
+
+from stablediffusion_tpu_torch.io.loader import save_sd_model
+from stablediffusion_tpu_torch.serve.batcher import Batcher, _batchable
+from stablediffusion_tpu_torch.serve.handler import (
+    INFERENCE_ARG_KEYS,
+    Handler,
+    decode_image_b64,
+    encode_images_b64,
+)
+from stablediffusion_tpu_torch.serve.worker import make_server, parse_args
+from torch_port_helpers import tiny_port_model, torch_single_thread  # noqa: F401
+
+ARGS = dict(prompt="a cat", height=32, width=32, num_inference_steps=2)
+
+
+@pytest.fixture(scope="module")
+def handler():
+    return Handler(model=tiny_port_model())
+
+
+def test_inference_mode(handler):
+    resp = handler({**ARGS, "seed": 7}, "req-1")
+    assert "error" not in resp, resp.get("traceback")
+    assert resp["seed"] == 7
+    assert len(resp["images"]) == 1
+    img = decode_image_b64(resp["images"][0])
+    assert img.shape == (32, 32, 3)
+
+
+def test_auto_seed_echo(handler):
+    resp = handler(dict(ARGS), "req-2")
+    assert isinstance(resp["seed"], int) and 0 <= resp["seed"] < 1e9
+
+
+def test_params_merge(handler):
+    resp = handler({"prompt": "x", "params": {**ARGS, "seed": 3}}, "req-3")
+    assert resp["seed"] == 3
+
+
+def test_img2img_base64_roundtrip(handler):
+    first = handler({**ARGS, "seed": 1}, "r")
+    resp = handler(
+        {**ARGS, "seed": 2, "image": first["images"][0], "strength": 0.5},
+        "req-4",
+    )
+    assert "error" not in resp, resp.get("traceback")
+    assert len(resp["images"]) == 1
+
+
+def test_scheduler_swap_via_model_block(handler):
+    resp = handler({**ARGS, "seed": 1, "model": {"scheduler": "euler"}}, "req-5")
+    assert "error" not in resp
+    assert handler.model.scheduler_name == "euler"
+    handler.model.set_scheduler("DDIM")
+
+
+@pytest.mark.parametrize("request_input, item", [
+    ({"mode": "inference_wandb"}, "item 21"),
+    ({"mode": "constructor"}, "item 14"),
+    ({"mode": "train"}, "item 19"),
+    ({"model": {"loras": [{"name": "x"}]}}, "item 14"),
+    ({"model": {"quantize": "w8a8"}}, "item 16"),
+    ({"model": {"type": "sd3", "name": "x"}}, "item 18"),
+    ({"hires_scale": 2.0}, "item 15"),
+    ({"model": {"textual_inversion": ["a.pt"]}}, "not supported"),
+])
+def test_unported_features_answer_on_the_error_channel(handler, request_input, item):
+    resp = handler({**ARGS, "seed": 1, **request_input}, "req-6")
+    assert "error" in resp and item in resp["error"], resp
+    assert "error" not in handler({**ARGS, "seed": 1}, "after")  # still serving
+
+
+def test_unknown_mode_is_error(handler):
+    resp = handler({**ARGS, "mode": "nope"}, "req-8")
+    assert "error" in resp and "unknown mode" in resp["error"]
+
+
+def test_missing_model():
+    h = Handler(model=None, device="cpu")
+    resp = h(dict(ARGS), "req-9")
+    assert "error" in resp and "no model" in resp["error"]
+
+
+def test_model_block_loads_a_folder(tmp_path):
+    """{"model": {"type": "sd15", "name": N}} loads <model_dir>/sd15_N once;
+    the same name again does not reload."""
+    model = tiny_port_model(seed=2)
+    save_sd_model(model, str(tmp_path / "sd15_tiny"))
+    h = Handler(model_dir=str(tmp_path), device="cpu")
+    resp = h({**ARGS, "seed": 4, "model": {"type": "sd15", "name": "tiny"}}, "load")
+    assert "error" not in resp, resp.get("traceback")
+    loaded = h.model
+    assert loaded.path == str(tmp_path / "sd15_tiny") and h.model_generation == 1
+    h({**ARGS, "seed": 4, "model": {"type": "sd15", "name": "tiny"}}, "again")
+    assert h.model is loaded
+    resp = h({**ARGS, "model": {"name": "absent"}}, "bad")
+    assert "FileNotFoundError" in resp["error"]
+
+
+def test_http_worker_roundtrip(handler):
+    """Drive the real HTTP surface on a local port."""
+    server = make_server(handler, "127.0.0.1", 0, max_batch=1)
+    port = server.server_address[1]
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("GET", "/")
+        health = json.loads(conn.getresponse().read())
+        assert health["status"] == "ok" and health["model"] == "sd15"
+
+        body = json.dumps({"id": "job-1", "input": {**ARGS, "seed": 9}})
+        conn.request("POST", "/", body=body, headers={"Content-Type": "application/json"})
+        resp = json.loads(conn.getresponse().read())
+        assert resp["seed"] == 9 and len(resp["images"]) == 1
+
+        # malformed json -> 400
+        conn.request("POST", "/", body="{not json",
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        assert r.status == 400
+        r.read()
+        # a failing request -> 500 with the error
+        conn.request("POST", "/", body=json.dumps({"input": {**ARGS, "mode": "train"}}))
+        r = conn.getresponse()
+        assert r.status == 500 and "item 19" in json.loads(r.read())["error"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def test_worker_flags_for_unported_features():
+    from stablediffusion_tpu_torch.serve.worker import build
+
+    for flags, item in ((["--mesh_dp", "2"], "item 20"), (["--quantize", "w8"], "item 16")):
+        with pytest.raises(NotImplementedError, match=item):
+            build(parse_args(flags))
+    args = parse_args(["--model_dir", "d", "--model_name", "n", "--max_batch", "4"])
+    assert (args.model_type, args.max_batch, args.port) == ("sd15", 4, 8000)
+
+
+def test_bucket_upload_sink(handler, tmp_path, monkeypatch):
+    """BUCKET_ENDPOINT_URL-gated image sink: when configured, inference
+    responses carry URLs instead of base64."""
+    import os
+
+    from PIL import Image
+
+    from stablediffusion_tpu_torch.serve.upload import make_uploader
+
+    root = str(tmp_path / "bucket")
+    monkeypatch.setenv("BUCKET_ENDPOINT_URL", root)
+    assert make_uploader() is not None
+    monkeypatch.delenv("BUCKET_ENDPOINT_URL")
+    assert make_uploader() is None  # fallback: base64 branch
+
+    h = Handler(model=handler.model, uploader=make_uploader(root))
+    resp = h({**ARGS, "seed": 7}, "job-42")
+    assert "error" not in resp, resp.get("traceback")
+    (url,) = resp["images"]
+    assert url.startswith("file://") and url.endswith("/0.jpg")
+    path = url[len("file://"):]
+    assert os.path.exists(path) and "job-42" in path
+    assert Image.open(path).size == (32, 32)
+
+
+def test_upload_scheme_dispatch(tmp_path):
+    from stablediffusion_tpu_torch.serve import upload
+
+    assert isinstance(upload.make_uploader(str(tmp_path)), upload.FileUploader)
+    assert isinstance(upload.make_uploader(f"file://{tmp_path}"), upload.FileUploader)
+    assert isinstance(upload.make_uploader("http://bucket.example/up"), upload.HTTPUploader)
+    assert upload.make_uploader(None) is None
+
+
+def test_warmup_runs_each_batch_size(handler, monkeypatch):
+    """warmup generates once per batch size it is given."""
+    seen = []
+    real = handler._generate
+
+    def spy(args, output_type="uint8"):
+        seen.append(args["num_images_per_prompt"])
+        return real(args, output_type)
+
+    monkeypatch.setattr(handler, "_generate", spy)
+    assert handler.warmup(steps=1, size=32, batches=(1, 2)) >= 0.0
+    assert seen == [1, 2]
+
+
+# -- micro-batching ------------------------------------------------------------
+
+
+def test_batcher_merges_and_is_composition_invariant(handler):
+    """Concurrent same-bucket requests merge into ONE pipeline call, and each
+    request's image equals what it gets batched alone (per-sample seed
+    streams).  Exact JPEG bytes hold where the pixels are equal; on the CPU
+    the fp32 convolutions and GEMMs block by batch size, so the decoded
+    pixels are compared within one uint8 level (a rounding flip)."""
+    b = Batcher(handler, max_batch=4, window_ms=200.0, adaptive=False)
+    results = {}
+
+    def go(seed):
+        results[seed] = b.submit({**ARGS, "seed": seed}, f"b{seed}")
+
+    threads = [threading.Thread(target=go, args=(s,)) for s in (101, 202, 303)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert b.merged_calls == 1, b.merged_calls
+    assert b.padded_samples == 1  # three requests pad to a batch of four
+    for s in (101, 202, 303):
+        r = results[s]
+        assert "error" not in r, r.get("traceback")
+        assert r["seed"] == s and r["batched"] == 3
+
+    solo = b.submit({**ARGS, "seed": 202}, "solo")
+    assert solo["batched"] == 1
+    merged_px = decode_image_b64(results[202]["images"][0])
+    solo_px = decode_image_b64(solo["images"][0])
+    assert np.abs(merged_px - solo_px).max() <= 1.0 / 255 + 1e-6
+    other = decode_image_b64(results[101]["images"][0])
+    assert np.abs(other - solo_px).max() > 0  # another seed differs
+    b.close()
+
+
+def test_batcher_buckets_and_serial_fallthrough(handler):
+    b = Batcher(handler, max_batch=4, window_ms=50.0)
+    # different shapes -> different buckets, both succeed
+    r1 = b.submit({**ARGS, "seed": 1}, "s1")
+    r2 = b.submit({**ARGS, "height": 64, "width": 64, "seed": 1}, "s2")
+    assert "error" not in r1 and "error" not in r2
+
+    # non-batchable inputs take the serial handler path
+    assert not _batchable({**ARGS, "model": {"scheduler": "DDIM"}})
+    assert not _batchable({**ARGS, "mode": "constructor"})
+    assert not _batchable({**ARGS, "image": "abc"})
+    assert not _batchable({**ARGS, "seed": [1, 2]})
+    assert not _batchable({**ARGS, "num_images_per_prompt": 2})
+    r3 = b.submit({**ARGS, "seed": 5, "model": {"scheduler": "DDIM"}}, "s3")
+    assert "error" not in r3 and "batched" not in r3
+    b.close()
+
+
+def test_batcher_error_channel(handler):
+    b = Batcher(handler, max_batch=2, window_ms=10.0)
+    r = b.submit({**ARGS, "seed": 1, "clip_skip": 99}, "bad")
+    assert "error" in r
+    b.close()
+
+
+def test_batcher_survives_malformed_and_filters_args(handler):
+    """A request that errors inside the merged call (or has unhashable args)
+    must return a per-request error WITHOUT killing the batch thread; extra
+    client keys and 'mode' are filtered like the serial path."""
+    b = Batcher(handler, max_batch=4, window_ms=10.0)
+    r = b.submit({**ARGS, "seed": 1, "sigmas": {"0": 1}}, "bad")
+    assert "error" in r
+    r = b.submit({**ARGS, "seed": 2, "mode": "inference", "webhook": "http://x"}, "ok")
+    assert "error" not in r, r.get("traceback")
+    b.close()
+
+
+def test_batcher_key_partition_is_total():
+    """Every inference argument is merged per request, forces the serial
+    path, or splits buckets: the three sets cover INFERENCE_ARG_KEYS."""
+    from stablediffusion_tpu_torch.serve import batcher
+
+    keys = set(batcher._MERGED_KEYS) | set(batcher._NON_BATCHABLE) | set(batcher._bucket_keys())
+    assert set(INFERENCE_ARG_KEYS) <= keys
+
+
+def test_encode_accepts_float_and_uint8():
+    x = np.random.default_rng(0).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    a = encode_images_b64(x)
+    b = encode_images_b64((x * 255).round().astype(np.uint8))
+    assert a == b and len(a) == 2

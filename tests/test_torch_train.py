@@ -37,6 +37,7 @@ from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.schedulers import DDPMScheduler, make_scheduler
 from stablediffusion_tpu_torch.train import optim as toptim
 from stablediffusion_tpu_torch.train import train_step as tts
+from torch_port_helpers import torch_single_thread  # noqa: F401
 
 
 def _np(tree):
@@ -74,10 +75,10 @@ def test_ddpm_matches_jax(ptype):
     step_noise = np.array(jax.random.normal(key, x0.shape, jnp.float32))
     for i in (0, 7, 19):  # the last step is t = 1; t > 0 adds noise
         ref, _ = js.step(jplan, (), i, jnp.asarray(noise), jnp.asarray(x0), key=key)
-        out = ts.step(tplan, i, _nchw(noise), _nchw(x0), noise=_nchw(step_noise))
+        out, _ = ts.step(tplan, (), i, _nchw(noise), _nchw(x0), noise=_nchw(step_noise))
         np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=1e-6)
     with pytest.raises(ValueError, match="noise"):
-        ts.step(tplan, 0, _nchw(noise), _nchw(x0))
+        ts.step(tplan, (), 0, _nchw(noise), _nchw(x0))
 
 
 # -- (d) LoRA ----------------------------------------------------------------
