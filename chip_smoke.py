@@ -76,6 +76,28 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    earlier phase held, under phase 3's rules and times.
 12. Inpaint reference: concat9 on a narrow 9-channel model, card against
    CPU, fp32, the same injected draws, a stochastic scheduler.
+13. SDXL main path: the full-width SDXL model (random weights: CLIP-L and
+   bigG, the bf16 UNet, the fp32 VAE, the "leading" DDIM plan) answers
+   three 1024x1024, 20-step, CFG 7.5 requests (batch 1, batch 1 with
+   prompt_2 and negative_prompt_2, two prompts), with exact launches:
+   2800 UNet ``flash_fwd`` plus both towers each way, one ``flash_stream``.
+14. Where the time goes in one SDXL request, under torch.profiler.
+15. Refiner: a full-width random refiner UNet refines the first image,
+   img2img at strength 0.3 with ``use_refiner=True``, exact launches.
+16. Full-width bf16 SDXL UNet at B=2 and 128x128 latents, as phase 4.
+17. The forward kernels at every shape the SDXL and refiner paths launched
+   that no earlier phase held (head dim 64 at 4096, 1024 and 256 tokens,
+   bigG's causal 77, the 16384-token decode and encode), under phase 3's
+   rules and times.
+18. SDXL reference: a narrow SDXL-layout model (dual towers, linear
+   projections, text_time, two transformer layers at one level, head dim
+   64), card against CPU, fp32, 4 DDIM steps.
+19. Serving SDXL: a full-width SDXL folder written by ``save_sd_model`` is
+   loaded by the worker with no --model_type (the "sdxl" default), every
+   tensor equal, and asked over loopback at 1024x1024: DDIM and DPM++ 2M
+   Karras, img2img at 0.6, blend4 at 1.0, use_refiner without a refiner
+   (error channel) and a burst of two that the batcher merges, each with
+   its launches; then phase 17 for the shapes serving added.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -314,13 +336,17 @@ def phase_kernels(by_shape, by_shape_batch1):
     return rows
 
 
-def _count_blocks(model):
+def _n_tf(unet):
     from stablediffusion_tpu_torch.models.unet import BasicTransformerBlock
+
+    return sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
+
+
+def _count_blocks(model):
     from stablediffusion_tpu_torch.models.vae import VAEAttention
 
-    n_tf = sum(isinstance(m, BasicTransformerBlock) for m in model.unet.modules())
     n_vae = sum(isinstance(m, VAEAttention) for m in model.vae.decoder.modules())
-    return n_tf, n_vae
+    return _n_tf(model.unet), n_vae
 
 
 def phase_reference():
@@ -381,7 +407,25 @@ def phase_reference():
         raise AssertionError(f"card disagrees with CPU: {lat_err}, {img_err}")
 
 
-def phase_main_path():
+def _clip_layers(model, refiner=False):
+    """Layers one prompt encode runs: every layer of each tower it uses
+    (the refiner's encode uses SDXL's second tower alone)."""
+    n2 = model.text_encoder_2_config.num_hidden_layers if model.is_sdxl else 0
+    return n2 if refiner else model.text_encoder_config.num_hidden_layers + n2
+
+
+def _want(model, n_evals, streams, refiner=False):
+    """The launches of one CFG call: one encode each for the prompts and the
+    negatives, two attentions per transformer block per UNet evaluation,
+    and `streams` VAE mid-block attentions (one per encode and decode)."""
+    unet = model.refiner if refiner else model.unet
+    return {"flash_fwd": 2 * _clip_layers(model, refiner) + 2 * _n_tf(unet) * n_evals,
+            "flash_stream": streams}
+
+
+def phase_main_path(name="sd15", res=512, requests=None):
+    """`name`'s full-width random model answers three `res`x`res`, 20-step
+    DDIM, CFG 7.5 requests through the pipeline call, with exact launches."""
     import numpy as np
     import torch
 
@@ -393,19 +437,14 @@ def phase_main_path():
     from stablediffusion_tpu_torch.utils.testing import random_full_model
 
     t0 = time.perf_counter()
-    model = random_full_model("sd15", device="cuda", seed=0)
+    model = random_full_model(name, device="cuda", seed=0)
     torch.cuda.synchronize()
-    print(f"full-width SD1.5 random model built in {time.perf_counter() - t0:.3f} s",
+    print(f"full-width {name} random model built in {time.perf_counter() - t0:.3f} s",
           flush=True)
     pipe = StableDiffusionUnifiedPipeline(device="cuda")
     steps = 20
-    n_tf, n_vae = _count_blocks(model)
-    n_clip = model.text_encoder_config.num_hidden_layers
-    # per request: one CLIP encode each for the prompts and the negatives
-    # (one launch per layer each), two attentions per transformer block per
-    # step, one mid-block attention per decode
-    want = {"flash_fwd": 2 * n_clip + 2 * n_tf * steps, "flash_stream": n_vae}
-    requests = [
+    want = _want(model, steps, 1)
+    requests = requests or [
         dict(prompt="a photograph of an astronaut riding a horse", seed=0),
         dict(prompt="a watercolor painting of a fox in the snow", seed=1),
         dict(prompt=["a red bicycle by a canal", "a lighthouse at dusk"], seed=2),
@@ -419,18 +458,18 @@ def phase_main_path():
         before = {n: c.count for n, c in counters.items()}
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = pipe(model, height=512, width=512, num_inference_steps=steps,
+        out = pipe(model, height=res, width=res, num_inference_steps=steps,
                    guidance_scale=7.5, **req)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         got = {n: c.count - before[n] for n, c in counters.items()}
         B = 1 if isinstance(req["prompt"], str) else len(req["prompt"])
         im = out.images
-        print(json.dumps({"request": req, "wall_s": wall, "launches": got,
+        print(json.dumps({"model": name, "request": req, "wall_s": wall, "launches": got,
                           "expected_launches": want, "shape": list(im.shape),
                           "dtype": str(im.dtype), "mean": float(im.mean()),
                           "std": float(im.std())}), flush=True)
-        if im.shape != (B, 512, 512, 3) or im.dtype != np.float32:
+        if im.shape != (B, res, res, 3) or im.dtype != np.float32:
             raise AssertionError(f"bad output {im.shape} {im.dtype}")
         if not (np.isfinite(im).all() and im.min() >= 0.0 and im.max() <= 1.0):
             raise AssertionError("non-finite or out-of-range pixels")
@@ -447,12 +486,12 @@ def phase_main_path():
         raise AssertionError(f"a kernel of the path never launched: {totals}")
     for n, shapes in batch1.items():
         for (qs, skv, dtype, causal, _lse), count in sorted(shapes.items()):
-            print(json.dumps({"batch1_launches": n, "shape": list(qs), "skv": skv,
-                              "dtype": dtype, "causal": causal, "count": count}),
-                  flush=True)
-    print(f"main path peak device memory "
+            print(json.dumps({"batch1_launches": n, "model": name, "shape": list(qs),
+                              "skv": skv, "dtype": dtype, "causal": causal,
+                              "count": count}), flush=True)
+    print(f"{name} main path peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    return totals, by_shape, batch1, model, pipe
+    return totals, by_shape, batch1, model, pipe, results[0]
 
 
 def _rel_err(a, ref):
@@ -461,9 +500,11 @@ def _rel_err(a, ref):
 
 
 def phase_unet_bf16(model):
-    """One full-width UNet forward at B=2 in bf16 through the kernels and
-    through the plain attention, each against an fp32 copy of the same UNet
-    with the plain attention, on the same inputs."""
+    """One full-width UNet forward at B=2 and the model's latent size in
+    bf16 through the kernels and through the plain attention, each against
+    an fp32 copy of the same UNet with the plain attention, on the same
+    inputs (an SDXL UNet also on random pooled embeds and its 1024² time
+    ids)."""
     import torch
 
     import stablediffusion_tpu_torch.models.unet as unet_module
@@ -471,22 +512,34 @@ def phase_unet_bf16(model):
 
     unet = model.unet
     dtype = next(unet.parameters()).dtype
+    cfg = unet.config
+    hw = cfg.sample_size
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn(2, unet.config.in_channels, 64, 64, device="cuda", generator=g)
-    ctx = torch.randn(2, 77, unet.config.cross_attention_dim, device="cuda", generator=g)
+    x = torch.randn(2, cfg.in_channels, hw, hw, device="cuda", generator=g)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, device="cuda", generator=g)
     t = torch.tensor(500, device="cuda")
+    added = None
+    if cfg.addition_embed_type == "text_time":
+        pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        res = float(hw * model.vae_scale_factor)
+        added = {"text_embeds": torch.randn(2, pooled, device="cuda", generator=g),
+                 "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * 2, device="cuda")}
+    # the pooled embeds in the compute dtype, the time ids in fp32, as the
+    # pipeline passes them
+    cast = lambda d, dt: None if d is None else dict(  # noqa: E731
+        d, text_embeds=d["text_embeds"].to(dt))
     with torch.inference_mode():
-        kern = unet(x.to(dtype), t, ctx.to(dtype)).float()
+        kern = unet(x.to(dtype), t, ctx.to(dtype), cast(added, dtype)).float()
         routed = unet_module.attention
         unet_module.attention = attention_plain
         try:
-            plain = unet(x.to(dtype), t, ctx.to(dtype)).float()
-            ref = copy.deepcopy(unet).float()(x, t, ctx).float()
+            plain = unet(x.to(dtype), t, ctx.to(dtype), cast(added, dtype)).float()
+            ref = copy.deepcopy(unet).float()(x, t, ctx, added).float()
         finally:
             unet_module.attention = routed
     err_kernel, err_plain = _rel_err(kern, ref), _rel_err(plain, ref)
     print(json.dumps({
-        "unet_bf16": "full-width SD1.5 UNet, B=2, 64x64 latents, t=500",
+        "unet_bf16": f"full-width {model.model_type} UNet, B=2, {hw}x{hw} latents, t=500",
         "dtype": str(dtype), "ref_std": ref.std().item(),
         "kernels_vs_fp32": err_kernel, "plain_vs_fp32": err_plain,
         "kernels_vs_plain": _rel_err(kern, plain),
@@ -505,9 +558,11 @@ def _kernel_group(name: str) -> str:
             return key
     if any(s in low for s in ("conv", "fprop", "dgrad", "implicit", "cudnn")):
         return "convolution"
-    if any(s in low for s in ("gemm", "cublas", "cutlass", "xmma")):
+    # nvjet: cuBLAS's Hopper GEMM kernels; RowwiseMoments: group norm's
+    # statistics pass
+    if any(s in low for s in ("gemm", "cublas", "cutlass", "xmma", "nvjet")):
         return "gemm"
-    if "norm" in low:
+    if "norm" in low or "moments" in low:
         return "normalization"
     return "elementwise and other"
 
@@ -920,6 +975,79 @@ def _post(port: int, body: dict, timeout: float = 900.0):
         conn.close()
 
 
+def _ask(port, counters, card, label, body, expect):
+    """POST one request to the worker and count the launches it made.  With
+    `expect` (launches by kernel) the reply must be one image of the
+    request's size with its seed, and the launches exact; without, the
+    reply is returned as it is (an error-channel request).  Returns (reply,
+    its printed row)."""
+    import numpy as np
+
+    from stablediffusion_tpu_torch.serve.handler import decode_image_b64
+
+    before = {n: c.count for n, c in counters.items()}
+    status, reply, wall = _post(port, {"id": label, "input": body})
+    got = {n: c.count - before[n] for n, c in counters.items()}
+    row = {"serve_request": label, "status": status, "wall_s": wall,
+           "launches": got, "expected_launches": expect,
+           "seed": reply.get("seed"), "card": card}
+    print(json.dumps(row), flush=True)
+    if expect is not None:
+        if status != 200 or "error" in reply:
+            raise AssertionError(f"{label}: {reply.get('error')}\n"
+                                 f"{reply.get('traceback')}")
+        if reply["seed"] != body["seed"] or len(reply["images"]) != 1:
+            raise AssertionError(f"{label}: seed {reply['seed']} or images wrong")
+        px = decode_image_b64(reply["images"][0])
+        if px.shape != (body["height"], body["width"], 3) or not np.isfinite(px).all():
+            raise AssertionError(f"{label}: image {px.shape}")
+        if got != expect:
+            raise AssertionError(f"{label}: launches {got} != expected {expect}")
+    return reply, row
+
+
+def _burst(server, port, counters, card, bodies, want_one):
+    """Send `bodies` at once from threads; the batcher must merge them, each
+    merged call launching `want_one`.  Returns the replies (status, reply,
+    wall) and the printed row."""
+    import threading
+
+    merged_before = server.batcher.merged_calls
+    before = {n: c.count for n, c in counters.items()}
+    replies = [None] * len(bodies)
+
+    def go(i):
+        replies[i] = _post(port, {"id": f"burst-{i}", "input": bodies[i]})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    burst_s = time.perf_counter() - t
+    got = {n: c.count - before[n] for n, c in counters.items()}
+    groups = server.batcher.merged_calls - merged_before
+    sizes = sorted(r[1].get("batched", 0) for r in replies if r is not None)
+    bad = [r for r in replies if r is None or r[0] != 200 or "error" in r[1]]
+    if bad:
+        raise AssertionError(f"burst: {bad}")
+    # each merged call: one CLIP pass each way over the group, one UNet
+    # evaluation per step, one decode launch for the group
+    expect = {n: groups * v for n, v in want_one.items()}
+    row = {"serve_burst": len(bodies), "merged_calls": groups,
+           "batched_per_reply": sizes, "wall_s": burst_s,
+           "images_per_s": len(bodies) / burst_s,
+           "reply_walls_s": [r[2] for r in replies],
+           "launches": got, "expected_launches": expect, "card": card}
+    print(json.dumps(row), flush=True)
+    if max(sizes) < 2:
+        raise AssertionError(f"the batcher merged none of the burst: {sizes}")
+    if got != expect:
+        raise AssertionError(f"burst: launches {got} != expected {expect}")
+    return replies, row
+
+
 def _folder_bytes(path: str) -> int:
     import os
 
@@ -927,11 +1055,57 @@ def _folder_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
+def _save_and_serve(model, root, folder_name, flags, label, card):
+    """Write `model` to ``root/folder_name`` with ``save_sd_model``, build
+    the HTTP worker on it (``serve.worker`` with `flags`, the worker's own
+    --model_name load onto the card) and hold every loaded tensor equal to
+    the saved one.  Returns the server, not yet serving."""
+    import os
+
+    import torch
+
+    from stablediffusion_tpu_torch.io.loader import save_sd_model
+    from stablediffusion_tpu_torch.serve.worker import build, parse_args
+
+    folder = os.path.join(root, folder_name)
+    t = time.perf_counter()
+    save_sd_model(model, folder)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    server = build(parse_args(["--host", "127.0.0.1", "--port", "0", "--model_dir", root,
+                               *flags]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    loaded = server.handler.model
+    n_tensors = 0
+    comps = ("unet", "vae", "text_encoder") + (("text_encoder_2",) if model.is_sdxl else ())
+    for comp in comps:
+        a, b = getattr(model, comp).state_dict(), getattr(loaded, comp).state_dict()
+        if a.keys() != b.keys():
+            raise AssertionError(f"{comp}: loaded keys differ from the saved ones")
+        for k in a:
+            if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])):
+                raise AssertionError(f"{comp}.{k}: loaded tensor differs from the saved one")
+        n_tensors += len(a)
+    print(json.dumps({"serve_folder": label, "model_type": loaded.model_type,
+                      "bytes": _folder_bytes(folder), "tensors_equal": n_tensors,
+                      "save_s": save_s, "load_s": load_s, "card": card}), flush=True)
+    return server
+
+
+def _plan_evals(probe, model, name, steps, strength=1.0):
+    """UNet evaluations of a `steps`-step call under scheduler `name` at
+    `strength`, from the scheduler's plan."""
+    from stablediffusion_tpu_torch.schedulers import make_scheduler
+
+    sched = make_scheduler(name, model.scheduler_config)
+    return probe.get_timesteps(sched, steps, strength, None)[0].num_steps
+
+
 def phase_serve(card: str):
     """Serving: a full-width SD1.5 folder written by ``save_sd_model``,
     loaded by the HTTP worker (``serve.worker``) on 127.0.0.1 and asked
     over loopback, with exact launch counts per request from the plans."""
-    import os
     import shutil
     import tempfile
     import threading
@@ -939,14 +1113,11 @@ def phase_serve(card: str):
     import numpy as np
     import torch
 
-    from stablediffusion_tpu_torch.io.loader import save_sd_model
     from stablediffusion_tpu_torch.models.vae import VAEAttention
     from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES, flash_fwd
     from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
     from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
-    from stablediffusion_tpu_torch.schedulers import make_scheduler
     from stablediffusion_tpu_torch.serve.handler import decode_image_b64, encode_images_b64
-    from stablediffusion_tpu_torch.serve.worker import build, parse_args
     from stablediffusion_tpu_torch.utils.testing import (
         random_full_model,
         synthetic_clip_tokenizer,
@@ -955,36 +1126,16 @@ def phase_serve(card: str):
     root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     server = thread = None
     try:
-        # 1. write the folder
+        # 1. write the folder, 2. load it in the worker
         model = random_full_model("sd15", device="cuda", seed=4)
         model.tokenizer = synthetic_clip_tokenizer()
-        folder = os.path.join(root, "sd15_chip")
-        t = time.perf_counter()
-        save_sd_model(model, folder)
-        save_s = time.perf_counter() - t
-        # 2. load it: the worker's own --model_name load, onto the card
-        t = time.perf_counter()
-        server = build(parse_args([
-            "--host", "127.0.0.1", "--port", "0", "--model_dir", root,
-            "--model_name", "chip", "--model_type", "sd15",
-            "--max_batch", str(SERVE_BURST), "--batch_window_ms", "200"]))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t
+        server = _save_and_serve(
+            model, root, "sd15_chip",
+            ["--model_name", "chip", "--model_type", "sd15", "--max_batch", str(SERVE_BURST),
+             "--batch_window_ms", "200"],
+            "full-width SD1.5, random weights (seed 4), synthetic byte-level BPE", card)
         handler = server.handler
         loaded = handler.model
-        n_tensors = 0
-        for comp in ("unet", "vae", "text_encoder"):
-            a, b = getattr(model, comp).state_dict(), getattr(loaded, comp).state_dict()
-            if a.keys() != b.keys():
-                raise AssertionError(f"{comp}: loaded keys differ from the saved ones")
-            for k in a:
-                if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])):
-                    raise AssertionError(f"{comp}.{k}: loaded tensor differs from the saved one")
-            n_tensors += len(a)
-        print(json.dumps({"serve_folder": "full-width SD1.5, random weights (seed 4), "
-                          "synthetic byte-level BPE", "bytes": _folder_bytes(folder),
-                          "tensors_equal": n_tensors, "save_s": save_s,
-                          "load_s": load_s, "card": card}), flush=True)
         del model
         torch.cuda.empty_cache()
 
@@ -1003,8 +1154,7 @@ def phase_serve(card: str):
         probe = StableDiffusionUnifiedPipeline(device="cuda")
 
         def evals(name, steps, strength=1.0):
-            sched = make_scheduler(name, loaded.scheduler_config)
-            return probe.get_timesteps(sched, steps, strength, None)[0].num_steps
+            return _plan_evals(probe, loaded, name, steps, strength)
 
         def want(n_evals, streams):
             return {"flash_fwd": 2 * n_clip + 2 * n_tf * n_evals, "flash_stream": streams}
@@ -1020,24 +1170,7 @@ def phase_serve(card: str):
         rows = []
 
         def ask(label, body, expect, batch1_txt2img=False):
-            before = {n: c.count for n, c in counters.items()}
-            status, reply, wall = _post(port, {"id": label, "input": body})
-            got = {n: c.count - before[n] for n, c in counters.items()}
-            row = {"serve_request": label, "status": status, "wall_s": wall,
-                   "launches": got, "expected_launches": expect,
-                   "seed": reply.get("seed"), "card": card}
-            print(json.dumps(row), flush=True)
-            if expect is not None:
-                if status != 200 or "error" in reply:
-                    raise AssertionError(f"{label}: {reply.get('error')}\n"
-                                         f"{reply.get('traceback')}")
-                if reply["seed"] != body["seed"] or len(reply["images"]) != 1:
-                    raise AssertionError(f"{label}: seed {reply['seed']} or images wrong")
-                px = decode_image_b64(reply["images"][0])
-                if px.shape != (body["height"], body["width"], 3) or not np.isfinite(px).all():
-                    raise AssertionError(f"{label}: image {px.shape}")
-                if got != expect:
-                    raise AssertionError(f"{label}: launches {got} != expected {expect}")
+            reply, row = _ask(port, counters, card, label, body, expect)
             rows.append(dict(row, batch1_txt2img=batch1_txt2img))
             return reply
 
@@ -1068,39 +1201,8 @@ def phase_serve(card: str):
         prompts = ["a red bicycle by a canal", "a lighthouse at dusk",
                    "a bowl of ramen", "a snowy mountain village"]
         burst = [{**base, "prompt": p, "seed": 200 + i} for i, p in enumerate(prompts)]
-        merged_before = server.batcher.merged_calls
-        before = {n: c.count for n, c in counters.items()}
-        replies = [None] * SERVE_BURST
-
-        def go(i):
-            replies[i] = _post(port, {"id": f"burst-{i}", "input": burst[i]})
-
-        threads = [threading.Thread(target=go, args=(i,)) for i in range(SERVE_BURST)]
-        t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        burst_s = time.perf_counter() - t
-        got = {n: c.count - before[n] for n, c in counters.items()}
-        groups = server.batcher.merged_calls - merged_before
-        sizes = sorted(r[1].get("batched", 0) for r in replies if r is not None)
-        bad = [r for r in replies if r is None or r[0] != 200 or "error" in r[1]]
-        if bad:
-            raise AssertionError(f"burst: {bad}")
-        # each merged call: one CLIP pass each way over the group, one UNet
-        # evaluation per step, one decode launch for the group
-        expect = {n: groups * v for n, v in want(evals("DDIM", SERVE_STEPS), n_dec).items()}
-        print(json.dumps({"serve_burst": SERVE_BURST, "merged_calls": groups,
-                          "batched_per_reply": sizes, "wall_s": burst_s,
-                          "images_per_s": SERVE_BURST / burst_s,
-                          "reply_walls_s": [r[2] for r in replies],
-                          "launches": got, "expected_launches": expect,
-                          "card": card}), flush=True)
-        if max(sizes) < 2:
-            raise AssertionError(f"the batcher merged none of the burst: {sizes}")
-        if got != expect:
-            raise AssertionError(f"burst: launches {got} != expected {expect}")
+        replies, _ = _burst(server, port, counters, card, burst,
+                            want(evals("DDIM", SERVE_STEPS), n_dec))
 
         # solo against merged, and the same request twice alone
         solo = [ask(f"burst request 0 alone #{j}", {**burst[0]},
@@ -1160,9 +1262,11 @@ def phase_serve(card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_serve_kernels(by_shape, checked):
-    """Phase 3's check and times at every shape the serving path launched
-    that no earlier phase held (768x768, the merged burst's B=8 and B=4)."""
+def phase_new_shapes(by_shape, checked, path):
+    """Phase 3's check and times at every shape `path` launched that no
+    earlier phase held (serving: 768x768, the merged burst's B=8 and B=4;
+    SDXL: head dim 64 at 1024², the refiner's levels, bigG, the 16384-token
+    decode and encode).  Adds the shapes it holds to `checked`."""
     import torch
 
     from stablediffusion_tpu_torch.ops.attention import attention_plain, flash_fwd
@@ -1175,12 +1279,13 @@ def phase_serve_kernels(by_shape, checked):
         if (name, B, Sq, H, D, Skv, causal) in checked:
             seen.append([name, B, Sq, H, D, Skv, causal])
             continue
+        checked.add((name, B, Sq, H, D, Skv, causal))
         for dtype in (torch.bfloat16, torch.float32):
             key = ((B, Sq, H, D), Skv, str(dtype).replace("torch.", ""), causal, False)
             row = kernel_case(name, *fns[name], B, Sq, H, D, Skv, dtype, causal,
                               by_shape[name].get(key, 0), 0)
-            rows.append(dict(row, path="serve"))
-    print(json.dumps({"serve_shapes_held_by_earlier_phases": seen}), flush=True)
+            rows.append(dict(row, path=path))
+    print(json.dumps({f"{path}_shapes_held_by_earlier_phases": seen}), flush=True)
     return rows
 
 
@@ -1245,6 +1350,246 @@ def phase_inpaint_reference():
         raise AssertionError(f"concat9 on the card disagrees with the CPU: {err}")
 
 
+# -- SDXL 1024² and the refiner ------------------------------------------------
+
+SDXL_RES = 1024
+SDXL_STEPS = 20
+SDXL_REQUESTS = [
+    dict(prompt="a photograph of an astronaut riding a horse", seed=0),
+    dict(prompt="a watercolor painting of a fox in the snow", seed=1,
+         prompt_2="soft morning light, fine detail", negative_prompt="blurry",
+         negative_prompt_2="low quality, jpeg artifacts"),
+    dict(prompt=["a red bicycle by a canal", "a lighthouse at dusk"], seed=2),
+]
+SDXL_REFINER_STRENGTH = 0.3
+SDXL_BURST = 2  # the SDXL worker's max_batch and its burst's size
+
+
+def phase_sdxl_reference():
+    """A narrow SDXL-layout model, card (kernels) against CPU (plain
+    attention), fp32, TF32 off: CLIP-L and bigG at full width and 2 layers
+    each, a UNet of two levels at SDXL's head dim 64 (5 and 10 heads), two
+    transformer layers at the first, linear projections, text_time over the
+    projected pooled and six time ids, and a VAE whose mid-block takes
+    flash_stream; 4 DDIM steps from the same latents."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import (
+        SDXL_TEXT_ENCODER,
+        SDXL_TEXT_ENCODER_2,
+        SDXL_UNET,
+        VAEConfig,
+    )
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
+
+    ucfg = dataclasses.replace(
+        SDXL_UNET, sample_size=16, block_out_channels=(320, 640),
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+        layers_per_block=1, transformer_layers_per_block=(2, 1), num_attention_heads=(5, 10))
+    vcfg = VAEConfig(block_out_channels=(64, 192), layers_per_block=1)
+    t1 = dataclasses.replace(SDXL_TEXT_ENCODER, num_hidden_layers=2)
+    t2 = dataclasses.replace(SDXL_TEXT_ENCODER_2, num_hidden_layers=2)
+    cpu = random_model(ucfg, vcfg, t1, bench_tokenizer(), device="cpu", dtype=torch.float32,
+                       seed=7, text_encoder_2_config=t2,
+                       tokenizer_2=bench_tokenizer(pad_token_id=0))
+    gpu = dataclasses.replace(
+        cpu, unet=copy.deepcopy(cpu.unet).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
+        text_encoder=copy.deepcopy(cpu.text_encoder).cuda(),
+        text_encoder_2=copy.deepcopy(cpu.text_encoder_2).cuda())
+    lat = np.random.default_rng(8).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        pipe = StableDiffusionUnifiedPipeline(device=name, dtype=torch.float32)
+        common = dict(prompt="a small red house", prompt_2="by the sea",
+                      num_inference_steps=4, guidance_scale=7.5, latents=torch.from_numpy(lat))
+        f0, s0 = FLASH_FWD_LAUNCHES.count, FLASH_STREAM_LAUNCHES.count
+        latents = pipe(model, output_type="latents", **common).latents
+        images = pipe(model, output_type="np", **common).images
+        outs[name] = (latents.float().cpu().numpy(), images)
+        if name == "cuda" and (FLASH_FWD_LAUNCHES.count == f0
+                               or FLASH_STREAM_LAUNCHES.count == s0):
+            raise AssertionError("SDXL reference run on the card launched no kernel")
+    lat_err = float(np.abs(outs["cpu"][0] - outs["cuda"][0]).max())
+    img_err = float(np.abs(outs["cpu"][1] - outs["cuda"][1]).max())
+    print(json.dumps({"reference": "narrow SDXL layout (dual CLIP, linear projections, "
+                      "text_time, head dim 64), card vs CPU, fp32",
+                      "latents_max_abs_err": lat_err, "latents_max_abs_ref":
+                      float(np.abs(outs["cpu"][0]).max()),
+                      "images_max_abs_err": img_err, "tol": REF_TOL}), flush=True)
+    if not (lat_err <= REF_TOL and img_err <= REF_TOL):
+        raise AssertionError(f"SDXL: card disagrees with CPU: {lat_err}, {img_err}")
+
+
+def phase_refiner(model, pipe, image):
+    """The full-width SDXL refiner (random weights) refines a 1024² image:
+    img2img at SDXL_REFINER_STRENGTH over SDXL_STEPS, ``use_refiner=True``,
+    conditioned on bigG alone; exact launches: bigG each way, two attentions
+    per refiner block per evaluation, the encode's and the decode's
+    mid-block."""
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.utils.testing import random_refiner
+
+    random_refiner(model, seed=1)
+    model.set_scheduler("DDIM")
+    n_evals = _plan_evals(pipe, model, "DDIM", SDXL_STEPS, SDXL_REFINER_STRENGTH)
+    want = _want(model, n_evals, 2, refiner=True)
+    counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = pipe(model, prompt="a photograph of an astronaut riding a horse", image=image,
+               strength=SDXL_REFINER_STRENGTH, num_inference_steps=SDXL_STEPS,
+               guidance_scale=7.5, seed=3, use_refiner=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = {n: c.count for n, c in counters.items()}
+    im = out.images
+    print(json.dumps({"refiner": "full-width SDXL refiner, img2img 1024x1024, DDIM",
+                      "strength": SDXL_REFINER_STRENGTH, "evaluations": n_evals,
+                      "refiner_blocks": _n_tf(model.refiner), "wall_s": wall,
+                      "launches": got, "expected_launches": want,
+                      "shape": list(im.shape), "mean": float(im.mean())}), flush=True)
+    if im.shape != (1, SDXL_RES, SDXL_RES, 3) or not np.isfinite(im).all():
+        raise AssertionError(f"refiner output {im.shape}")
+    if got != want:
+        raise AssertionError(f"refiner: launch counts {got} != expected {want}")
+    return got, {n: dict(c.by_shape) for n, c in counters.items()}
+
+
+def phase_serve_sdxl(card: str):
+    """Serving SDXL: a full-width SDXL folder written by ``save_sd_model``
+    (synthetic byte-level BPE, bigG padding with "!" = 0) is loaded by the
+    HTTP worker with no --model_type (the "sdxl" default) and asked over
+    loopback at 1024²: txt2img under DDIM and DPM++ 2M Karras, img2img at
+    0.6, blend4 inpainting at 1.0 and a burst of SDXL_BURST that the batcher
+    merges, each with the launches its plan implies."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.serve.handler import encode_images_b64
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        synthetic_clip_tokenizer,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_sdxl_")
+    server = thread = None
+    try:
+        model = random_full_model("sdxl", device="cuda", seed=4)
+        model.tokenizer = synthetic_clip_tokenizer()
+        model.tokenizer_2 = synthetic_clip_tokenizer(pad_token_id=0)
+        server = _save_and_serve(
+            model, root, "sdxl_chip",
+            ["--model_name", "chip", "--max_batch", str(SDXL_BURST), "--batch_window_ms",
+             "200"],
+            "full-width SDXL, random weights (seed 4), synthetic byte-level BPE", card)
+        loaded = server.handler.model
+        if loaded.model_type != "sdxl" or loaded.tokenizer_2.pad_token_id != 0:
+            raise AssertionError(f"the worker loaded {loaded.model_type}, "
+                                 f"pad {loaded.tokenizer_2.pad_token_id}")
+        del model
+        torch.cuda.empty_cache()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        probe = StableDiffusionUnifiedPipeline(device="cuda")
+        counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+        for c in counters.values():
+            c.reset()
+
+        def want(name, strength=1.0, streams=1):
+            return _want(loaded, _plan_evals(probe, loaded, name, SDXL_STEPS, strength),
+                         streams)
+
+        base = dict(prompt="a photograph of an astronaut riding a horse", height=SDXL_RES,
+                    width=SDXL_RES, num_inference_steps=SDXL_STEPS, guidance_scale=7.5)
+        mask = np.zeros((1, SDXL_RES, SDXL_RES, 3), np.uint8)
+        mask[:, 256:768, 256:768] = 255
+        walls = []
+        first, row = _ask(port, counters, card, "sdxl txt2img DDIM",
+                          {**base, "seed": 100, "prompt_2": "fine detail",
+                           "model": {"scheduler": "DDIM"}}, want("DDIM"))
+        walls.append(row["wall_s"])
+        _, row = _ask(port, counters, card, "sdxl txt2img DPM++ 2M Karras",
+                      {**base, "seed": 101, "model": {"scheduler": "DPM++ 2M Karras"}},
+                      want("DPM++ 2M Karras"))
+        walls.append(row["wall_s"])
+        _ask(port, counters, card, "sdxl img2img strength 0.6",
+             {**base, "seed": 7, "image": first["images"][0], "strength": 0.6,
+              "model": {"scheduler": "DDIM"}}, want("DDIM", 0.6, streams=2))
+        _ask(port, counters, card, "sdxl inpaint blend4 strength 1.0",
+             {**base, "seed": 8, "image": first["images"][0],
+              "mask_image": encode_images_b64(mask)[0], "strength": 1.0},
+             want("DDIM", streams=2))
+        err, _ = _ask(port, counters, card, "sdxl use_refiner without a refiner",
+                      {**base, "seed": 9, "params": {"use_refiner": True}}, None)
+        if "no refiner loaded" not in err.get("error", ""):
+            raise AssertionError(f"use_refiner request: {err}")
+        burst = [{**base, "prompt": p, "seed": 200 + i}
+                 for i, p in enumerate(["a bowl of ramen", "a snowy mountain village"])]
+        _, burst_row = _burst(server, port, counters, card, burst, want("DDIM"))
+        launches = {n: c.count for n, c in counters.items()}
+        walls.sort()
+        print(json.dumps({"serve_summary": "SDXL over HTTP, full width 1024x1024, CFG 7.5",
+                          "p50_wall_s_batch1_txt2img": walls[len(walls) // 2],
+                          "batch1_txt2img_walls_s": walls,
+                          "burst_images_per_s": burst_row["images_per_s"],
+                          "batch1_images_per_s": 1.0 / walls[len(walls) // 2],
+                          "launches": launches, "card": card}), flush=True)
+        return launches, {n: dict(c.by_shape) for n, c in counters.items()}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if thread is not None:
+            thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_sdxl(smi, checked):
+    """The SDXL path: the main path, its kernel shapes, the bf16 UNet, the
+    narrow reference, the refiner, a profile, and serving.  Returns the
+    kernel rows and the launches by path."""
+    import torch
+
+    launches, by_shape, _, model, pipe, image = phase_main_path(
+        "sdxl", SDXL_RES, SDXL_REQUESTS)
+    _profile("one SDXL batch-1 request, 1024x1024, 20 DDIM steps, CFG 7.5",
+             lambda: pipe(model, prompt="a photograph of an astronaut riding a horse",
+                          seed=0, height=SDXL_RES, width=SDXL_RES,
+                          num_inference_steps=SDXL_STEPS, guidance_scale=7.5))
+    refiner_launches, refiner_by_shape = phase_refiner(model, pipe, image)
+    phase_unet_bf16(model)
+    del model, pipe
+    torch.cuda.empty_cache()
+    rows = phase_new_shapes(by_shape, checked, "sdxl")
+    rows += phase_new_shapes(refiner_by_shape, checked, "refiner")
+    phase_sdxl_reference()
+    serve_launches, serve_by_shape = phase_serve_sdxl(smi)
+    torch.cuda.empty_cache()
+    rows += phase_new_shapes(serve_by_shape, checked, "sdxl_serve")
+    return rows, {"sdxl": launches, "refiner": refiner_launches, "sdxl_serve": serve_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1279,7 +1624,7 @@ def main() -> int:
     print(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    launches, by_shape, batch1, model, pipe = phase_main_path()
+    launches, by_shape, batch1, model, pipe, _ = phase_main_path()
     rows = phase_kernels(by_shape, batch1)
     phase_unet_bf16(model)
     phase_reference()
@@ -1296,8 +1641,12 @@ def main() -> int:
     serve_launches, serve_by_shape = phase_serve(smi)
     torch.cuda.empty_cache()
     checked = {(r["kernel"], *r["shape"], r["skv"], r["causal"]) for r in rows}
-    rows += phase_serve_kernels(serve_by_shape, checked)
+    rows += phase_new_shapes(serve_by_shape, checked, "serve")
     phase_inpaint_reference()
+    torch.cuda.empty_cache()
+
+    sdxl_rows, sdxl_launches = phase_sdxl(smi, checked)
+    rows += sdxl_rows
 
     # one line per kernel, at its heaviest main-path shape; launches from the
     # path that needs the kernel (txt2img for the forwards, training for the
@@ -1307,6 +1656,11 @@ def main() -> int:
         "flash_stream": dict(shape=[1, 4096, 1, 512], skv=4096, dtype="float32"),
         "flash_bwd_dkv": dict(shape=[TRAIN_BATCH, 4096, 8, 40], skv=4096, dtype="bfloat16"),
         "flash_bwd_dq": dict(shape=[TRAIN_BATCH, 4096, 8, 40], skv=4096, dtype="bfloat16"),
+    }
+    # the SDXL path's heaviest shape of each forward kernel
+    sdxl_case = {
+        "flash_fwd": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
+        "flash_stream": dict(shape=[1, 16384, 1, 512], skv=16384, dtype="float32"),
     }
     lib_flash = "stablediffusion_tpu/ops/attention.py:165"
     meta = {
@@ -1329,7 +1683,15 @@ def main() -> int:
                    and all(r[k] == v for k, v in want.items()))
         mine = [r for r in rows if r["kernel"] == name]
         by_path = {"txt2img": launches.get(name, 0), "serve": serve_launches.get(name, 0),
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   **{p: n.get(name, 0) for p, n in sdxl_launches.items()}}
+        sdxl = None
+        if name in sdxl_case:
+            r = next(r for r in rows if r["kernel"] == name and r.get("path") == "sdxl"
+                     and all(r[k] == v for k, v in sdxl_case[name].items()))
+            sdxl = {k: r[k] for k in ("shape", "skv", "dtype", "launches", "max_abs_err",
+                                      "worst_over_limit", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -1344,6 +1706,7 @@ def main() -> int:
             "shape": row["shape"], "skv": row["skv"], "dtype": row["dtype"],
             "cases": len(mine),
             "worst_over_limit": max(r["worst_over_limit"] for r in mine),
+            "sdxl_case": sdxl,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

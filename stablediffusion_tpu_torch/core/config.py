@@ -1,9 +1,9 @@
 """Model and scheduler configuration, and the device / dtype policy.
 
 Port of ``stablediffusion_tpu/core/config.py`` (the CLIP text, UNet, VAE and
-scheduler dataclasses, the SD1.5 presets and the tiny test configs) and of
-the dtype policy of ``stablediffusion_tpu/core/dtypes.py`` as the pipeline
-applies it (``pipelines/unified.py:417-420``): bf16 compute on the card, fp32
+scheduler dataclasses, the SD1.5, SD2.1 and SDXL presets and the tiny test
+configs) and of the dtype policy of ``stablediffusion_tpu/core/dtypes.py``
+as the pipeline applies it (``pipelines/unified.py:417-420``): bf16 compute on the card, fp32
 on the CPU.  The dataclasses keep the JAX package's field names and defaults,
 so ``dataclasses.asdict`` of a preset here equals that of its counterpart.
 """
@@ -55,8 +55,19 @@ class CLIPTextConfig:
         )
 
 
-# openai/clip-vit-large-patch14 — the SD1.5 text encoder
+# openai/clip-vit-large-patch14 — the SD1.5 text encoder and SDXL's first
 SD15_TEXT_ENCODER = CLIPTextConfig()
+SDXL_TEXT_ENCODER = CLIPTextConfig(projection_dim=768)
+# laion OpenCLIP bigG — SDXL's second encoder (projected pooled output)
+SDXL_TEXT_ENCODER_2 = CLIPTextConfig(
+    hidden_size=1280,
+    intermediate_size=5120,
+    num_hidden_layers=32,
+    num_attention_heads=20,
+    hidden_act="gelu",
+    projection_dim=1280,
+    with_projection=True,
+)
 
 
 def tiny_clip_config(with_projection: bool = False) -> CLIPTextConfig:
@@ -119,6 +130,7 @@ class VAEConfig:
 
 
 SD15_VAE = VAEConfig()
+SDXL_VAE = VAEConfig(sample_size=1024, scaling_factor=0.13025)
 
 
 def tiny_vae_config() -> VAEConfig:
@@ -132,10 +144,11 @@ def tiny_vae_config() -> VAEConfig:
 
 @dataclass(frozen=True)
 class UNetConfig:
-    """UNet2DConditionModel.  `num_attention_heads` holds head counts per
-    resolution.  This slice runs the SD1.5 layout only; the SDXL fields are
-    kept so that the dataclass matches its JAX counterpart, and the UNet
-    module raises where they are set."""
+    """UNet2DConditionModel: the SD1.x, SD2.x and SDXL layouts.
+    `num_attention_heads` and `transformer_layers_per_block` hold one value
+    or one per resolution; `use_linear_projection` makes the transformers'
+    proj_in/proj_out linear (SD2.x, SDXL); `addition_embed_type="text_time"`
+    adds SDXL's micro-conditioning embedding."""
 
     sample_size: int = 64
     in_channels: int = 4
@@ -221,14 +234,81 @@ SD15_UNET = UNetConfig()
 # pipeline's concat9 mode feeds [latents, mask, masked-image latents]
 SD15_INPAINT_UNET = dataclasses.replace(SD15_UNET, in_channels=9)
 
+# stabilityai/stable-diffusion-2-1 (v-prediction, OpenCLIP-H text encoder,
+# linear transformer projections, 64-channel heads)
+SD21_UNET = UNetConfig(
+    sample_size=96,
+    num_attention_heads=(5, 10, 20, 20),
+    cross_attention_dim=1024,
+    use_linear_projection=True,
+)
+
+SD21_TEXT_ENCODER = CLIPTextConfig(
+    hidden_size=1024,
+    intermediate_size=4096,
+    num_hidden_layers=23,
+    num_attention_heads=16,
+    hidden_act="gelu",
+    projection_dim=512,
+)
+
+SDXL_UNET = UNetConfig(
+    sample_size=128,
+    down_block_types=(
+        "DownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+    ),
+    up_block_types=(
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "UpBlock2D",
+    ),
+    block_out_channels=(320, 640, 1280),
+    transformer_layers_per_block=(1, 2, 10),
+    num_attention_heads=(5, 10, 20),
+    cross_attention_dim=2048,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,  # 1280 pooled + 6 * 256
+)
+
+# stabilityai/stable-diffusion-xl-refiner-1.0 UNet: conditions on encoder 2
+# alone and on five time ids (an aesthetic score in place of the target size)
+SDXL_REFINER_UNET = UNetConfig(
+    sample_size=128,
+    down_block_types=(
+        "DownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    ),
+    up_block_types=(
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "UpBlock2D",
+    ),
+    block_out_channels=(384, 768, 1536, 1536),
+    transformer_layers_per_block=4,
+    num_attention_heads=(6, 12, 24, 24),
+    cross_attention_dim=1280,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2560,  # 1280 pooled + 5 * 256
+)
+
 
 def tiny_unet_config(
     cross_attention_dim: int = 32,
     in_channels: int = 4,
+    sdxl: bool = False,
 ) -> UNetConfig:
-    """Tiny SD1.5-layout UNet for CPU tests: 2 resolutions, 1 layer per
-    block (the JAX config's sdxl=True variant is not ported)."""
-    return UNetConfig(
+    """Tiny UNet for CPU tests: 2 resolutions, 1 layer per block; `sdxl`
+    adds linear projections and the text_time embedding."""
+    kwargs = dict(
         sample_size=16,
         in_channels=in_channels,
         out_channels=4,
@@ -241,6 +321,15 @@ def tiny_unet_config(
         cross_attention_dim=cross_attention_dim,
         norm_num_groups=8,
     )
+    if sdxl:
+        kwargs.update(
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            # pooled (= cross_attention_dim here) + 6 * 8
+            projection_class_embeddings_input_dim=cross_attention_dim + 48,
+            use_linear_projection=True,
+        )
+    return UNetConfig(**kwargs)
 
 
 @dataclass(frozen=True)
@@ -272,6 +361,7 @@ class SchedulerConfig:
 
 
 SD15_SCHEDULER = SchedulerConfig()
+SDXL_SCHEDULER = SchedulerConfig(timestep_spacing="leading")
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,22 @@
 """Diffusers-layout checkpoint folders -> SDModel, and back.
 
-Port of the SD1.x subset of ``stablediffusion_tpu/io/loader.py``:
+Port of the SD1.x, SD2.x and SDXL parts of ``stablediffusion_tpu/io/loader.py``:
 ``resolve_checkpoint`` (:42, local folders only), ``_find_weights`` (:169,
 the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
-``_resolve_scheduler_name`` (:252), ``load_sd_model`` (:275),
-``save_sd_model`` (:497, floating point only) and the config writers
-(:649-680).
+``_resolve_scheduler_name`` (:252), ``load_sd_model`` (:275; an SDXL folder
+adds ``text_encoder_2/`` and ``tokenizer_2/``, whose pad token comes from
+its special_tokens_map), ``save_sd_model`` (:497, floating point only) and
+the config writers (:649-680).  The SDXL refiner's folder is read by
+:func:`load_unet` (``SDModel.load_refiner``).
 
 The port's modules carry diffusers' parameter names and torch layouts, which
 are what diffusers files hold, so a component loads by a strict copy into
 its ``state_dict``: no transposes, ``position_ids`` dropped, and every
 missing, unexpected or misshapen key raises.  Components are built on the
 meta device and filled straight from the safetensors mmap on their device.
-Not ported here (each raises and names its ROADMAP §1 item): SDXL folders
-(item 13), A1111 single files (item 14), int8-on-disk folders and
-``quantize=`` (item 16), SD3 (item 18).
+Not ported here (each raises and names its ROADMAP §1 item): A1111 single
+files (item 14), int8-on-disk folders and ``quantize=`` (item 16), SD3
+(item 18).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -49,7 +51,6 @@ DEFAULT_CHECKPOINTS = {
 REGISTRY_PREFIX = "OnMoon"
 
 _LATER = {
-    "sdxl": "SDXL folders come with ROADMAP §1 item 13",
     "single_file": "A1111 single-file checkpoints come with ROADMAP §1 item 14",
     "int8": "int8 checkpoints and quantize= come with ROADMAP §1 item 16",
     "sd3": "SD3 comes with ROADMAP §1 item 18",
@@ -169,6 +170,15 @@ def _resolve_scheduler_name(path: str, scheduler_name: Optional[str]) -> str:
     return "DDIM"
 
 
+def load_unet(path: str, device: torch.device, dtype: torch.dtype):
+    """(config, module) of a folder's ``unet/`` on `device` in `dtype`: the
+    refiner's loader (``SDModel.load_refiner``)."""
+    folder = os.path.join(path, "unet")
+    cfg = UNetConfig.from_diffusers_dict(_read_json(os.path.join(folder, "config.json")))
+    return cfg, load_component_state(
+        folder, _empty_module(UNet2DConditionModel, cfg, device, dtype))
+
+
 def load_sd_model(
     path: str,
     model_type: Optional[str] = None,
@@ -177,23 +187,27 @@ def load_sd_model(
     variant: Optional[str] = "fp16",
     scheduler_name: Optional[str] = None,
 ) -> SDModel:
-    """Load a diffusers-layout SD1.x folder onto `device` (default
-    ``cuda``; raises without a card unless ``device="cpu"``).  The UNet and
-    the VAE are held in `dtype` (default: the device's compute dtype), the
-    text encoder in fp32, as ``utils/testing.random_model`` holds them."""
+    """Load a diffusers-layout SD1.x, SD2.x or SDXL folder onto `device`
+    (default ``cuda``; raises without a card unless ``device="cpu"``).
+    `model_type` None means "sdxl" when the folder has ``text_encoder_2/``,
+    else "sd15" (an SD2.x folder loads as "sd15", as in JAX).  The UNet is
+    held in `dtype` (default: the device's compute dtype), the VAE in fp32
+    for SDXL (its decode runs in fp32) and in `dtype` otherwise, the text
+    encoders in fp32, as ``utils/testing.random_full_model`` holds them."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if os.path.isfile(path):
         raise NotImplementedError(f"{path}: {_LATER['single_file']}")
     if model_type is None:
         model_type = "sdxl" if os.path.isdir(os.path.join(path, "text_encoder_2")) else "sd15"
-    if model_type != "sd15":
+    if model_type not in ("sd15", "sdxl"):
         raise NotImplementedError(f"model type {model_type!r}: "
-                                  f"{_LATER.get(model_type, 'not an SD1.x folder')}")
+                                  f"{_LATER.get(model_type, 'not an SD1.x, SD2.x or SDXL folder')}")
     idx = os.path.join(path, "model_index.json")
     if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
         raise NotImplementedError(f"{path}: {_LATER['int8']}")
     scheduler_name = _resolve_scheduler_name(path, scheduler_name)
+    vae_dtype = torch.float32 if model_type == "sdxl" else dtype
 
     unet_cfg = UNetConfig.from_diffusers_dict(_read_json(os.path.join(path, "unet", "config.json")))
     vae_cfg = VAEConfig.from_diffusers_dict(_read_json(os.path.join(path, "vae", "config.json")))
@@ -207,11 +221,20 @@ def load_sd_model(
         return load_component_state(os.path.join(path, sub),
                                      _empty_module(cls, config, device, dt), variant)
 
+    sdxl = {}
+    if model_type == "sdxl":
+        te2_cfg = CLIPTextConfig.from_diffusers_dict(
+            _read_json(os.path.join(path, "text_encoder_2", "config.json")))
+        sdxl = dict(
+            text_encoder_2_config=te2_cfg,
+            text_encoder_2=_load("text_encoder_2", CLIPTextModel, te2_cfg, torch.float32),
+            tokenizer_2=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer_2")),
+        )
     return SDModel(
         unet_config=unet_cfg,
         unet=_load("unet", UNet2DConditionModel, unet_cfg, dtype),
         vae_config=vae_cfg,
-        vae=_load("vae", AutoencoderKL, vae_cfg, dtype),
+        vae=_load("vae", AutoencoderKL, vae_cfg, vae_dtype),
         text_encoder_config=te_cfg,
         text_encoder=_load("text_encoder", CLIPTextModel, te_cfg, torch.float32),
         tokenizer=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer")),
@@ -219,6 +242,7 @@ def load_sd_model(
         scheduler_name=scheduler_name,
         model_type=model_type,
         path=path,
+        **sdxl,
     )
 
 
@@ -238,9 +262,10 @@ def _dump_component(path: str, sub: str, module: nn.Module, cfg_dict: dict,
 def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
                   quantize: Optional[str] = None) -> None:
     """Write a diffusers-layout folder that ``load_sd_model`` (and the JAX
-    package's) reads back: per-component safetensors and configs, the
-    tokenizer, the scheduler config, and model_index.json naming the active
-    scheduler."""
+    package's) reads back: per-component safetensors and configs (SDXL's
+    second tower too), the tokenizers, the scheduler config, and
+    model_index.json naming the pipeline class and the active scheduler.
+    The refiner is not written, as in JAX: it has its own folder."""
     if quantize:
         raise NotImplementedError(_LATER["int8"])
     os.makedirs(path, exist_ok=True)
@@ -249,12 +274,19 @@ def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
     _dump_component(path, "vae", model.vae, _vae_cfg_dict(model.vae_config), variant=variant)
     _dump_component(path, "text_encoder", model.text_encoder,
                     _clip_cfg_dict(model.text_encoder_config), fname="model", variant=variant)
+    if model.is_sdxl:
+        _dump_component(path, "text_encoder_2", model.text_encoder_2,
+                        _clip_cfg_dict(model.text_encoder_2_config), fname="model",
+                        variant=variant)
     if hasattr(model.tokenizer, "save_pretrained"):
         model.tokenizer.save_pretrained(os.path.join(path, "tokenizer"))
+    if model.is_sdxl and hasattr(model.tokenizer_2, "save_pretrained"):
+        model.tokenizer_2.save_pretrained(os.path.join(path, "tokenizer_2"))
     os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
     with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(dataclasses.asdict(model.scheduler_config), f, indent=2)
-    index = {"_class_name": "StableDiffusionPipeline",
+    index = {"_class_name": ("StableDiffusionXLPipeline" if model.is_sdxl
+                             else "StableDiffusionPipeline"),
              "_scheduler_type": model.scheduler_name}
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump(index, f)

@@ -1,10 +1,12 @@
 """CLIP text tower as a torch module.
 
-Port of ``stablediffusion_tpu/models/clip.py:40-108`` (``apply`` and
-``final_layer_norm``).  Module names follow transformers' CLIPTextModel, so
-``state_dict()`` keys equal the diffusers checkpoint keys that the JAX
-package's param tree uses (``text_model.encoder.layers.N.self_attn.q_proj
-.weight`` ...).  Self-attention is causal through
+Port of ``stablediffusion_tpu/models/clip.py:27-108`` (``apply``,
+``final_layer_norm`` and the SDXL ``skip_layer``): CLIP-L and OpenCLIP's
+bigG, whose ``text_projection`` gives SDXL its pooled embedding.  Module
+names follow transformers' CLIPTextModel, so ``state_dict()`` keys equal
+the diffusers checkpoint keys that the JAX package's param tree uses
+(``text_model.encoder.layers.N.self_attn.q_proj.weight`` ...).
+Self-attention is causal through
 ``attention(..., causal=True)`` in place of the JAX version's additive -inf
 mask; pad tokens take part causally, as in the SD pipelines.
 """
@@ -29,6 +31,11 @@ class CLIPTextOutput:
     hidden_states: List[torch.Tensor]  # L+1 entries: embeddings + each layer
     pooled_output: torch.Tensor  # [B, H] hidden state at the first EOS
     projected_pooled: Optional[torch.Tensor]  # [B, P] if with_projection
+
+    def skip_layer(self, clip_skip: int) -> torch.Tensor:
+        """hidden_states[-(clip_skip + 2)], without the final layer norm:
+        the SDXL convention (the penultimate layer at clip_skip=0)."""
+        return self.hidden_states[-(clip_skip + 2)]
 
 
 class CLIPAttention(nn.Module):

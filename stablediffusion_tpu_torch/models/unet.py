@@ -1,20 +1,21 @@
-"""UNet2DCondition, SD1.5 layout, as a torch module.
+"""UNet2DCondition (SD1.x, SD2.x and SDXL layouts) as a torch module.
 
 Port of ``stablediffusion_tpu/models/unet.py`` (``apply`` :140-304 without
 its extras).  Module names follow diffusers' UNet2DConditionModel, so
-``state_dict()`` keys equal the keys of the JAX package's param tree.  The
-SD1.5 path only: 1x1-conv ``proj_in`` / ``proj_out``, GEGLU feed-forward, the
-timestep embedding in fp32, and skips popped in the JAX order.  ControlNet
-residuals, IP-Adapter, FreeU, PAG, DeepCache and SDXL ``added_cond`` are not
-ported: the module takes no such arguments, and a config that asks for
-linear projections or an addition embedding raises.
+``state_dict()`` keys equal the keys of the JAX package's param tree:
+1x1-conv or linear ``proj_in`` / ``proj_out`` (``use_linear_projection``,
+SD2.x and SDXL), per-resolution head counts and transformer depths, GEGLU
+feed-forward, the timestep embedding in fp32, SDXL's ``text_time``
+micro-conditioning (``added_cond``), and skips popped in the JAX order.
+ControlNet residuals, IP-Adapter, FreeU, PAG and DeepCache are not ported:
+the module takes no such arguments.
 
 ``forward`` takes and returns NCHW; attention runs on [B, H*W, heads, d].
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -96,26 +97,34 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """GroupNorm (eps 1e-6) -> 1x1 conv proj_in -> transformer blocks ->
-    1x1 conv proj_out, plus the residual."""
+    """GroupNorm (eps 1e-6) -> proj_in -> transformer blocks -> proj_out,
+    plus the residual.  proj_in/proj_out are 1x1 convolutions (SD1.x) or,
+    with `linear`, linears on the token sequence (SD2.x, SDXL)."""
 
-    def __init__(self, c: int, ctx_dim: int, heads: int, n_layers: int, groups: int):
+    def __init__(self, c: int, ctx_dim: int, heads: int, n_layers: int, groups: int,
+                 linear: bool = False):
         super().__init__()
+        self.linear = linear
         self.norm = nn.GroupNorm(groups, c, eps=1e-6)
-        self.proj_in = nn.Conv2d(c, c, 1)
+        self.proj_in = nn.Linear(c, c) if linear else nn.Conv2d(c, c, 1)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(c, ctx_dim, heads) for _ in range(n_layers)
         )
-        self.proj_out = nn.Conv2d(c, c, 1)
+        self.proj_out = nn.Linear(c, c) if linear else nn.Conv2d(c, c, 1)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
-        h = conv(self.proj_in, gn(self.norm, x))
-        h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = gn(self.norm, x)
+        if self.linear:
+            h = lin(self.proj_in, h.permute(0, 2, 3, 1).reshape(B, H * W, C))
+        else:
+            h = conv(self.proj_in, h).permute(0, 2, 3, 1).reshape(B, H * W, C)
         for block in self.transformer_blocks:
             h = block(h, ctx)
+        if self.linear:
+            h = lin(self.proj_out, h)
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
-        return conv(self.proj_out, h) + x
+        return (h if self.linear else conv(self.proj_out, h)) + x
 
 
 class TimestepEmbedding(nn.Module):
@@ -145,16 +154,11 @@ class _Block(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    """(sample NCHW, timesteps [] or [B], context [B, S, D]) -> NCHW noise
-    prediction (``unet.apply``)."""
+    """(sample NCHW, timesteps [] or [B], context [B, S, D][, added_cond])
+    -> NCHW noise prediction (``unet.apply``)."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.use_linear_projection or config.addition_embed_type is not None:
-            raise NotImplementedError(
-                "linear transformer projections and SDXL addition embeddings "
-                "are ported with SDXL (slice 2)"
-            )
         self.config = config
         ch = config.block_out_channels
         n = len(ch)
@@ -165,11 +169,15 @@ class UNet2DConditionModel(nn.Module):
 
         def tf(c, i):
             return Transformer2DModel(
-                c, xdim, config.heads_for_block(i), config.tf_layers_for_block(i), g
+                c, xdim, config.heads_for_block(i), config.tf_layers_for_block(i), g,
+                linear=config.use_linear_projection,
             )
 
         self.conv_in = nn.Conv2d(config.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb)
+        if config.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                config.projection_class_embeddings_input_dim, temb)
 
         down, skip_ch, c_in = [], [ch[0]], ch[0]
         for i, btype in enumerate(config.down_block_types):
@@ -207,7 +215,10 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = nn.Conv2d(ch[0], config.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """`added_cond` is SDXL's {"text_embeds" [B, P], "time_ids" [B, n]},
+        required by a ``text_time`` UNet and ignored by others, as in JAX."""
         cfg = self.config
         B = sample.shape[0]
         dtype = sample.dtype
@@ -221,6 +232,17 @@ class UNet2DConditionModel(nn.Module):
             flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
         ).to(dtype)
         emb = self.time_embedding(t_emb)
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond text_embeds/time_ids")
+            # each time id's sinusoids, concatenated after the pooled embeds
+            time_ids = torch.as_tensor(added_cond["time_ids"], device=sample.device)
+            t_flat = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
+            ).reshape(B, -1)
+            add = torch.cat([added_cond["text_embeds"].float(), t_flat], dim=-1)
+            emb = emb + self.add_embedding(add.to(dtype))
 
         x = conv(self.conv_in, sample)
         skips: List[torch.Tensor] = [x]

@@ -1,4 +1,4 @@
-"""The unified pipeline: txt2img, img2img and inpainting, SD1.5.
+"""The unified pipeline: txt2img, img2img and inpainting, SD1.x/2.x and SDXL.
 
 Port of ``stablediffusion_tpu/pipelines/unified.py`` (``__call__``
 :760-1330 without its extensions): the mode follows from the inputs (no
@@ -8,7 +8,14 @@ with ``padding_mask_crop`` and ``masked_image_latents``), CFG with
 ``guidance_rescale``, clip skip, ``timesteps=`` / ``sigmas=`` schedules,
 ``denoising_start`` / ``denoising_end`` windows, precomputed prompt
 embeddings, the tiled VAE, and ``output_type`` "np", "uint8",
-"uint8_device" (uint8 left on the card) or "latents".
+"uint8_device" (uint8 left on the card) or "latents".  On an SDXL model
+(one with a second text tower) the prompts go through both towers, with
+``prompt_2`` / ``negative_prompt_2`` for the second, their penultimate
+hidden states concatenated, and the UNet takes SDXL's micro-conditioning
+(``added_cond``: the pooled embedding of the last tower and the
+``_add_time_ids``); ``pooled_prompt_embeds`` may come precomputed, and
+``use_refiner`` runs the loaded refiner UNet, conditioned on the second
+tower alone, in place of the base.
 
 The denoise loop is a Python loop over the scheduler's ``step``; latents stay
 in the compute dtype between steps, the scheduler state in fp32, as in the
@@ -25,8 +32,7 @@ loop itself runs on NCHW.
 
 Not ported here; each raises and names its ROADMAP §1 item: hires fix,
 FreeU, PAG, InstructPix2Pix, DeepCache, ControlNet, IP-Adapter, prompt
-weighting and editing (item 15); the SDXL arguments and the refiner (item
-13); SD3's (item 18).
+weighting and editing (item 15); SD3's arguments (item 18).
 """
 
 from __future__ import annotations
@@ -86,11 +92,6 @@ _UNPORTED = {
     "ip_adapter_image": (15, _is_set),
     "ip_adapter_image_embeds": (15, _is_set),
     "prompt_weighting": (15, bool),
-    "prompt_2": (13, _is_set),
-    "negative_prompt_2": (13, _is_set),
-    "pooled_prompt_embeds": (13, _is_set),
-    "negative_pooled_prompt_embeds": (13, _is_set),
-    "use_refiner": (13, bool),
     "prompt_3": (18, _is_set),
     "negative_prompt_3": (18, _is_set),
     "max_sequence_length": (18, _is_set),
@@ -184,46 +185,110 @@ class StableDiffusionUnifiedPipeline:
         self.dtype = dtype or default_dtype(self.device)
         self.vae_dtype = vae_dtype
 
-    # -- prompt encoding (unified.py:438-587, SD1.5) ------------------------
+    # -- prompt encoding (unified.py:91-108, 438-587) -------------------------
     @torch.no_grad()
-    def _clip_encode(self, model: SDModel, texts: List[str],
-                     clip_skip: Optional[int] = None) -> torch.Tensor:
-        """Mode "last", or "skip_renorm" with a clip skip: the hidden state
-        `clip_skip` layers before the last, through final_layer_norm."""
-        ids = torch.from_numpy(model.tokenizer(texts)).to(self.device)
-        out = model.text_encoder(ids)
-        if clip_skip:
-            return model.text_encoder.final_layer_norm(out.hidden_states[-(clip_skip + 1)])
-        return out.last_hidden_state
+    def _clip_encode(self, tokenizer, encoder, texts: List[str], mode: str,
+                     clip_skip: Optional[int] = None):
+        """-> (hidden states [B, 77, H], pooled [B, P]).  mode "last": the
+        last hidden state; "skip_renorm" (SD1.x clip skip): the hidden state
+        `clip_skip` layers before the last, through final_layer_norm;
+        "penultimate" (SDXL): hidden_states[-(clip_skip + 2)], no final
+        norm.  The pooled output is the projected one of a tower that has a
+        projection (bigG)."""
+        ids = torch.from_numpy(tokenizer(texts)).to(self.device)
+        out = encoder(ids)
+        pooled = out.projected_pooled if encoder.config.with_projection else out.pooled_output
+        if mode == "last":
+            h = out.last_hidden_state
+        elif mode == "skip_renorm":
+            h = encoder.final_layer_norm(out.hidden_states[-(clip_skip + 1)])
+        elif mode == "penultimate":
+            h = out.skip_layer(clip_skip or 0)
+        else:
+            raise ValueError(mode)
+        return h, pooled
 
     def encode_prompt(
         self,
         model: SDModel,
         prompt: Union[str, List[str]],
+        prompt_2: Union[str, List[str], None] = None,
         negative_prompt: Union[str, List[str], None] = None,
+        negative_prompt_2: Union[str, List[str], None] = None,
         num_images_per_prompt: int = 1,
-        do_cfg: bool = True,
         clip_skip: Optional[int] = None,
+        do_cfg: bool = True,
+        refiner_mode: bool = False,
     ):
-        """-> (embeds, neg_embeds or None), each [B * n, 77, D].  The clip
-        skip applies to the prompts, not to the negatives, as in JAX."""
+        """-> (embeds, neg_embeds, pooled, neg_pooled), each [B * n, ...],
+        the negatives None without CFG.  SDXL: both towers, `prompt_2` and
+        `negative_prompt_2` defaulting to `prompt` and `negative_prompt`,
+        hidden states concatenated on the last axis, pooled from the last
+        tower; `refiner_mode` uses the second tower alone.  The clip skip
+        applies to the prompts, not to the negatives, as in JAX."""
         prompt = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompt)
-        embeds = self._clip_encode(model, prompt, clip_skip)
-        neg_embeds = None
+        towers = [(model.tokenizer, model.text_encoder)]
+        prompts = [prompt]
+        if model.is_sdxl:
+            prompt_2 = prompt_2 or prompt
+            prompt_2 = [prompt_2] if isinstance(prompt_2, str) else list(prompt_2)
+            towers.append((model.tokenizer_2, model.text_encoder_2))
+            prompts = [prompt, prompt_2]
+            if refiner_mode:  # the refiner conditions on encoder 2 only
+                towers, prompts = towers[1:], [prompt_2]
+        negs = None
         if do_cfg:
             negative_prompt = negative_prompt or ""
-            neg = (
-                [negative_prompt] * B
-                if isinstance(negative_prompt, str)
-                else list(negative_prompt)
-            )
+            negative_prompt_2 = negative_prompt_2 or negative_prompt
+            as_list = lambda x: [x] * B if isinstance(x, str) else list(x)  # noqa: E731
+            neg, neg2 = as_list(negative_prompt), as_list(negative_prompt_2)
             if len(neg) != B:
                 raise ValueError(f"negative_prompt batch {len(neg)} != prompt batch {B}")
-            neg_embeds = self._clip_encode(model, neg)
+            negs = [neg, neg2] if model.is_sdxl else [neg]
+            if refiner_mode:
+                negs = [neg2]
+
+        def encode(texts, use_clip_skip):
+            hs, pooled = [], None
+            for txts, (tok, enc) in zip(texts, towers):
+                if model.is_sdxl:
+                    mode, skip = "penultimate", (clip_skip if use_clip_skip else 0)
+                elif use_clip_skip and clip_skip:
+                    mode, skip = "skip_renorm", clip_skip
+                else:
+                    mode, skip = "last", None
+                h, pooled = self._clip_encode(tok, enc, txts, mode, skip)
+                hs.append(h)
+            return torch.cat(hs, dim=-1), pooled
+
+        embeds, pooled = encode(prompts, use_clip_skip=True)
+        neg_embeds = neg_pooled = None
+        if do_cfg:
+            neg_embeds, neg_pooled = encode(negs, use_clip_skip=False)
         n = num_images_per_prompt
         tile = lambda x: x.repeat_interleave(n, dim=0) if x is not None else None  # noqa: E731
-        return tile(embeds), tile(neg_embeds)
+        return tile(embeds), tile(neg_embeds), tile(pooled), tile(neg_pooled)
+
+    # -- SDXL micro-conditioning (unified.py:695-715) -----------------------
+    def _add_time_ids(self, model: SDModel, cfg, height: int, width: int, batch: int):
+        """(positive, negative) time ids, fp32 [batch, 6], or [batch, 5] for
+        a refiner-style UNet, which takes an aesthetic score (6.0 and 2.5)
+        in place of the target size."""
+        expected = cfg.projection_class_embeddings_input_dim
+        proj_dim = model.text_encoder_2_config.projection_dim
+        if expected == proj_dim + 5 * cfg.addition_time_embed_dim:
+            pos = [height, width, 0, 0, 6.0]
+            neg = [height, width, 0, 0, 2.5]
+        else:
+            pos = [height, width, 0, 0, height, width]
+            neg = pos
+            got = proj_dim + len(pos) * cfg.addition_time_embed_dim
+            if got != expected:
+                raise ValueError(f"add_embedding expects {expected}, constructed {got}")
+        mk = lambda v: torch.tensor(  # noqa: E731
+            v, dtype=torch.float32, device=self.device)[None].repeat(batch, 1)
+        return mk(pos), mk(neg)
 
     # -- timestep windows (unified.py:626-704) -------------------------------
     def get_timesteps(self, scheduler: BaseScheduler, num_inference_steps: int,
@@ -279,15 +344,17 @@ class StableDiffusionUnifiedPipeline:
         return z * model.vae_config.scaling_factor
 
     @torch.no_grad()
-    def _denoise(self, model: SDModel, latents: torch.Tensor, embeds: torch.Tensor,
+    def _denoise(self, model: SDModel, unet, latents: torch.Tensor, embeds: torch.Tensor,
+                 added_cond: Optional[Dict[str, torch.Tensor]],
                  plan: Plan, draws: _Draws, guidance_scale: float,
                  guidance_rescale: float, do_cfg: bool, inpaint_mode: str = "none",
                  mask: Optional[torch.Tensor] = None,
                  masked_image_latents: Optional[torch.Tensor] = None,
                  image_latents: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The hot loop (unified.py:209-400 without its extensions): latents
-        NCHW in the compute dtype; CFG batch order [uncond | text]; the
+        """The hot loop (unified.py:209-400 without its extensions) over
+        `unet` (the base or the refiner): latents NCHW in the compute dtype;
+        CFG batch order [uncond | text], `added_cond` already in it; the
         guidance combine in fp32."""
         scheduler = model.scheduler
         N = plan.num_steps
@@ -301,7 +368,7 @@ class StableDiffusionUnifiedPipeline:
             if inpaint_mode == "concat9":
                 x = torch.cat([x, m.to(x.dtype), mi.to(x.dtype)], dim=1)
             t = torch.tensor(plan.timesteps[i], device=latents.device)
-            pred = model.unet(x, t, embeds)
+            pred = unet(x, t, embeds, added_cond)
             if do_cfg:
                 uncond, text = pred.float().chunk(2)
                 pred = uncond + guidance_scale * (text - uncond)
@@ -342,7 +409,9 @@ class StableDiffusionUnifiedPipeline:
         self,
         model: SDModel,
         prompt: Union[str, List[str], None] = None,
+        prompt_2: Union[str, List[str], None] = None,
         negative_prompt: Union[str, List[str], None] = None,
+        negative_prompt_2: Union[str, List[str], None] = None,
         height: Optional[int] = None,
         width: Optional[int] = None,
         num_images_per_prompt: int = 1,
@@ -363,9 +432,12 @@ class StableDiffusionUnifiedPipeline:
         mask_image=None,
         masked_image_latents=None,
         padding_mask_crop: Optional[int] = None,
+        use_refiner: bool = False,
         vae_tiling: bool = False,
         prompt_embeds=None,
         negative_prompt_embeds=None,
+        pooled_prompt_embeds=None,
+        negative_pooled_prompt_embeds=None,
         draws: Optional[Dict[str, np.ndarray]] = None,
         **extensions,
     ) -> SDPipelineOutput:
@@ -375,7 +447,13 @@ class StableDiffusionUnifiedPipeline:
         _check_unported(extensions)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, pipeline on {self.device}")
-        ucfg = model.unet_config
+        if use_refiner:
+            if model.refiner is None:
+                raise ValueError("use_refiner=True but no refiner loaded "
+                                 "(call model.load_refiner())")
+            ucfg, unet = model.refiner_config, model.refiner
+        else:
+            ucfg, unet = model.unet_config, model.unet
         if ucfg.in_channels == 8:
             raise NotImplementedError(
                 "an 8-channel (InstructPix2Pix) UNet: not ported yet, it comes with "
@@ -405,19 +483,23 @@ class StableDiffusionUnifiedPipeline:
 
         # prompts
         if prompt_embeds is not None:
-            embeds = torch.as_tensor(prompt_embeds, device=self.device)
-            neg_embeds = (
-                torch.as_tensor(negative_prompt_embeds, device=self.device)
-                if negative_prompt_embeds is not None
-                else (torch.zeros_like(embeds) if do_cfg else None)
-            )
-            embeds = embeds.repeat_interleave(n, dim=0)
-            if neg_embeds is not None:
-                neg_embeds = neg_embeds.repeat_interleave(n, dim=0)
+            given = lambda x: (torch.as_tensor(x, device=self.device)  # noqa: E731
+                               if x is not None else None)
+            embeds, pooled = given(prompt_embeds), given(pooled_prompt_embeds)
+            neg_embeds = given(negative_prompt_embeds)
+            if neg_embeds is None and do_cfg:
+                neg_embeds = torch.zeros_like(embeds)
+            neg_pooled = given(negative_pooled_prompt_embeds)
+            if neg_pooled is None and do_cfg and pooled is not None:
+                neg_pooled = torch.zeros_like(pooled)
+            tile = lambda x: x.repeat_interleave(n, dim=0) if x is not None else None  # noqa: E731
+            embeds, neg_embeds = tile(embeds), tile(neg_embeds)
+            pooled, neg_pooled = tile(pooled), tile(neg_pooled)
         else:
-            embeds, neg_embeds = self.encode_prompt(
-                model, prompt, negative_prompt, num_images_per_prompt=n, do_cfg=do_cfg,
-                clip_skip=clip_skip)
+            embeds, neg_embeds, pooled, neg_pooled = self.encode_prompt(
+                model, prompt, prompt_2, negative_prompt, negative_prompt_2,
+                num_images_per_prompt=n, clip_skip=clip_skip, do_cfg=do_cfg,
+                refiner_mode=use_refiner)
         embeds = embeds.to(self.dtype)
 
         lat_c = model.vae_config.latent_channels
@@ -506,12 +588,20 @@ class StableDiffusionUnifiedPipeline:
                     f"denoising_start {denoising_start} >= denoising_end {denoising_end}")
             plan = self._apply_denoising_end(plan, scheduler, denoising_end)
 
+        added_cond = None
+        if model.is_sdxl:
+            add_ids, add_neg_ids = self._add_time_ids(model, ucfg, height, width, B * n)
+            text_embeds = pooled
+            if do_cfg:
+                text_embeds = torch.cat([neg_pooled, pooled])
+                add_ids = torch.cat([add_neg_ids, add_ids])
+            added_cond = {"text_embeds": text_embeds.to(self.dtype), "time_ids": add_ids}
         if do_cfg:
             embeds = torch.cat([neg_embeds.to(self.dtype), embeds])
         latents = self._denoise(
-            model, latents.to(self.dtype), embeds, plan, rng, float(guidance_scale),
-            float(guidance_rescale), do_cfg, inpaint_mode, mask_lat, masked_lat,
-            image_lat, noise4)
+            model, unet, latents.to(self.dtype), embeds, added_cond, plan, rng,
+            float(guidance_scale), float(guidance_rescale), do_cfg, inpaint_mode,
+            mask_lat, masked_lat, image_lat, noise4)
 
         output_type = output_type or self.output_type
         if output_type == "pt":

@@ -3,8 +3,12 @@
 Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * request schema {id, input: {mode?, model?, params?, prompt...}};
   * the "inference" mode; an optional model block {type, name, scheduler,
-    prediction_type} hot-reloads the model from a diffusers folder under the
-    model dir and switches the scheduler;
+    prediction_type} hot-reloads the model from a diffusers folder
+    ``{type}_{name}`` under the model dir (type "sd15" or "sdxl"; with no
+    type and no model loaded, "sdxl", as in JAX) and switches the scheduler;
+  * SDXL requests take ``prompt_2`` / ``negative_prompt_2``, and
+    ``use_refiner`` through ``params`` (without a loaded refiner it answers
+    on the error channel, as the JAX pipeline raises);
   * `params` merge into the top-level arguments; a seed is drawn when absent
     and echoed;
   * images come back as base64 JPEG, or as URLs through an upload sink;
@@ -13,7 +17,7 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
 Not ported here; each answers on the error channel and names its ROADMAP §1
 item: the "constructor" (item 14), "train" (item 19) and "inference_wandb"
 (item 21) modes, the model block's "loras" (item 14) and "quantize" (item
-16), SD3 (item 18), SDXL (item 13) and a serving mesh (item 20).  The model
+16), SD3 (item 18) and a serving mesh (item 20).  The model
 has no ``load_textual_inversion`` or ``load_ip_adapter``, so those keys
 answer "not supported", as they do for JAX model types without them.
 """
@@ -137,7 +141,7 @@ class Handler:
 
     # -- model hot-swap --------------------------------------------------------
     def maybe_reload_model(self, model_cfg: Dict[str, Any]) -> None:
-        mtype = model_cfg.get("type", getattr(self.model, "model_type", "sd15"))
+        mtype = model_cfg.get("type", getattr(self.model, "model_type", "sdxl"))
         if mtype == "sd3":
             raise _later("SD3 models", 18)
         name = model_cfg.get("name")

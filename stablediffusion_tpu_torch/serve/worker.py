@@ -6,10 +6,10 @@ GET /, and merges concurrent txt2img requests through the micro-batcher
 (``--max_batch`` > 1)::
 
     python -m stablediffusion_tpu_torch.serve.worker \\
-        --model_dir D --model_name N --model_type sd15 [--warmup]
+        --model_dir D --model_name N [--model_type sdxl|sd15] [--warmup]
 
-loads the diffusers folder ``D/sd15_N`` onto the card and serves it on
-``--port`` (8000).  The server, its handler and its batcher are one object
+loads the diffusers folder ``D/{model_type}_N`` (``--model_type`` "sdxl"
+unless given, as in JAX) onto the card and serves it on ``--port`` (8000).  The server, its handler and its batcher are one object
 (``make_server``), so a program can run one in a thread and shut it down.
 ``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) and ``--quantize`` (item
 16) raise; the web UI (item 17) and the serverless-queue entry are not
@@ -114,7 +114,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--host", type=str, default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--model_dir", type=str, default=None)
-    p.add_argument("--model_type", type=str, default="sd15")
+    p.add_argument("--model_type", type=str, default="sdxl")
     p.add_argument("--model_name", type=str, default=None,
                    help="load this checkpoint before serving")
     p.add_argument("--max_batch", type=int, default=8,

@@ -2,7 +2,8 @@
 
 Port of ``stablediffusion_tpu/utils/testing.py:17-55,78-134``
 (``random_params_like`` / ``random_model_params``, ``bench_tokenizer``,
-``random_full_model``), a random training batch as
+``random_full_model`` for SD1.5 and SDXL), a random SDXL refiner, a random
+training batch as
 ``benchmarks/bench_train.py`` builds it, and the error rules that hold a CUDA
 kernel against its plain version.  The values follow ``random_params_like`` — 1-D
 parameters (norm scales, biases) are ones, the rest normal with std
@@ -23,6 +24,12 @@ from stablediffusion_tpu_torch.core.config import (
     SD15_TEXT_ENCODER,
     SD15_UNET,
     SD15_VAE,
+    SDXL_REFINER_UNET,
+    SDXL_SCHEDULER,
+    SDXL_TEXT_ENCODER,
+    SDXL_TEXT_ENCODER_2,
+    SDXL_UNET,
+    SDXL_VAE,
     CLIPTextConfig,
     SchedulerConfig,
     UNetConfig,
@@ -338,12 +345,13 @@ def bench_tokenizer(pad_token_id: Optional[int] = None) -> CLIPTokenizer:
     return CLIPTokenizer(vocab, [], pad_token_id=pad_token_id)
 
 
-def synthetic_clip_tokenizer() -> CLIPTokenizer:
+def synthetic_clip_tokenizer(pad_token_id: Optional[int] = None) -> CLIPTokenizer:
     """A byte-level CLIP BPE vocabulary in the real one's layout, for a
     full-width model that must round-trip through a checkpoint folder: the
-    256 byte tokens (ids 0-255), their ``</w>`` forms (256-511), a few
-    merges of common English pairs, and bos 49406 / eos 49407, all inside
-    the 49408-row embedding table.  The real vocabulary is not in the
+    256 byte tokens (ids 0-255, "!" first, so that OpenCLIP's pad id 0
+    round-trips as "!"), their ``</w>`` forms (256-511), a few merges of
+    common English pairs, and bos 49406 / eos 49407, all inside the
+    49408-row embedding table.  The real vocabulary is not in the
     repository."""
     chars = list(_bytes_to_unicode().values())
     vocab = {c: i for i, c in enumerate(chars)}
@@ -354,7 +362,7 @@ def synthetic_clip_tokenizer() -> CLIPTokenizer:
         vocab.setdefault(a + b, len(vocab))
     vocab["<|startoftext|>"] = 49406
     vocab["<|endoftext|>"] = 49407
-    return CLIPTokenizer(vocab, merges)
+    return CLIPTokenizer(vocab, merges, pad_token_id=pad_token_id)
 
 
 def random_model(
@@ -365,27 +373,42 @@ def random_model(
     device: Union[str, torch.device, None] = None,
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
+    text_encoder_2_config: Optional[CLIPTextConfig] = None,
+    tokenizer_2=None,
+    vae_dtype: Optional[torch.dtype] = None,
+    scheduler_config: Optional[SchedulerConfig] = None,
 ) -> SDModel:
     """An SDModel of the given configs with random weights from `seed`, on
     `device` (default ``cuda``; raises without a card unless
-    ``device="cpu"``).  The UNet and VAE are held in `dtype` (default: the
-    device's compute dtype), the text encoder in fp32, as
-    ``random_model_params`` holds them."""
+    ``device="cpu"``).  The UNet is held in `dtype` (default: the device's
+    compute dtype), the VAE in `vae_dtype` (default `dtype`), the text
+    encoders in fp32, as ``random_model_params`` holds them.  A
+    `text_encoder_2_config` makes it an SDXL model."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     g = torch.Generator(device=device).manual_seed(seed)
+    sdxl = {}
+    if text_encoder_2_config is not None:
+        sdxl = dict(
+            text_encoder_2_config=text_encoder_2_config,
+            text_encoder_2=random_module(CLIPTextModel, text_encoder_2_config, device,
+                                         torch.float32, g),
+            tokenizer_2=tokenizer_2,
+        )
     return SDModel(
         unet_config=unet_config,
         unet=random_module(UNet2DConditionModel, unet_config, device, dtype, g),
         vae_config=vae_config,
-        vae=random_module(AutoencoderKL, vae_config, device, dtype, g),
+        vae=random_module(AutoencoderKL, vae_config, device, vae_dtype or dtype, g),
         text_encoder_config=text_encoder_config,
         text_encoder=random_module(
             CLIPTextModel, text_encoder_config, device, torch.float32, g
         ),
         tokenizer=tokenizer,
-        scheduler_config=SchedulerConfig(),
+        scheduler_config=scheduler_config or SchedulerConfig(),
         scheduler_name="DDIM",
+        model_type="sdxl" if sdxl else "sd15",
+        **sdxl,
     )
 
 
@@ -395,17 +418,40 @@ def random_full_model(
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
 ) -> SDModel:
-    """Full-width SD1.5 SDModel with random weights: the same FLOPs and
-    memory traffic as the real checkpoint, which the repository does not
-    hold."""
+    """Full-width SD1.5 or SDXL SDModel with random weights: the same FLOPs
+    and memory traffic as the real checkpoint, which the repository does not
+    hold.  SDXL: CLIP-L and bigG (its char-level tokenizer pads with id 0, as
+    OpenCLIP's does), the VAE in fp32 and the "leading" scheduler, as the
+    JAX package's ``random_full_model("sdxl")`` builds it."""
+    if name == "sdxl":
+        return random_model(
+            SDXL_UNET, SDXL_VAE, SDXL_TEXT_ENCODER, bench_tokenizer(),
+            device=device, dtype=dtype, seed=seed,
+            text_encoder_2_config=SDXL_TEXT_ENCODER_2,
+            tokenizer_2=bench_tokenizer(pad_token_id=0),
+            vae_dtype=torch.float32, scheduler_config=SDXL_SCHEDULER,
+        )
     if name != "sd15":
         raise NotImplementedError(
-            f"model {name!r}: SDXL comes with slice 2 and SD3 with slice 4"
+            f"model {name!r}: not ported yet, SD3 comes with ROADMAP §1 item 18"
         )
     return random_model(
         SD15_UNET, SD15_VAE, SD15_TEXT_ENCODER, bench_tokenizer(),
         device=device, dtype=dtype, seed=seed,
     )
+
+
+def random_refiner(model: SDModel, config: UNetConfig = SDXL_REFINER_UNET,
+                   seed: int = 1) -> SDModel:
+    """Give an SDXL `model` a refiner UNet of `config` (default the
+    full-width SDXL refiner) with random weights from `seed`, on the model's
+    device and in its UNet's dtype, as ``SDModel.load_refiner`` would load
+    one.  Returns the model."""
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    dtype = next(model.unet.parameters()).dtype
+    model.refiner_config = config
+    model.refiner = random_module(UNet2DConditionModel, config, model.device, dtype, g)
+    return model
 
 
 def random_train_batch(B: int, res: int, generator: torch.Generator) -> dict:

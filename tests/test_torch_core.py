@@ -26,14 +26,18 @@ PKG = pathlib.Path(tcfg.__file__).resolve().parent.parent
     "name",
     [
         "SD15_TEXT_ENCODER", "SD15_UNET", "SD15_INPAINT_UNET", "SD15_VAE", "SD15_SCHEDULER",
+        "SD21_UNET", "SD21_TEXT_ENCODER", "SDXL_TEXT_ENCODER", "SDXL_TEXT_ENCODER_2",
+        "SDXL_UNET", "SDXL_REFINER_UNET", "SDXL_VAE", "SDXL_SCHEDULER",
         "tiny_clip_config", "tiny_clip_config_proj", "tiny_unet_config",
-        "tiny_vae_config", "SchedulerConfig",
+        "tiny_unet_config_sdxl", "tiny_vae_config", "SchedulerConfig",
     ],
 )
 def test_config_matches_jax(name):
     def get(mod):
         if name == "tiny_clip_config_proj":
             return mod.tiny_clip_config(with_projection=True)
+        if name == "tiny_unet_config_sdxl":
+            return mod.tiny_unet_config(sdxl=True)
         obj = getattr(mod, name)
         return obj() if callable(obj) else obj
 
@@ -172,8 +176,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serve_http(port=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StableDiffusionUnifiedPipeline()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        random_full_model()
+    for name in ("sd15", "sdxl"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            random_full_model(name)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         random_model(tcfg.tiny_unet_config(), tcfg.tiny_vae_config(),
                      tcfg.tiny_clip_config(), None)

@@ -68,13 +68,17 @@ def _qkv(device, dtype, B, Sq, H, D, Skv):
      (2, 256, 8, 160, 256, False), (2, 77, 12, 64, 77, True),
      (3, 100, 2, 24, 50, False), (2, 300, 2, 40, 4100, False),
      (2, 1101, 8, 64, 1101, False), (1, 1101, 4, 24, 77, False),
-     (1, 200, 2, 40, 200, True), (2, 64, 8, 160, 77, False)],
+     (1, 200, 2, 40, 200, True), (2, 64, 8, 160, 77, False),
+     (2, 4096, 10, 64, 4096, False), (2, 1024, 20, 64, 1024, False),
+     (2, 4096, 10, 64, 77, False), (2, 77, 20, 64, 77, True)],
 )
 def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     """Every head-dim bucket of both kernels, with the bf16 tensor-core
     kernel's traps: D = 24 and 40 (the k16 steps read zero-filled columns up
     to the next multiple of 16), Skv = 77 and 4100 (a ragged last key tile,
     whose V rows must be zero in shared memory), ragged Sq = 1101, causal.
+    SDXL's head dim 64 at 1024² (its self-attention at [2,4096,10,64] and
+    [2,1024,20,64], a x77 cross-attention, bigG's causal [2,77,20,64]).
     The lse written when a backward follows is finite on every row (every
     row sees at least one key, so none is fully masked; the kernels would
     give such a row -1e30 + log of its count) and matches the plain one."""
@@ -96,10 +100,12 @@ def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B, Sq, H, D, Skv", [
     (1, 4096, 1, 512, 4100), (1, 300, 2, 192, 77), (1, 64, 1, 1024, 33),
-    (8, 4096, 1, 512, 4096), (1, 1001, 1, 512, 4096), (2, 77, 1, 520, 130)])
+    (8, 4096, 1, 512, 4096), (1, 1001, 1, 512, 4096), (2, 77, 1, 520, 130),
+    (1, 16384, 1, 512, 16384)])
 def test_flash_stream_matches_plain(cuda, dtype, B, Sq, H, D, Skv):
-    """Every head-dim bucket, the VAE's [1|8, 4096, 1, 512], a ragged Sq and
-    a head dim that leaves a partial K chunk (520 = 8 * 64 + 8)."""
+    """Every head-dim bucket, the VAE's [1|8, 4096, 1, 512], the 1024²
+    decode's [1, 16384, 1, 512], a ragged Sq and a head dim that leaves a
+    partial K chunk (520 = 8 * 64 + 8)."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     before = FLASH_STREAM_LAUNCHES.count
     out = flash_stream(q, k, v)

@@ -4,9 +4,12 @@ save, against the JAX package, on the CPU.
 A folder written by the JAX package's ``save_sd_model`` loads into the port,
 and one written by the port's loads into the JAX package's
 ``load_sd_model``, with every tensor equal both ways; the tiny txt2img from
-the loaded folders agrees within 1e-4.
+the loaded folders agrees within 1e-4.  The same holds for SDXL folders
+(the second text tower and its tokenizer), and an SD2.x-layout folder loads
+as "sd15" in both packages.
 """
 
+import dataclasses
 import json
 import os
 
@@ -21,15 +24,23 @@ from stablediffusion_tpu.io.torch_convert import deconvert_tensor, flatten
 from stablediffusion_tpu.pipelines.unified import (
     StableDiffusionUnifiedPipeline as JPipeline,
 )
+from stablediffusion_tpu.tokenizer.clip_bpe import CLIPTokenizer as JCLIPTokenizer
 from stablediffusion_tpu_torch.core import config as tcfg
 from stablediffusion_tpu_torch.io import loader
 from stablediffusion_tpu_torch.io.safetensors_io import (
     SafetensorsFile,
     save_safetensors,
 )
+from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
-from torch_port_helpers import tiny_port_model, to_jax_model, torch_single_thread  # noqa: F401
+from stablediffusion_tpu_torch.utils.testing import synthetic_clip_tokenizer
+from torch_port_helpers import (  # noqa: F401
+    tiny_port_model,
+    tiny_sdxl_port_model,
+    to_jax_model,
+    torch_single_thread,
+)
 
 COMPONENTS = ("unet", "vae", "text_encoder")
 
@@ -140,9 +151,8 @@ def test_strict_keys_and_unported_formats(folders, tmp_path):
         loader.load_sd_model(d, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         loader.save_sd_model(tm, str(tmp_path / "q"), quantize="w8")
-    os.makedirs(os.path.join(d, "text_encoder_2"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        loader.load_sd_model(d, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        loader.load_sd_model(d, model_type="sd3", device="cpu")
     single = tmp_path / "model.safetensors"
     save_safetensors({"x": torch.zeros(1)}, str(single))
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -197,3 +207,93 @@ def test_config_from_diffusers_dict_matches_jax(folders):
     assert tcfg.UNetConfig.from_diffusers_dict(d).num_attention_heads == (5, 10)
     assert (tcfg.SchedulerConfig.from_diffusers_dict(d).prediction_type == "v_prediction")
     assert tcfg.SD15_INPAINT_UNET.in_channels == 9
+
+
+SDXL_COMPONENTS = ("unet", "vae", "text_encoder", "text_encoder_2")
+
+
+def _state_equal(a, b, comps):
+    for comp in comps:
+        x, y = getattr(a, comp).state_dict(), getattr(b, comp).state_dict()
+        assert x.keys() == y.keys(), comp
+        for k in x:
+            assert x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]), (comp, k)
+
+
+def test_sdxl_folders_both_ways(tmp_path):
+    """An SDXL folder (text_encoder_2/, tokenizer_2/ padding with id 0, the
+    SDXL pipeline class) written by either package loads into the other with
+    every tensor equal, as model type "sdxl" when none is given; a refiner
+    loads from a folder's unet/ alone."""
+    tm = tiny_sdxl_port_model(seed=4, refiner=True)
+    jm = to_jax_model(tm)
+    tdir, jdir = str(tmp_path / "port"), str(tmp_path / "jax")
+    loader.save_sd_model(tm, tdir)
+    jloader.save_sd_model(jm, jdir)
+    idx = json.load(open(os.path.join(tdir, "model_index.json")))
+    assert idx["_class_name"] == "StableDiffusionXLPipeline"
+    got_j = jloader.load_sd_model(tdir)
+    assert got_j.model_type == "sdxl"
+    for comp in SDXL_COMPONENTS:
+        sd, flat = getattr(tm, comp).state_dict(), flatten(getattr(got_j, f"{comp}_params"))
+        assert set(sd) == set(flat), comp
+        for k, v in flat.items():
+            np.testing.assert_array_equal(sd[k].numpy(), deconvert_tensor(k, np.asarray(v)))
+    got_t = loader.load_sd_model(jdir, device="cpu")
+    assert got_t.model_type == "sdxl" and got_t.is_sdxl
+    assert got_t.text_encoder_2_config == tm.text_encoder_2_config
+    assert got_t.unet_config == tm.unet_config
+    _state_equal(got_t, tm, SDXL_COMPONENTS)
+    # the card's dtypes: the UNet in the compute dtype, SDXL's VAE in fp32
+    half = loader.load_sd_model(jdir, device="cpu", dtype=torch.bfloat16)
+    assert next(half.unet.parameters()).dtype == torch.bfloat16
+    assert next(half.vae.parameters()).dtype == torch.float32
+    # both packages read each tokenizer folder alike (a pad token is read
+    # back as id 0 only when it is "!", OpenCLIP's id 0, in both)
+    for d in (tdir, jdir):
+        a, b = loader.load_sd_model(d, device="cpu"), jloader.load_sd_model(d)
+        for name in ("tokenizer", "tokenizer_2"):
+            ta, tb = getattr(a, name), getattr(b, name)
+            assert ta.pad_token_id == tb.pad_token_id, (d, name)
+            np.testing.assert_array_equal(ta("a cat"), tb("a cat"))
+    real_layout = synthetic_clip_tokenizer(pad_token_id=0)
+    real_layout.save_pretrained(str(tmp_path / "tok2"))
+    assert CLIPTokenizer.from_pretrained(str(tmp_path / "tok2")).pad_token_id == 0
+    assert JCLIPTokenizer.from_pretrained(str(tmp_path / "tok2")).pad_token_id == 0
+    # the refiner: a folder whose unet/ is the refiner's
+    rdir = str(tmp_path / "refiner")
+    loader.save_sd_model(dataclasses.replace(tm, unet_config=tm.refiner_config,
+                                             unet=tm.refiner), rdir)
+    got_t.load_refiner(rdir)
+    got_j.load_refiner(rdir)
+    assert got_t.refiner_config == tm.refiner_config
+    assert got_j.refiner_config == jm.refiner_config
+    x, y = got_t.refiner.state_dict(), tm.refiner.state_dict()
+    assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+
+
+def test_sd2_layout_folder_loads_as_sd15_and_runs(tmp_path):
+    """An SD2.x-layout folder (linear projections, per-level heads, one text
+    tower) loads as "sd15" in both packages and gives the same txt2img."""
+    tm = tiny_port_model(seed=6)
+    ucfg = dataclasses.replace(tm.unet_config, use_linear_projection=True,
+                               num_attention_heads=(2, 4))
+    unet = UNet2DConditionModel(ucfg)
+    with torch.no_grad():  # the conv proj weights as linears
+        for k, v in unet.state_dict().items():
+            src = tm.unet.state_dict()[k]
+            v.copy_(src.reshape(v.shape))
+    tm = dataclasses.replace(tm, unet_config=ucfg, unet=unet.eval())
+    d = str(tmp_path / "sd21_tiny")
+    loader.save_sd_model(tm, d)
+    got_t, got_j = loader.load_sd_model(d, device="cpu"), jloader.load_sd_model(d)
+    assert got_t.model_type == got_j.model_type == "sd15"
+    assert got_t.unet_config.use_linear_projection and got_j.unet_config.use_linear_projection
+    lat = np.random.default_rng(3).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    common = dict(prompt="a dog", num_inference_steps=2, guidance_scale=7.5,
+                  output_type="latents", seed=0)
+    ref = JPipeline(do_cfg=True)(got_j, latents=jnp.asarray(lat), **common).latents
+    out = StableDiffusionUnifiedPipeline(device="cpu")(
+        got_t, latents=torch.from_numpy(lat), **common).latents
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               atol=1e-4 * max(1.0, float(np.abs(ref).max())))

@@ -97,10 +97,22 @@ def test_unet_state_dict_keys_are_the_jax_tree_keys():
 
 
 def test_unet_rejects_unported_config():
+    """The configs this test once saw refused are ported now: linear
+    projections (SD2.x) and the text_time embedding (SDXL) build, with the
+    JAX param tree's names and shapes in torch layouts; numerics are held in
+    tests/test_torch_sdxl.py."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError):
-        UNet2DConditionModel(dataclasses.replace(tcfg.tiny_unet_config(), use_linear_projection=True))
+    from stablediffusion_tpu_torch.io.from_jax import flatten, to_torch_layout
+
+    for make in (lambda m: dataclasses.replace(m.tiny_unet_config(), use_linear_projection=True),
+                 lambda m: m.tiny_unet_config(sdxl=True)):
+        sd = UNet2DConditionModel(make(tcfg)).state_dict()
+        shapes = jax.eval_shape(lambda k: junet.init_params(k, make(jcfg)), jax.random.key(0))
+        flat = flatten(jax.tree_util.tree_map(
+            lambda a: np.broadcast_to(np.float32(0), a.shape), shapes))
+        assert set(sd) == set(flat)
+        assert all(tuple(sd[k].shape) == to_torch_layout(k, v).shape for k, v in flat.items())
 
 
 def test_vae_decode_matches_jax():

@@ -6,7 +6,9 @@ the JAX package by its io/torch_convert.py).  The JAX pipeline draws from ``jax.
 from ``torch.Generator``s, so each case recomputes the JAX draws (latents,
 VAE-encode noise, per-step noise; per sample and site for a seed list, as
 ``unified.py:969-990`` folds them) and injects them into the port through
-``draws=``.  Latents and pixels must agree within 1e-4 of
+``draws=`` (the newer cases capture them from the JAX call instead, through
+``torch_port_helpers.capture_jax_draws``).  Latents and pixels must agree
+within 1e-4 of
 max(1, max |ref|): pixels lie in [0, 1], while latents under the Euler
 family carry x0 + sigma * eps with sigma up to 14.6, where fp32 rounding
 alone reaches 1e-4.
@@ -24,7 +26,12 @@ from stablediffusion_tpu.pipelines.unified import (
 )
 from stablediffusion_tpu_torch.models.vae import tiled_decode, tiled_encode
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
-from torch_port_helpers import tiny_port_model, to_jax_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    capture_jax_draws,
+    tiny_port_model,
+    to_jax_model,
+    torch_single_thread,
+)
 
 TOL = 1e-4
 
@@ -114,6 +121,39 @@ def test_mode_matches_jax(models, case):
     np.testing.assert_allclose(out, ref, atol=TOL * max(1.0, float(np.abs(ref).max())))
 
 
+# cases whose draws are captured from the JAX call itself (its randn, its VAE
+# encodes' keys and the step keys handed to _denoise) rather than recomputed
+CAPTURED_CASES = {
+    "img2img_heun": (4, "heun", dict(image=_image(6), strength=0.6)),
+    "img2img_pndm": (4, "PNDM", dict(image=_image(7), strength=0.7)),
+    "blend4_heun": (4, "heun", dict(image=_image(8), mask_image=_mask(), strength=0.8)),
+    "concat9_seed_list": (9, "euler_a", dict(image=_image(9), mask_image=_mask(),
+                                             prompt=["a cat", "a dog"], seed=[21, 22])),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPTURED_CASES))
+def test_mode_with_captured_draws_matches_jax(models, case):
+    ch, sched, req = CAPTURED_CASES[case]
+    jm, tm = models[ch]
+    jm.set_scheduler(sched)
+    tm.set_scheduler(sched)
+    req = dict(req)
+    req.setdefault("seed", 5)
+    req.setdefault("prompt", "a cat")
+    common = dict(num_inference_steps=10, guidance_scale=7.5, **req)
+    out_type = "np" if "mask_image" in req else "latents"
+    with capture_jax_draws() as draws:
+        jout = JPipeline(do_cfg=True)(jm, output_type=out_type, **common)
+    tout = StableDiffusionUnifiedPipeline(device="cpu")(
+        tm, output_type=out_type, draws=draws, **common)
+    assert tout.seed == jout.seed
+    out, ref = ((tout.latents.numpy(), np.asarray(jout.latents)) if out_type == "latents"
+                else (tout.images, np.asarray(jout.images)))
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=TOL * max(1.0, float(np.abs(ref).max())))
+
+
 def test_tiled_vae_matches_jax(models):
     """Tiled decode (3x3 tiles of 8 latents) and encode (2x2 tiles of 16
     pixels) with blended seams, module level, against the JAX functions."""
@@ -174,7 +214,7 @@ def test_prompt_embeds_equal_the_prompt(models):
     _, tm = models[4]
     tm.set_scheduler("DDIM")
     pipe = StableDiffusionUnifiedPipeline(device="cpu")
-    emb, neg = pipe.encode_prompt(tm, "a cat", "a dog")
+    emb, neg, _, _ = pipe.encode_prompt(tm, "a cat", negative_prompt="a dog")
     kw = dict(num_inference_steps=2, guidance_scale=7.5, seed=3, output_type="latents")
     a = pipe(tm, prompt="a cat", negative_prompt="a dog", **kw).latents
     b = pipe(tm, prompt_embeds=emb, negative_prompt_embeds=neg, **kw).latents
@@ -191,10 +231,15 @@ def test_uint8_device_and_unported_arguments(models):
     assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
     np.testing.assert_array_equal(dev.numpy(), host)
     for extra, item in ((dict(hires_scale=2.0), "item 15"), (dict(freeu=True), "item 15"),
-                        (dict(pag_scale=3.0), "item 15"), (dict(prompt_2="x"), "item 13"),
-                        (dict(use_refiner=True), "item 13"), (dict(prompt_3="x"), "item 18")):
+                        (dict(pag_scale=3.0), "item 15"), (dict(prompt_3="x"), "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             pipe(tm, **kw, **extra)
+    # the SDXL arguments are ported: on an SD1.5 model prompt_2 is ignored
+    # and use_refiner needs a loaded refiner, as in the JAX pipeline
+    np.testing.assert_array_equal(pipe(tm, output_type="uint8", prompt_2="x", **kw).images,
+                                  host)
+    with pytest.raises(ValueError, match="no refiner loaded"):
+        pipe(tm, use_refiner=True, **kw)
     # off-valued extension settings are accepted, as the JAX pipeline takes them
     pipe(tm, pag_scale=0.0, hires_strength=0.5, cache_interval=1, **kw)
     with pytest.raises(TypeError):

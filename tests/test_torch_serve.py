@@ -4,10 +4,12 @@ on a tiny CPU model.
 Mirrors ``tests/test_serve.py:26-136,355-430`` (router modes, seed echo,
 params merge, img2img through base64, scheduler swap, error channel, HTTP
 round trip, batcher merge / buckets / errors), plus the port's own: a model
-block that loads a diffusers folder, and the features that answer on the
+block that loads a diffusers folder (SDXL by default, as in JAX), an SDXL
+request with prompt_2 and the refiner, and the features that answer on the
 error channel with their ROADMAP item.
 """
 
+import dataclasses
 import http.client
 import json
 import threading
@@ -24,7 +26,11 @@ from stablediffusion_tpu_torch.serve.handler import (
     encode_images_b64,
 )
 from stablediffusion_tpu_torch.serve.worker import make_server, parse_args
-from torch_port_helpers import tiny_port_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import (  # noqa: F401
+    tiny_port_model,
+    tiny_sdxl_port_model,
+    torch_single_thread,
+)
 
 ARGS = dict(prompt="a cat", height=32, width=32, num_inference_steps=2)
 
@@ -113,6 +119,35 @@ def test_model_block_loads_a_folder(tmp_path):
     assert "FileNotFoundError" in resp["error"]
 
 
+def test_sdxl_request_through_the_handler(tmp_path):
+    """A model block with a name and no type, and no model loaded, loads
+    <model_dir>/sdxl_N (the JAX default type); prompt_2 / negative_prompt_2
+    reach the pipeline; use_refiner answers on the error channel until a
+    refiner is loaded, then runs it."""
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+    model = tiny_sdxl_port_model(seed=3, refiner=True)
+    save_sd_model(model, str(tmp_path / "sdxl_tiny"))
+    save_sd_model(dataclasses.replace(model, unet_config=model.refiner_config,
+                                      unet=model.refiner), str(tmp_path / "refiner"))
+    h = Handler(model_dir=str(tmp_path), device="cpu")
+    req = {**ARGS, "seed": 5, "prompt_2": "a dog", "negative_prompt_2": "cat"}
+    resp = h({**req, "model": {"name": "tiny"}}, "sdxl")
+    assert "error" not in resp, resp.get("traceback")
+    assert h.model.model_type == "sdxl" and h.model.path == str(tmp_path / "sdxl_tiny")
+    direct = StableDiffusionUnifiedPipeline(device="cpu", output_type="uint8")(
+        h.model, **{k: v for k, v in req.items()})
+    assert resp["images"] == encode_images_b64(direct.images)
+    refine = {**ARGS, "seed": 6, "params": {"use_refiner": True, "strength": 0.5,
+                                            "image": resp["images"][0]}}
+    err = h(refine, "no refiner")
+    assert "error" in err and "no refiner loaded" in err["error"]
+    h.model.load_refiner(str(tmp_path / "refiner"))
+    out = h(refine, "refiner")
+    assert "error" not in out, out.get("traceback")
+    assert decode_image_b64(out["images"][0]).shape == (32, 32, 3)
+
+
 def test_http_worker_roundtrip(handler):
     """Drive the real HTTP surface on a local port."""
     server = make_server(handler, "127.0.0.1", 0, max_batch=1)
@@ -154,7 +189,8 @@ def test_worker_flags_for_unported_features():
         with pytest.raises(NotImplementedError, match=item):
             build(parse_args(flags))
     args = parse_args(["--model_dir", "d", "--model_name", "n", "--max_batch", "4"])
-    assert (args.model_type, args.max_batch, args.port) == ("sd15", 4, 8000)
+    # the JAX worker's default model type (serve/worker.py:155)
+    assert (args.model_type, args.max_batch, args.port) == ("sdxl", 4, 8000)
 
 
 def test_bucket_upload_sink(handler, tmp_path, monkeypatch):

@@ -3,6 +3,9 @@ initialisation: random torch weights in the port's modules, carried to the
 JAX package's param trees through its own ``io/torch_convert.py`` (the port
 stores the torch layouts that diffusers files hold)."""
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -35,10 +38,10 @@ def _init(module: torch.nn.Module, g: torch.Generator) -> torch.nn.Module:
     return module.eval().requires_grad_(False)
 
 
-def port_tokenizer() -> CLIPTokenizer:
+def port_tokenizer(pad_token_id=None) -> CLIPTokenizer:
     tok = tiny_tokenizer()
     merges = [m for m, _ in sorted(tok.bpe_ranks.items(), key=lambda kv: kv[1])]
-    return CLIPTokenizer(dict(tok.vocab), merges)
+    return CLIPTokenizer(dict(tok.vocab), merges, pad_token_id=pad_token_id)
 
 
 def tiny_port_model(in_channels: int = 4, seed: int = 0) -> SDModel:
@@ -54,17 +57,126 @@ def tiny_port_model(in_channels: int = 4, seed: int = 0) -> SDModel:
     )
 
 
-def to_jax_model(model: SDModel) -> JSDModel:
-    """The same weights as a JAX SDModel."""
-    tree = lambda m: convert_state_dict(  # noqa: E731
-        {k: np.asarray(v) for k, v in m.state_dict().items()})
-    return JSDModel(
-        model_type="sd15",
-        unet_config=jcfg.tiny_unet_config(in_channels=model.unet_config.in_channels),
-        unet_params=tree(model.unet), vae_config=jcfg.tiny_vae_config(),
-        vae_params=tree(model.vae), text_encoder_config=jcfg.tiny_clip_config(),
-        text_encoder_params=tree(model.text_encoder), tokenizer=tiny_tokenizer(),
+def tiny_sdxl_unet_config(cross_attention_dim: int = 64, n_time_ids: int = 6):
+    """The port's tiny SDXL-layout UNet (linear projections, text_time over
+    a projected pooled of 32 and `n_time_ids` ids at 8), with two
+    transformer layers and 2 heads at the first level, one layer and 4 heads
+    at the second and in the mid-block."""
+    return dataclasses.replace(
+        tcfg.tiny_unet_config(cross_attention_dim=cross_attention_dim, sdxl=True),
+        transformer_layers_per_block=(2, 1), num_attention_heads=(2, 4),
+        projection_class_embeddings_input_dim=32 + n_time_ids * 8)
+
+
+def tiny_sdxl_port_model(seed: int = 0, refiner: bool = False) -> SDModel:
+    """A tiny SDXL-layout port model on the CPU, fp32: CLIP-L-like and
+    bigG-like towers (the second with gelu and a projection; its tokenizer
+    pads with id 0), hidden states 32 + 32 wide; with `refiner`, a refiner UNet
+    conditioned on the second tower and five time ids."""
+    g = torch.Generator().manual_seed(seed)
+    uc = tiny_sdxl_unet_config()
+    vc, cc = tcfg.tiny_vae_config(), tcfg.tiny_clip_config()
+    c2 = dataclasses.replace(tcfg.tiny_clip_config(with_projection=True), hidden_act="gelu")
+    model = SDModel(
+        unet_config=uc, unet=_init(UNet2DConditionModel(uc), g),
+        vae_config=vc, vae=_init(AutoencoderKL(vc), g),
+        text_encoder_config=cc, text_encoder=_init(CLIPTextModel(cc), g),
+        tokenizer=port_tokenizer(), model_type="sdxl",
+        text_encoder_2_config=c2, text_encoder_2=_init(CLIPTextModel(c2), g),
+        tokenizer_2=port_tokenizer(pad_token_id=0),
     )
+    if refiner:
+        rc = tiny_sdxl_unet_config(cross_attention_dim=32, n_time_ids=5)
+        model.refiner_config, model.refiner = rc, _init(UNet2DConditionModel(rc), g)
+    return model
+
+
+def _jax_cfg(cls, cfg):
+    """The JAX package's dataclass with the port config's fields (the two
+    keep the same names and defaults)."""
+    return cls(**dataclasses.asdict(cfg))
+
+
+def jax_tree(module: torch.nn.Module) -> dict:
+    """A port module's weights as the JAX package's param tree."""
+    return convert_state_dict({k: np.asarray(v) for k, v in module.state_dict().items()})
+
+
+def to_jax_model(model: SDModel) -> JSDModel:
+    """The same weights and configs as a JAX SDModel (SDXL's second tower
+    and a refiner too)."""
+    tree = jax_tree
+    extra = {}
+    if model.is_sdxl:
+        extra.update(
+            text_encoder_2_config=_jax_cfg(jcfg.CLIPTextConfig, model.text_encoder_2_config),
+            text_encoder_2_params=tree(model.text_encoder_2),
+            tokenizer_2=tiny_tokenizer(pad_token_id=model.tokenizer_2.pad_token_id))
+    if model.refiner is not None:
+        extra.update(refiner_config=_jax_cfg(jcfg.UNetConfig, model.refiner_config),
+                     refiner_params=tree(model.refiner))
+    return JSDModel(
+        model_type=model.model_type,
+        unet_config=_jax_cfg(jcfg.UNetConfig, model.unet_config),
+        unet_params=tree(model.unet), vae_config=_jax_cfg(jcfg.VAEConfig, model.vae_config),
+        vae_params=tree(model.vae),
+        text_encoder_config=_jax_cfg(jcfg.CLIPTextConfig, model.text_encoder_config),
+        text_encoder_params=tree(model.text_encoder), tokenizer=tiny_tokenizer(),
+        scheduler_config=_jax_cfg(jcfg.SchedulerConfig, model.scheduler_config),
+        **extra,
+    )
+
+
+def _jax_noise(key, shape):
+    """fp32 standard normal of `shape` from a key, or from a [B] vector of
+    per-sample keys (each sample its own stream), as the JAX pipeline draws
+    (``core/rng.randn``, ``schedulers/common.step_noise``)."""
+    import jax
+    import jax.numpy as jnp
+
+    if key.ndim == 1:
+        return np.array(jax.vmap(lambda k: jax.random.normal(k, shape[1:], jnp.float32))(key))
+    return np.array(jax.random.normal(key, shape, jnp.float32))
+
+
+@contextlib.contextmanager
+def capture_jax_draws():
+    """Record the random draws of the JAX pipeline calls made inside the
+    block, as the port's ``draws=`` takes them (NHWC): "latents" (the one
+    ``randn`` of a call: initial latents or the noise added to the image),
+    "encode" and "encode_masked" (the VAE encodes' sampling noise, in call
+    order) and "steps" [N, B, h, w, c] (from the keys handed to
+    ``_denoise``).  Wraps the pipeline module's own functions, so the draws
+    are the call's, not a recomputation of its key splits."""
+    from stablediffusion_tpu.pipelines import unified as ju
+
+    draws = {}
+    orig = {n: getattr(ju, n) for n in ("randn", "_vae_encode_any", "_denoise")}
+
+    def randn(*args, **kw):
+        out = orig["randn"](*args, **kw)
+        assert "latents" not in draws, "a second randn in one call"
+        draws["latents"] = np.array(out, np.float32)
+        return out
+
+    def vae_encode_any(params, image, key, **kw):
+        out = orig["_vae_encode_any"](params, image, key, **kw)
+        if kw.get("sample", True):
+            site = "encode_masked" if "encode" in draws else "encode"
+            draws[site] = _jax_noise(key, out.shape)
+        return out
+
+    def denoise(unet_params, latents, embeds, plan, keys, *args, **kw):
+        draws["steps"] = np.stack([_jax_noise(keys[i], latents.shape)
+                                   for i in range(keys.shape[0])])
+        return orig["_denoise"](unet_params, latents, embeds, plan, keys, *args, **kw)
+
+    ju.randn, ju._vae_encode_any, ju._denoise = randn, vae_encode_any, denoise
+    try:
+        yield draws
+    finally:
+        for n, f in orig.items():
+            setattr(ju, n, f)
 
 
 @pytest.fixture(scope="module", autouse=True)
