@@ -67,9 +67,9 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    to the saved one, and asked over loopback: 512x512 txt2img under six
    schedulers switched by the model block, img2img at strength 0.6 from the
    first reply's JPEG, blend4 inpainting, a 768x768 request with the tiled
-   decode, a request naming LoRAs (answered on the error channel), a burst
-   of four that the batcher merges, and one request twice alone (the same
-   bytes).  Each request's launches must equal what its plan implies.
+   decode, a request naming a LoRA file that is not there (answered on the
+   error channel), a burst of four that the batcher merges, and one
+   request twice alone (the same bytes).  Each request's launches must equal what its plan implies.
    Walls, images/s, group sizes, JPEG time, and merged against solo pixels
    (the kernels themselves batch-invariant, bit for bit).
 11. The forward kernels at every shape the serving path launched that no
@@ -98,6 +98,27 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    Karras, img2img at 0.6, blend4 at 1.0, use_refiner without a refiner
    (error channel) and a burst of two that the batcher merges, each with
    its launches; then phase 17 for the shapes serving added.
+20. LoRA and textual inversion on SDXL 1024², through phase 19's worker
+   (started with --lora_dir apart from the model dir): a kohya file (rank
+   16 on every linear of the UNet's transformer blocks, lora_te1_/lora_te2_
+   on q/k/v/out_proj), a peft file (rank 8, UNet attention) and a
+   dual-tower textual inversion (2 vectors), over six requests at one
+   seed: none, kohya 0.8, + peft 0.5, + the textual inversion and its
+   trigger, the text towers at 0.5 (``cross_attention_kwargs``), and
+   ``loras: []``.  Exact launches each (2888 + 1); the fused weights within
+   one bf16 ulp of the plain ``fuse`` on the CPU; the last image and every
+   weight bit for bit the first request's; each adapter image differs from
+   it.  Load and ``set_adapters`` times, walls and peak memory.
+21. A1111 single file: the full-width SD1.5 model written as an LDM
+   .safetensors (``utils/testing.save_ldm_single_file``) and as a folder;
+   the handler loads the file by name (every tensor equal to its source)
+   and serves it with the folder's image byte for byte; then a kohya LoRA
+   on the attention linears and a constructor grid of 2 schedulers x 2
+   LoRA scales x 20 steps x CFG 7.5, each image with exact launches.
+22. Adapter reference: the narrow SD1.5 and SDXL-layout models of phases 5
+   and 18, each with a kohya LoRA on the UNet and every tower and a
+   textual inversion, card against CPU in fp32, the text scale through
+   ``cross_attention_kwargs``: images within 1e-4 of max(1, max |ref|).
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -124,6 +145,9 @@ HBM_BYTES_PER_S = 3.35e12
 # reference check: card (kernels) vs CPU (plain) in fp32 with TF32 off; the
 # sums run in other orders through 4 DDIM steps of the UNet
 REF_TOL = 1e-3
+# the same with adapters and a textual inversion (phase 22), on the images in
+# [0, 1], relative to max(1, max |ref|), as the port's CPU parity tests hold
+ADAPTER_REF_TOL = 1e-4
 # full-width bf16 UNet: both paths round the probabilities to bf16 for the
 # product with v (the kernel from its fp32 running max, the plain path after
 # the softmax), so the kernels' path should lie as far from the fp32 model
@@ -349,24 +373,15 @@ def _count_blocks(model):
     return _n_tf(model.unet), n_vae
 
 
-def phase_reference():
-    """Narrow model, card vs CPU, fp32, same weights and latents."""
+def _narrow_sd15(seed):
+    """The narrow SD1.5-layout model of phase 5 on the CPU, fp32: two UNet
+    levels at the SD1.5 head dims 40/80, a 2-layer CLIP-L, a VAE whose
+    mid-block takes flash_stream."""
     import dataclasses
 
-    import numpy as np
     import torch
 
-    from stablediffusion_tpu_torch.core.config import (
-        SD15_TEXT_ENCODER,
-        SD15_UNET,
-        VAEConfig,
-    )
-    from stablediffusion_tpu_torch.models.wrapper import SDModel
-    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
-    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
-    from stablediffusion_tpu_torch.pipelines.unified import (
-        StableDiffusionUnifiedPipeline,
-    )
+    from stablediffusion_tpu_torch.core.config import SD15_TEXT_ENCODER, SD15_UNET, VAEConfig
     from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
 
     ucfg = dataclasses.replace(
@@ -377,14 +392,65 @@ def phase_reference():
     )
     vcfg = VAEConfig(block_out_channels=(64, 192), layers_per_block=1)
     tcfg = dataclasses.replace(SD15_TEXT_ENCODER, num_hidden_layers=2)
-    cpu = random_model(ucfg, vcfg, tcfg, bench_tokenizer(), device="cpu",
-                       dtype=torch.float32, seed=3)
-    gpu = SDModel(
-        unet_config=ucfg, unet=copy.deepcopy(cpu.unet).cuda(),
-        vae_config=vcfg, vae=copy.deepcopy(cpu.vae).cuda(),
-        text_encoder_config=tcfg, text_encoder=copy.deepcopy(cpu.text_encoder).cuda(),
-        tokenizer=cpu.tokenizer,
+    return random_model(ucfg, vcfg, tcfg, bench_tokenizer(), device="cpu",
+                        dtype=torch.float32, seed=seed)
+
+
+def _narrow_sdxl(seed):
+    """The narrow SDXL-layout model of phase 18 on the CPU, fp32: CLIP-L and
+    bigG at full width and 2 layers each, a UNet of two levels at SDXL's
+    head dim 64 (5 and 10 heads), two transformer layers at the first,
+    linear projections, text_time, a VAE whose mid-block takes
+    flash_stream."""
+    import dataclasses
+
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import (
+        SDXL_TEXT_ENCODER,
+        SDXL_TEXT_ENCODER_2,
+        SDXL_UNET,
+        VAEConfig,
     )
+    from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
+
+    ucfg = dataclasses.replace(
+        SDXL_UNET, sample_size=16, block_out_channels=(320, 640),
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+        layers_per_block=1, transformer_layers_per_block=(2, 1), num_attention_heads=(5, 10))
+    vcfg = VAEConfig(block_out_channels=(64, 192), layers_per_block=1)
+    t1 = dataclasses.replace(SDXL_TEXT_ENCODER, num_hidden_layers=2)
+    t2 = dataclasses.replace(SDXL_TEXT_ENCODER_2, num_hidden_layers=2)
+    return random_model(ucfg, vcfg, t1, bench_tokenizer(), device="cpu", dtype=torch.float32,
+                        seed=seed, text_encoder_2_config=t2,
+                        tokenizer_2=bench_tokenizer(pad_token_id=0))
+
+
+def _to_card(cpu):
+    """A copy of a CPU SDModel on the card, with its own tokenizers."""
+    import dataclasses
+
+    mods = {c: copy.deepcopy(getattr(cpu, c)).cuda()
+            for c in ("unet", "vae", "text_encoder", "text_encoder_2")
+            if getattr(cpu, c) is not None}
+    return dataclasses.replace(cpu, tokenizer=copy.deepcopy(cpu.tokenizer),
+                               tokenizer_2=copy.deepcopy(cpu.tokenizer_2), **mods)
+
+
+def phase_reference():
+    """Narrow model, card vs CPU, fp32, same weights and latents."""
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import (
+        StableDiffusionUnifiedPipeline,
+    )
+
+    cpu = _narrow_sd15(seed=3)
+    gpu = _to_card(cpu)
     lat = np.random.default_rng(7).standard_normal((1, 16, 16, 4)).astype(np.float32)
     outs = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
@@ -1192,10 +1258,10 @@ def phase_serve(card: str):
         ask("txt2img 768x768 vae_tiling", {**base, "seed": 9, "height": 768, "width": 768,
                                            "num_inference_steps": 10, "vae_tiling": True},
             want(evals("DDIM", 10), tiles * n_dec))
-        err = ask("loras on the error channel", {**base, "seed": 10,
-                                                 "model": {"loras": [{"name": "x"}]}}, None)
-        if "error" not in err or "item 14" not in err["error"]:
-            raise AssertionError(f"loras request: {err}")
+        err = ask("a missing LoRA on the error channel",
+                  {**base, "seed": 10, "model": {"loras": {"missing": 1.0}}}, None)
+        if "error" not in err or "FileNotFoundError" not in err["error"]:
+            raise AssertionError(f"missing LoRA request: {err}")
 
         # the burst: concurrent batchable requests the batcher merges
         prompts = ["a red bicycle by a canal", "a lighthouse at dusk",
@@ -1366,43 +1432,18 @@ SDXL_BURST = 2  # the SDXL worker's max_batch and its burst's size
 
 
 def phase_sdxl_reference():
-    """A narrow SDXL-layout model, card (kernels) against CPU (plain
-    attention), fp32, TF32 off: CLIP-L and bigG at full width and 2 layers
-    each, a UNet of two levels at SDXL's head dim 64 (5 and 10 heads), two
-    transformer layers at the first, linear projections, text_time over the
-    projected pooled and six time ids, and a VAE whose mid-block takes
-    flash_stream; 4 DDIM steps from the same latents."""
-    import dataclasses
-
+    """The narrow SDXL-layout model (``_narrow_sdxl``), card (kernels)
+    against CPU (plain attention), fp32, TF32 off, 4 DDIM steps from the
+    same latents."""
     import numpy as np
     import torch
 
-    from stablediffusion_tpu_torch.core.config import (
-        SDXL_TEXT_ENCODER,
-        SDXL_TEXT_ENCODER_2,
-        SDXL_UNET,
-        VAEConfig,
-    )
     from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
     from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
     from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
-    from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
 
-    ucfg = dataclasses.replace(
-        SDXL_UNET, sample_size=16, block_out_channels=(320, 640),
-        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
-        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
-        layers_per_block=1, transformer_layers_per_block=(2, 1), num_attention_heads=(5, 10))
-    vcfg = VAEConfig(block_out_channels=(64, 192), layers_per_block=1)
-    t1 = dataclasses.replace(SDXL_TEXT_ENCODER, num_hidden_layers=2)
-    t2 = dataclasses.replace(SDXL_TEXT_ENCODER_2, num_hidden_layers=2)
-    cpu = random_model(ucfg, vcfg, t1, bench_tokenizer(), device="cpu", dtype=torch.float32,
-                       seed=7, text_encoder_2_config=t2,
-                       tokenizer_2=bench_tokenizer(pad_token_id=0))
-    gpu = dataclasses.replace(
-        cpu, unet=copy.deepcopy(cpu.unet).cuda(), vae=copy.deepcopy(cpu.vae).cuda(),
-        text_encoder=copy.deepcopy(cpu.text_encoder).cuda(),
-        text_encoder_2=copy.deepcopy(cpu.text_encoder_2).cuda())
+    cpu = _narrow_sdxl(seed=7)
+    gpu = _to_card(cpu)
     lat = np.random.default_rng(8).standard_normal((1, 16, 16, 4)).astype(np.float32)
     outs = {}
     for name, model in (("cpu", cpu), ("cuda", gpu)):
@@ -1475,6 +1516,7 @@ def phase_serve_sdxl(card: str):
     loopback at 1024²: txt2img under DDIM and DPM++ 2M Karras, img2img at
     0.6, blend4 inpainting at 1.0 and a burst of SDXL_BURST that the batcher
     merges, each with the launches its plan implies."""
+    import os
     import shutil
     import tempfile
     import threading
@@ -1497,10 +1539,12 @@ def phase_serve_sdxl(card: str):
         model = random_full_model("sdxl", device="cuda", seed=4)
         model.tokenizer = synthetic_clip_tokenizer()
         model.tokenizer_2 = synthetic_clip_tokenizer(pad_token_id=0)
+        lora_dir = os.path.join(root, "loras")  # apart from the model dir
+        os.makedirs(lora_dir)
         server = _save_and_serve(
             model, root, "sdxl_chip",
             ["--model_name", "chip", "--max_batch", str(SDXL_BURST), "--batch_window_ms",
-             "200"],
+             "200", "--lora_dir", lora_dir],
             "full-width SDXL, random weights (seed 4), synthetic byte-level BPE", card)
         loaded = server.handler.model
         if loaded.model_type != "sdxl" or loaded.tokenizer_2.pad_token_id != 0:
@@ -1555,13 +1599,376 @@ def phase_serve_sdxl(card: str):
                           "burst_images_per_s": burst_row["images_per_s"],
                           "batch1_images_per_s": 1.0 / walls[len(walls) // 2],
                           "launches": launches, "card": card}), flush=True)
-        return launches, {n: dict(c.by_shape) for n, c in counters.items()}
+        by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+        lora = phase_lora_sdxl(server, port, counters, card, lora_dir, want("DDIM"))
+        return launches, by_shape, lora
     finally:
         if server is not None:
             server.shutdown()
             server.server_close()
         if thread is not None:
             thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+LORA_PROMPT = "a photograph of an astronaut riding a horse"
+
+
+def _bf16_ulps(got, want):
+    """Largest |got - want| over one bf16 ulp of the larger magnitude, per
+    element, on the card."""
+    import torch
+
+    got, want = got.float(), want.float()
+    big = torch.maximum(got.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return float(((got - want).abs() / ulp).max())
+
+
+def _fused_against_plain(model):
+    """Every weight the active adapters fused on the card against the plain
+    ``fuse`` on the CPU from the pristine copies and the same factors:
+    returns the largest error in bf16 ulps (fp32 towers: also counted in
+    bf16 ulps, which bounds their error far above fp32 rounding), the
+    elements held and the seconds of the CPU fuse."""
+    import torch
+
+    from stablediffusion_tpu_torch.lora.core import fuse
+
+    worst, n, cpu_s = 0.0, 0, 0.0
+    modules = model._lora_modules()
+    for comp, pristine in model._pristine.items():
+        adapters = {name: {p: {k: v.cpu() for k, v in f.items()}
+                           for p, f in model._adapter_store[name][comp].items()}
+                    for name in model.adapters if comp in model._adapter_store[name]}
+        base = {k: v.cpu() for k, v in pristine.items()}
+        t = time.perf_counter()
+        ref = fuse(modules[comp], adapters, model.adapters, base=base)
+        cpu_s += time.perf_counter() - t
+        params = dict(modules[comp].named_parameters())
+        for key, want in ref.items():
+            worst = max(worst, _bf16_ulps(params[key].detach(), want.to(params[key].device)))
+            n += want.numel()
+        del ref, base
+    return worst, n, cpu_s
+
+
+def phase_lora_sdxl(server, port, counters, card, lora_dir, want):
+    """Phase 20: LoRA adapters and a textual inversion on the full-width
+    SDXL folder served by phase 19's worker (started with --lora_dir):
+    a kohya file (rank 16 on every linear of the UNet's transformer blocks,
+    lora_te1_/lora_te2_ on q/k/v/out_proj), a peft file (rank 8, UNet
+    attention) and a dual-tower textual inversion (2 vectors), over six
+    requests with the seed of the first; exact launches each; the fused
+    weights within one bf16 ulp of the plain fuse on the CPU; after
+    ``loras: []`` the image and every weight bit for bit those of the first
+    request."""
+    import os
+
+    import torch
+
+    from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
+    from stablediffusion_tpu_torch.lora.core import TEXT_TARGET_SUFFIXES, UNET_TARGET_SUFFIXES
+    from stablediffusion_tpu_torch.lora.formats import load_lora_file, save_lora_file
+    from stablediffusion_tpu_torch.utils.testing import random_lora, random_textual_inversion
+
+    model = server.handler.model
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    kohya = {"unet": {p: f for p, f in random_lora(model.unet, ("",), 16, 11, std=0.03).items()
+                      if ".transformer_blocks." in p},
+             "text_encoder": random_lora(model.text_encoder, TEXT_TARGET_SUFFIXES, 16, 12),
+             "text_encoder_2": random_lora(model.text_encoder_2, TEXT_TARGET_SUFFIXES, 16, 13)}
+    save_lora_file(kohya, os.path.join(lora_dir, "sdxl_kstyle.safetensors"), format="kohya")
+    peft = {"unet": random_lora(model.unet, UNET_TARGET_SUFFIXES, 8, 14, std=0.03)}
+    save_lora_file(peft, os.path.join(lora_dir, "sdxl_pstyle.safetensors"), format="peft")
+    ti_path = os.path.join(lora_dir, "chiptok.safetensors")
+    save_safetensors(random_textual_inversion(model, 2, seed=15), ti_path)
+    n_factors = sum(v.numel() for c in kohya.values() for f in c.values() for v in f.values())
+    write_s = time.perf_counter() - t
+    del kohya, peft
+    # the adapter lifecycle alone, timed: parse and move the factors, fuse
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.load_loras({"kstyle": 0.8}, lora_dir=lora_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    model.load_lora_weights("pstyle", load_lora_file(
+        os.path.join(lora_dir, "sdxl_pstyle.safetensors"), model.lora_module_paths()))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.set_adapters({"kstyle": 0.8, "pstyle": 0.5})
+    torch.cuda.synchronize()
+    set_s = time.perf_counter() - t
+    touched = {c: len(p) for c, p in model._pristine.items()}
+    touched_params = sum(v.numel() for p in model._pristine.values() for v in p.values())
+    pristine_bytes = sum(v.numel() * v.element_size()
+                         for p in model._pristine.values() for v in p.values())
+    model.delete_adapters()
+    snap = {c: {k: v.clone() for k, v in m.state_dict().items()}
+            for c, m in model._lora_modules().items()}
+
+    base = dict(prompt=LORA_PROMPT, height=SDXL_RES, width=SDXL_RES,
+                num_inference_steps=SDXL_STEPS, guidance_scale=7.5, seed=300)
+    both = {"kstyle": 0.8, "pstyle": 0.5}
+    ti_prompt = LORA_PROMPT + ", chiptok"
+    requests = [
+        ("no adapters", {**base, "model": {"scheduler": "DDIM"}}),
+        ("kohya 0.8", {**base, "model": {"loras": {"kstyle": 0.8}}}),
+        ("kohya 0.8 + peft 0.5", {**base, "model": {"loras": both}}),
+        ("+ textual inversion", {**base, "prompt": ti_prompt,
+                                 "model": {"loras": both, "textual_inversion": [ti_path]}}),
+        ("text scale 0.5", {**base, "prompt": ti_prompt,
+                            "cross_attention_kwargs": {"scale": 0.5}}),
+        ("loras: []", {**base, "model": {"loras": [], "textual_inversion": []}}),
+    ]
+    for c in counters.values():
+        c.reset()
+    replies, walls, fused_ulps = [], [], None
+    for label, body in requests:
+        reply, row = _ask(port, counters, card, f"sdxl lora: {label}", body, want)
+        replies.append(reply["images"][0])
+        walls.append(row["wall_s"])
+        if label == "kohya 0.8 + peft 0.5":
+            t = time.perf_counter()
+            fused_ulps, n_fused, cpu_s = _fused_against_plain(model)
+            check_s = time.perf_counter() - t
+            print(json.dumps({"lora_fused_vs_plain_cpu_bf16_ulps": fused_ulps,
+                              "elements": n_fused, "check_s": check_s,
+                              "cpu_fuse_s": cpu_s}), flush=True)
+            if fused_ulps > 1.0:
+                raise AssertionError(f"fused weights {fused_ulps} bf16 ulps from the plain fuse")
+    launches = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    if replies[-1] != replies[0]:
+        raise AssertionError("the image after loras: [] differs from the first request's")
+    same = [label for (label, _), im in zip(requests[1:-1], replies[1:-1]) if im == replies[0]]
+    if same or replies[4] == replies[3]:
+        raise AssertionError(f"adapter requests gave the plain image: {same}")
+    for comp, m in model._lora_modules().items():
+        for k, v in m.state_dict().items():
+            if not torch.equal(v, snap[comp][k]):
+                raise AssertionError(f"{comp}.{k} differs after loras: []")
+    print(json.dumps({
+        "lora_summary": "SDXL 1024x1024 over HTTP with kohya + peft LoRAs and a dual-tower "
+                        "textual inversion, 20 DDIM steps, CFG 7.5",
+        "kohya_factor_params": n_factors, "files_written_s": write_s,
+        "load_loras_s": load_s, "set_adapters_two_s": set_s,
+        "touched_weights": touched, "touched_params": touched_params,
+        "pristine_copy_gib": pristine_bytes / 2**30,
+        "request_walls_s": dict(zip([r[0] for r in requests], walls)),
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "weights_bit_identical_after_clear": True, "image_bit_identical_after_clear": True,
+        "launches": launches, "card": card}), flush=True)
+    del snap
+    return launches, by_shape
+
+
+SINGLE_RES = 512
+SINGLE_STEPS = 20
+SINGLE_SCHEDULERS = ["DDIM", "DPM++ 2M Karras"]
+SINGLE_LORA_SCALES = [0.5, 1.0]
+
+
+def phase_single_file(card: str):
+    """Phase 21: the full-width SD1.5 model (random weights, seed 5) written
+    as an A1111/LDM .safetensors single file by ``utils/testing.
+    save_ldm_single_file`` and as a diffusers folder; the handler loads the
+    file by name (``load_sd_single_file``, every tensor equal to its
+    source) and serves it with the folder's image bit for bit; then a kohya LoRA on the attention linears
+    (UNet and CLIP) and a constructor grid of 2 schedulers x 2 LoRA scales x
+    20 steps x CFG 7.5, each image with exact launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.loader import save_sd_model
+    from stablediffusion_tpu_torch.lora.core import TEXT_TARGET_SUFFIXES, UNET_TARGET_SUFFIXES
+    from stablediffusion_tpu_torch.lora.formats import save_lora_file
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.serve.handler import Handler, decode_image_b64
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        random_lora,
+        save_ldm_single_file,
+        synthetic_clip_tokenizer,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_single_")
+    try:
+        src = random_full_model("sd15", device="cuda", seed=5)
+        src.tokenizer = synthetic_clip_tokenizer()
+        path = os.path.join(root, "chip.safetensors")
+        t = time.perf_counter()
+        save_ldm_single_file(src, path)
+        write_s = time.perf_counter() - t
+        src.tokenizer.save_pretrained(os.path.join(root, "tokenizer"))
+        save_sd_model(src, os.path.join(root, "sd15_chip"))
+        by_file = Handler(model_dir=root, lora_dir=os.path.join(root, "loras"),
+                          device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        by_file.maybe_reload_model({"type": "sd15", "name": "chip.safetensors"})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        loaded = by_file.model
+        n = 0
+        for comp in ("unet", "vae", "text_encoder"):
+            a, b = getattr(src, comp).state_dict(), getattr(loaded, comp).state_dict()
+            if a.keys() != b.keys():
+                raise AssertionError(f"single file {comp}: keys differ")
+            for k in a:
+                if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])):
+                    raise AssertionError(f"single file {comp}.{k} differs from its source")
+            n += len(a)
+        if (loaded.unet_config, loaded.vae_config, loaded.text_encoder_config) != (
+                src.unet_config, src.vae_config, src.text_encoder_config):
+            raise AssertionError("single file: the converter's configs differ from the source")
+        del loaded, src
+        torch.cuda.empty_cache()
+
+        counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+        req = dict(prompt="a photograph of an astronaut riding a horse", seed=21,
+                   height=SINGLE_RES, width=SINGLE_RES, num_inference_steps=SINGLE_STEPS,
+                   guidance_scale=7.5)
+        for c in counters.values():
+            c.reset()
+        t = time.perf_counter()
+        r_file = by_file({**req, "model": {"type": "sd15", "name": "chip.safetensors"}},
+                         "file")
+        wall_file = time.perf_counter() - t
+        if "error" in r_file:
+            raise AssertionError(f"single file request: {r_file['traceback']}")
+        want = _want(by_file.model, SINGLE_STEPS, 1)
+        got = {k: c.count for k, c in counters.items()}
+        if got != want:
+            raise AssertionError(f"single file request: launches {got} != {want}")
+        by_folder = Handler(model_dir=root, device="cuda")
+        r_folder = by_folder({**req, "model": {"type": "sd15", "name": "chip"}}, "folder")
+        del by_folder
+        torch.cuda.empty_cache()
+        if r_file["images"] != r_folder["images"]:
+            raise AssertionError("the single file's image differs from the folder's")
+
+        os.makedirs(os.path.join(root, "loras"))
+        model = by_file.model
+        save_lora_file({"unet": random_lora(model.unet, UNET_TARGET_SUFFIXES, 16, 21,
+                                            std=0.05),
+                        "text_encoder": random_lora(model.text_encoder,
+                                                    TEXT_TARGET_SUFFIXES, 16, 22)},
+                       os.path.join(root, "loras", "sd15_kchip.safetensors"), format="kohya")
+        per_image = []
+        orig = by_file._generate
+
+        def counted(args, output_type="uint8"):
+            before = {k: c.count for k, c in counters.items()}
+            out = orig(args, output_type)
+            per_image.append({k: c.count - before[k] for k, c in counters.items()})
+            return out
+
+        by_file._generate = counted
+        for c in counters.values():
+            c.reset()
+        t = time.perf_counter()
+        grid = by_file({**req, "mode": "constructor", "model": {"loras": {"kchip": 1.0}},
+                        "params": {"schedulers": SINGLE_SCHEDULERS,
+                                   "lora_scales": SINGLE_LORA_SCALES,
+                                   "steps_grid": [SINGLE_STEPS], "guidance_grid": [7.5]}},
+                       "constructor")
+        grid_s = time.perf_counter() - t
+        if "error" in grid:
+            raise AssertionError(f"constructor: {grid['traceback']}")
+        cells = grid["grid"]
+        if len(cells) != 4 or per_image != [want] * 4:
+            raise AssertionError(f"constructor: {len(cells)} images, launches {per_image}")
+        pixels = [decode_image_b64(c["images"][0]) for c in cells]
+        if not all(px.shape == (SINGLE_RES, SINGLE_RES, 3) and np.isfinite(px).all()
+                   for px in pixels):
+            raise AssertionError("constructor: bad images")
+        if cells[0]["images"][0] == cells[1]["images"][0]:
+            raise AssertionError("constructor: LoRA scales 0.5 and 1.0 gave the same image")
+        if model.get_list_adapters() != {"kchip": 1.0}:
+            raise AssertionError(f"constructor left adapters {model.get_list_adapters()}")
+        launches = {k: c.count for k, c in counters.items()}
+        by_shape = {k: dict(c.by_shape) for k, c in counters.items()}
+        print(json.dumps({
+            "single_file": "full-width SD1.5 as an A1111/LDM .safetensors, random weights "
+                           "(seed 5), synthetic byte-level BPE",
+            "bytes": os.path.getsize(path), "written_s": write_s, "load_s": load_s,
+            "tensors_equal": n, "image_equals_folder": True,
+            "request_wall_s": wall_file, "constructor_images": len(cells),
+            "constructor_wall_s": grid_s, "launches_per_image": want,
+            "constructor_launches": launches, "card": card}), flush=True)
+        del by_file, model
+        torch.cuda.empty_cache()
+        return launches, by_shape
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_adapter_reference():
+    """Phase 22: the narrow SD1.5 and SDXL-layout models (phases 5 and 18),
+    each with a kohya LoRA on the UNet and every text tower and a textual
+    inversion, card (kernels) against CPU (plain attention), fp32, TF32 off,
+    2 DDIM steps, the text scale at 0.7 through ``cross_attention_kwargs``:
+    the images within ADAPTER_REF_TOL of max(1, max |ref|)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
+    from stablediffusion_tpu_torch.lora.core import TEXT_TARGET_SUFFIXES, UNET_TARGET_SUFFIXES
+    from stablediffusion_tpu_torch.lora.formats import save_lora_file
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import random_lora, random_textual_inversion
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_adapter_ref_")
+    try:
+        for name, cpu in (("sd15", _narrow_sd15(seed=31)), ("sdxl", _narrow_sdxl(seed=32))):
+            comps = {"unet": random_lora(cpu.unet, UNET_TARGET_SUFFIXES, 8, 33, std=0.05),
+                     "text_encoder": random_lora(cpu.text_encoder, TEXT_TARGET_SUFFIXES, 8, 34)}
+            if cpu.is_sdxl:
+                comps["text_encoder_2"] = random_lora(cpu.text_encoder_2,
+                                                      TEXT_TARGET_SUFFIXES, 8, 35)
+            save_lora_file(comps, os.path.join(root, f"{name}_ref.safetensors"),
+                           format="kohya")
+            ti = os.path.join(root, f"{name}_ti.safetensors")
+            save_safetensors(random_textual_inversion(cpu, 2, seed=36, std=0.5), ti)
+            gpu = _to_card(cpu)
+            lat = np.random.default_rng(37).standard_normal((1, 16, 16, 4)).astype(np.float32)
+            outs = {}
+            for dev, model in (("cpu", cpu), ("cuda", gpu)):
+                model.load_loras({"ref": 0.9}, lora_dir=root)
+                model.load_textual_inversion(ti, token="<chip>")
+                pipe = StableDiffusionUnifiedPipeline(device=dev, dtype=torch.float32)
+                f0, s0 = FLASH_FWD_LAUNCHES.count, FLASH_STREAM_LAUNCHES.count
+                outs[dev] = pipe(model, prompt="a small red house, <chip>",
+                                 num_inference_steps=2, guidance_scale=7.5,
+                                 latents=torch.from_numpy(lat), output_type="np",
+                                 cross_attention_kwargs={"scale": 0.7}).images
+                if dev == "cuda" and (FLASH_FWD_LAUNCHES.count == f0
+                                      or FLASH_STREAM_LAUNCHES.count == s0):
+                    raise AssertionError("adapter reference on the card launched no kernel")
+            ref = outs["cpu"]
+            err = float(np.abs(outs["cuda"] - ref).max())
+            tol = ADAPTER_REF_TOL * max(1.0, float(np.abs(ref).max()))
+            print(json.dumps({"adapter_reference": f"narrow {name}, kohya LoRA on the UNet "
+                              "and every tower at 0.9, text scale 0.7, textual inversion, "
+                              "card vs CPU, fp32", "images_max_abs_err": err, "tol": tol}),
+                  flush=True)
+            if not err <= tol:
+                raise AssertionError(f"{name} adapter reference: card {err} from the CPU")
+            del gpu
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1584,10 +1991,12 @@ def phase_sdxl(smi, checked):
     rows = phase_new_shapes(by_shape, checked, "sdxl")
     rows += phase_new_shapes(refiner_by_shape, checked, "refiner")
     phase_sdxl_reference()
-    serve_launches, serve_by_shape = phase_serve_sdxl(smi)
+    serve_launches, serve_by_shape, (lora_launches, lora_by_shape) = phase_serve_sdxl(smi)
     torch.cuda.empty_cache()
     rows += phase_new_shapes(serve_by_shape, checked, "sdxl_serve")
-    return rows, {"sdxl": launches, "refiner": refiner_launches, "sdxl_serve": serve_launches}
+    rows += phase_new_shapes(lora_by_shape, checked, "sdxl_lora")
+    return rows, {"sdxl": launches, "refiner": refiner_launches, "sdxl_serve": serve_launches,
+                  "sdxl_lora": lora_launches}
 
 
 def main() -> int:
@@ -1595,6 +2004,7 @@ def main() -> int:
 
     from stablediffusion_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1647,6 +2057,11 @@ def main() -> int:
 
     sdxl_rows, sdxl_launches = phase_sdxl(smi, checked)
     rows += sdxl_rows
+    torch.cuda.empty_cache()
+
+    single_launches, single_by_shape = phase_single_file(smi)
+    rows += phase_new_shapes(single_by_shape, checked, "single_file")
+    phase_adapter_reference()
 
     # one line per kernel, at its heaviest main-path shape; launches from the
     # path that needs the kernel (txt2img for the forwards, training for the
@@ -1684,7 +2099,8 @@ def main() -> int:
         mine = [r for r in rows if r["kernel"] == name]
         by_path = {"txt2img": launches.get(name, 0), "serve": serve_launches.get(name, 0),
                    "train": train_launches[name],
-                   **{p: n.get(name, 0) for p, n in sdxl_launches.items()}}
+                   **{p: n.get(name, 0) for p, n in sdxl_launches.items()},
+                   "single_file_constructor": single_launches.get(name, 0)}
         sdxl = None
         if name in sdxl_case:
             r = next(r for r in rows if r["kernel"] == name and r.get("path") == "sdxl"
@@ -1708,6 +2124,7 @@ def main() -> int:
             "worst_over_limit": max(r["worst_over_limit"] for r in mine),
             "sdxl_case": sdxl,
         })
+    print(f"chip_smoke total command time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,25 +7,31 @@ the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
 adds ``text_encoder_2/`` and ``tokenizer_2/``, whose pad token comes from
 its special_tokens_map), ``save_sd_model`` (:497, floating point only) and
 the config writers (:649-680).  The SDXL refiner's folder is read by
-:func:`load_unet` (``SDModel.load_refiner``).
+:func:`load_unet` (``SDModel.load_refiner``).  A1111/LDM single files load
+through :func:`load_sd_single_file` (:75-161, with ``io/convert_cli.
+load_single_file`` :16-27), which converts them in memory with the port's
+copy of ``io/a1111.py``; their dtypes follow ``load_sd_model``'s, not the
+JAX loader's (which keeps the file's).
 
 The port's modules carry diffusers' parameter names and torch layouts, which
 are what diffusers files hold, so a component loads by a strict copy into
 its ``state_dict``: no transposes, ``position_ids`` dropped, and every
 missing, unexpected or misshapen key raises.  Components are built on the
 meta device and filled straight from the safetensors mmap on their device.
-Not ported here (each raises and names its ROADMAP §1 item): A1111 single
-files (item 14), int8-on-disk folders and ``quantize=`` (item 16), SD3
-(item 18).
+Not ported here (each raises and names its ROADMAP §1 item): int8-on-disk
+folders and ``quantize=`` (item 16), SD3 (item 18).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import logging
 import os
-from typing import Optional, Union
+from typing import Dict, Iterator, Mapping, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -50,8 +56,9 @@ DEFAULT_CHECKPOINTS = {
 }
 REGISTRY_PREFIX = "OnMoon"
 
+logger = logging.getLogger(__name__)
+
 _LATER = {
-    "single_file": "A1111 single-file checkpoints come with ROADMAP §1 item 14",
     "int8": "int8 checkpoints and quantize= come with ROADMAP §1 item 16",
     "sd3": "SD3 comes with ROADMAP §1 item 18",
 }
@@ -197,7 +204,7 @@ def load_sd_model(
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if os.path.isfile(path):
-        raise NotImplementedError(f"{path}: {_LATER['single_file']}")
+        raise ValueError(f"{path} is a single file: load it with load_sd_single_file")
     if model_type is None:
         model_type = "sdxl" if os.path.isdir(os.path.join(path, "text_encoder_2")) else "sd15"
     if model_type not in ("sd15", "sdxl"):
@@ -244,6 +251,134 @@ def load_sd_model(
         path=path,
         **sdxl,
     )
+
+
+@contextlib.contextmanager
+def read_single_file(path: str) -> Iterator[Dict[str, np.ndarray]]:
+    """The tensors of a single-file checkpoint as numpy arrays, valid inside
+    the block (``io/convert_cli.load_single_file``): a .safetensors file
+    through views of its mmap (bfloat16 tensors as fp32 copies), a .ckpt
+    through ``torch.load(weights_only=True)``, its ``state_dict`` unwrapped."""
+    if path.endswith(".safetensors"):
+        from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile
+
+        with SafetensorsFile(path) as f:
+            yield {k: (f.tensor(k) if f.dtype_str(k) != "BF16"
+                       else f.torch_tensor(k).float().numpy()) for k in f.keys()}
+        return
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in state:
+        state = state["state_dict"]
+    yield {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+           for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def _fill(module: nn.Module, flat: Mapping[str, np.ndarray], what: str) -> nn.Module:
+    """Copy converted tensors (diffusers names, torch layouts) into
+    `module`, each cast to its parameter's dtype.  Strict, as
+    :func:`load_component_state`."""
+    targets = module.state_dict(keep_vars=True)
+    flat = {k: v for k, v in flat.items() if not k.endswith("position_ids")}
+    missing, unexpected = sorted(set(targets) - set(flat)), sorted(set(flat) - set(targets))
+    if missing or unexpected:
+        raise KeyError(f"{what}: missing {missing[:5]}, unexpected {unexpected[:5]}")
+    with torch.no_grad():
+        for name, arr in flat.items():
+            if tuple(arr.shape) != tuple(targets[name].shape):
+                raise ValueError(f"{what}: {name} has shape {tuple(arr.shape)}, "
+                                 f"the module {tuple(targets[name].shape)}")
+            targets[name].copy_(torch.from_numpy(np.array(arr)))
+    return module
+
+
+def load_sd_single_file(
+    path: str,
+    scheduler_name: str = "DDIM",
+    tokenizer_dir: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
+    extract_ema: bool = False,
+    scaling_factor: Optional[float] = None,
+    prediction_type: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
+    config_overrides: Optional[Mapping[str, Mapping]] = None,
+) -> SDModel:
+    """An A1111/LDM single-file checkpoint (.safetensors or .ckpt) as an
+    SDModel on `device` (default ``cuda``), converted in memory by
+    ``io/a1111.convert_a1111_checkpoint``.  Dtypes as :func:`load_sd_model`.
+    `tokenizer_dir` holds ``tokenizer/`` (and for SDXL ``tokenizer_2/``;
+    without it the second tower reuses the first's files with OpenCLIP's pad
+    "!" = id 0) or the vocab and merges files themselves; single files carry
+    no tokenizer, and without one the model runs from prompt embeddings
+    only.  `prediction_type` is not recorded in the file: v-prediction
+    checkpoints need it.  `config_overrides` ({"unet" | "vae" |
+    "text_encoder" | "text_encoder_2": {field: value}}) sets what the
+    tensors' shapes do not tell (head counts, norm groups): the port builds
+    its modules from the configs, where the JAX package may replace a
+    config after loading."""
+    from stablediffusion_tpu_torch.io.a1111 import convert_a1111_checkpoint
+
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    overrides = config_overrides or {}
+
+    def tok(sub: str):
+        if tokenizer_dir is None:
+            return None
+        d = os.path.join(tokenizer_dir, sub)
+        if not os.path.isdir(d):
+            if sub == "tokenizer_2":
+                # CLIP-L and OpenCLIP-bigG share vocab and merges; only the
+                # pad differs ("!" = id 0 for the second tower)
+                d = os.path.join(tokenizer_dir, "tokenizer")
+                if not os.path.isdir(d):
+                    d = tokenizer_dir
+                return CLIPTokenizer.from_pretrained(d, pad_token_id=0)
+            d = tokenizer_dir
+        return CLIPTokenizer.from_pretrained(d)
+
+    if tokenizer_dir is None:
+        logger.warning("single-file checkpoint has no tokenizer; pass tokenizer_dir= "
+                       "or supply prompt_embeds at generation time")
+
+    def cfg(cls, comp: str, d: dict):
+        return dataclasses.replace(cls.from_diffusers_dict(d), **overrides.get(comp, {}))
+
+    with read_single_file(path) as state:
+        weights, configs = convert_a1111_checkpoint(
+            state, extract_ema_weights=extract_ema, scaling_factor=scaling_factor)
+        is_sdxl = configs["model_type"] == "sdxl"
+        unet_cfg = cfg(UNetConfig, "unet", configs["unet"])
+        vae_cfg = cfg(VAEConfig, "vae", configs["vae"])
+        te_cfg = cfg(CLIPTextConfig, "text_encoder", configs["text_encoder"])
+
+        def build(comp, cls, config, dt):
+            return _fill(_empty_module(cls, config, device, dt), weights.pop(comp),
+                         f"{path} {comp}")
+
+        sdxl = {}
+        if is_sdxl:
+            te2_cfg = cfg(CLIPTextConfig, "text_encoder_2", configs["text_encoder_2"])
+            sdxl = dict(text_encoder_2_config=te2_cfg,
+                        text_encoder_2=build("text_encoder_2", CLIPTextModel, te2_cfg,
+                                             torch.float32),
+                        tokenizer_2=tok("tokenizer_2"))
+        model = SDModel(
+            unet_config=unet_cfg,
+            unet=build("unet", UNet2DConditionModel, unet_cfg, dtype),
+            vae_config=vae_cfg,
+            vae=build("vae", AutoencoderKL, vae_cfg, torch.float32 if is_sdxl else dtype),
+            text_encoder_config=te_cfg,
+            text_encoder=build("text_encoder", CLIPTextModel, te_cfg, torch.float32),
+            tokenizer=tok("tokenizer"),
+            scheduler_config=(SchedulerConfig(prediction_type=prediction_type)
+                              if prediction_type else SchedulerConfig()),
+            scheduler_name=scheduler_name,
+            model_type="sdxl" if is_sdxl else "sd15",
+            path=os.path.abspath(path),
+            **sdxl,
+        )
+        del state, weights  # views of the file's mmap, which closes next
+    return model
 
 
 def _dump_component(path: str, sub: str, module: nn.Module, cfg_dict: dict,

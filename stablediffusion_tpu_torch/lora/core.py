@@ -11,8 +11,11 @@ W + (alpha / r) * down @ up in its (in, out) layout (``core.py:159-170``).
 Fusion is functional: :func:`fuse` and :func:`apply_lora_for_training`
 return {"<path>.weight": fused weight} for the touched modules, which
 ``torch.func.functional_call`` substitutes into the frozen module for one
-call.  The base modules stay untouched and ``requires_grad_(False)``; in
-training the gradients flow to the factors only.
+call; in training the gradients flow to the factors only.  Serving fuses
+in place (:func:`write_fused`): the first write to a parameter keeps a
+pristine copy of it, every later fusion starts from those copies (so scales
+replace, never accumulate, as JAX re-fuses from its immutable base trees),
+and :func:`restore` copies them back bit for bit.
 """
 
 from __future__ import annotations
@@ -66,30 +69,36 @@ def init_lora(
 
 def delta_w(factors: Mapping[str, torch.Tensor],
             scale: Union[float, torch.Tensor] = 1.0) -> torch.Tensor:
-    """dW [in, out] = scale * (alpha / r) * down @ up, in fp32."""
+    """dW [in, out] = scale * (alpha / r) * down @ up, in fp32 (the scalars
+    applied to the [in, r] factor, not to the [in, out] product)."""
     down = factors["down"].float()
     up = factors["up"].float()
     r = down.shape[1]
     alpha = factors.get("alpha")
     a = alpha.float() if alpha is not None else float(r)
-    return (a / r) * (down @ up) * scale
+    return (down * ((a / r) * scale)) @ up
 
 
 def _fused(weight: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
-    """weight (out, in) plus dW given in the JAX layout (in, out)."""
-    return (weight.float() + dw.t()).to(weight.dtype)
+    """weight (out, in) plus dW given in the JAX layout (in, out), summed in
+    fp32 (a bf16 weight promotes exactly) and rounded to the weight's dtype."""
+    return (weight + dw.t()).to(weight.dtype)
 
 
 def fuse(
     module: nn.Module,
     adapters: Mapping[str, Mapping[str, Mapping[str, torch.Tensor]]],
     weights: Optional[Mapping[str, float]] = None,
+    base: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Fused weights {"<path>.weight": W'} of one or more adapters
     {name: lora} at per-adapter scales `weights` (default 1), without
-    touching `module`.  An adapter that matches no module raises; paths the
-    module lacks are skipped with a warning."""
+    touching `module`.  `base` ({"<path>.weight": W}) gives the weights to
+    fuse onto in place of the module's own (the pristine copies of
+    :func:`write_fused`).  An adapter that matches no module raises; paths
+    the module lacks are skipped with a warning."""
     weights = weights or {}
+    base = base or {}
     touched: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         for name, tree in adapters.items():
@@ -105,7 +114,7 @@ def fuse(
                     missing.append(path)
                     continue
                 key = f"{path}.weight"
-                w = touched.get(key, mod.weight)
+                w = touched.get(key, base.get(key, mod.weight))
                 touched[key] = _fused(w, delta_w(factors, scale).to(w.device))
                 applied += 1
             if tree and applied == 0:
@@ -120,6 +129,32 @@ def fuse(
                     "those factors were skipped"
                 )
     return touched
+
+
+def write_fused(module: nn.Module, fused: Mapping[str, torch.Tensor],
+                pristine: Dict[str, torch.Tensor]) -> None:
+    """Make `module`'s weights {base + `fused`}: each parameter in `fused`
+    is overwritten, after its original is saved into `pristine` (once: a
+    saved copy is the original from then on); a parameter saved earlier
+    and absent from `fused` is restored."""
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for key, orig in pristine.items():
+            if key not in fused:
+                params[key].copy_(orig)
+        for key, w in fused.items():
+            if key not in pristine:
+                pristine[key] = params[key].detach().clone()
+            params[key].copy_(w)
+
+
+def restore(module: nn.Module, pristine: Dict[str, torch.Tensor]) -> None:
+    """Copy every saved original back into `module` and forget them."""
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for key, orig in pristine.items():
+            params[key].copy_(orig)
+    pristine.clear()
 
 
 def apply_lora_for_training(

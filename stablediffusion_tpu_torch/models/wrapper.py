@@ -1,23 +1,34 @@
-"""SDModel — configs, modules, tokenizers and scheduler of one model.
+"""SDModel — configs, modules, tokenizers, scheduler and adapters of one model.
 
-Port of ``stablediffusion_tpu/models/wrapper.py:29-85`` and its
-``load_refiner`` (:132-152).  The JAX holder pairs configs with param trees;
-here it pairs them with ``nn.Module``s, all on one device.  SDXL is told by
-the presence of the second text tower (``text_encoder_2``, bigG, with its
-``tokenizer_2``); an SDXL model may also hold a refiner UNet.  The scheduler
-switches by name over the shared config (``set_scheduler``); checkpoints
-load and save through ``io/loader.py``.  LoRA adapters raise (ROADMAP §1
-item 14); quantization, IP-Adapter and textual inversion are absent, so the
-serving handler's ``hasattr`` guards answer "not supported" as they do for
-the JAX package.  ControlNet is not ported (item 15).
+Port of ``stablediffusion_tpu/models/wrapper.py``: the holder (:29-85), its
+``reload`` (:87-115), ``load_refiner`` (:132-152), textual inversion
+(:194-374) and the LoRA adapter lifecycle (:460-561).  The JAX holder pairs
+configs with param trees; here it pairs them with ``nn.Module``s, all on
+one device.  SDXL is told by the presence of the second text tower
+(``text_encoder_2``, bigG, with its ``tokenizer_2``); an SDXL model may also
+hold a refiner UNet.  The scheduler switches by name over the shared config
+(``set_scheduler``); checkpoints load and save through ``io/loader.py``.
+
+Adapters fuse into the modules in place (``lora/core.write_fused``): the
+first fusion that touches a weight keeps a pristine copy of it on the
+model's device, every later one fuses from those copies, and
+``delete_adapters`` copies them back, so the weights come back bit for bit.
+Textual inversion appends rows to the token-embedding tables, which no
+adapter touches, so re-fusing keeps them.  Quantization, IP-Adapter and
+ControlNet are absent (ROADMAP §1 items 15-16), so the serving handler's
+``hasattr`` guards answer "not supported" as they do for the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
+from torch import nn
 
 from stablediffusion_tpu_torch.core.config import (
     CLIPTextConfig,
@@ -25,13 +36,14 @@ from stablediffusion_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
 )
+from stablediffusion_tpu_torch.lora.core import fuse, linear_module_paths, restore, write_fused
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.schedulers import make_scheduler
 
-_LORA_LATER = ("LoRA adapters are not ported yet: they come with ROADMAP §1 "
-               "item 14 (lora/formats.py and the adapter lifecycle)")
+# the modules LoRA adapters fuse into, by the component names of LoRA files
+LORA_COMPONENTS = ("unet", "text_encoder", "text_encoder_2")
 
 
 @dataclass
@@ -46,7 +58,7 @@ class SDModel:
     scheduler_config: SchedulerConfig = field(default_factory=SchedulerConfig)
     scheduler_name: str = "DDIM"
     model_type: str = "sd15"
-    path: Optional[str] = None  # the checkpoint folder it was loaded from
+    path: Optional[str] = None  # the checkpoint folder or single file it came from
     # SDXL's second tower (its presence makes the model SDXL, as in JAX)
     text_encoder_2_config: Optional[CLIPTextConfig] = None
     text_encoder_2: Optional[CLIPTextModel] = None
@@ -54,8 +66,19 @@ class SDModel:
     # the SDXL refiner's UNet, loaded on demand (load_refiner)
     refiner_config: Optional[UNetConfig] = None
     refiner: Optional[UNet2DConditionModel] = None
+    # active adapters (name -> scale) and the loaded ones (name ->
+    # {component: {module path: factors on the model's device}})
+    adapters: Dict[str, float] = field(default_factory=dict)
 
     _scheduler: Optional[Any] = field(default=None, repr=False)
+    # per-instance state, which dataclasses.replace does not share
+    _adapter_store: Dict[str, Dict[str, dict]] = field(default_factory=dict, init=False,
+                                                       repr=False)
+    # component -> {"<path>.weight": the original of each fused weight}
+    _pristine: Dict[str, Dict[str, torch.Tensor]] = field(default_factory=dict, init=False,
+                                                          repr=False)
+    # textual inversion: each table's original row count, trigger -> towers
+    _ti_state: Optional[Dict[str, Any]] = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         modules = (self.unet, self.vae, self.text_encoder, self.text_encoder_2, self.refiner)
@@ -102,8 +125,220 @@ class SDModel:
         dtype = next(self.unet.parameters()).dtype
         self.refiner_config, self.refiner = load_unet(path, self.device, dtype)
 
-    def load_loras(self, loras, lora_dir: Optional[str] = None) -> None:
-        raise NotImplementedError(_LORA_LATER)
+    def reload(self) -> "SDModel":
+        """Re-read the checkpoint this model came from (a folder or a single
+        file), dropping adapters, textual inversions and the refiner.  A
+        single file keeps its tokenizers and configs (it carries neither
+        tokenizer nor head counts), its prediction type and the UNet's
+        dtype."""
+        if not self.path:
+            raise ValueError("model has no checkpoint path to reload from")
+        from stablediffusion_tpu_torch.io.loader import load_sd_model, load_sd_single_file
+
+        self.unload_textual_inversion()
+        dtype = next(self.unet.parameters()).dtype
+        if os.path.isfile(self.path):
+            configs = {"unet": self.unet_config, "vae": self.vae_config,
+                       "text_encoder": self.text_encoder_config,
+                       "text_encoder_2": self.text_encoder_2_config}
+            fresh = load_sd_single_file(
+                self.path, scheduler_name=self.scheduler_name, dtype=dtype,
+                prediction_type=self.scheduler_config.prediction_type, device=self.device,
+                config_overrides={k: dataclasses.asdict(c) for k, c in configs.items()
+                                  if c is not None})
+            fresh.tokenizer, fresh.tokenizer_2 = self.tokenizer, self.tokenizer_2
+        else:
+            fresh = load_sd_model(self.path, model_type=self.model_type, device=self.device,
+                                  dtype=dtype, scheduler_name=self.scheduler_name)
+        self.__dict__.update(fresh.__dict__)
+        return self
+
+    # -- textual inversion (wrapper.py:194-374) ------------------------------
+    def _towers(self) -> Dict[str, tuple]:
+        return {"text_encoder": (self.tokenizer, self.text_encoder),
+                "text_encoder_2": (self.tokenizer_2, self.text_encoder_2)}
+
+    def load_textual_inversion(self, source, token: Optional[str] = None,
+                               allow_pickle: bool = False) -> str:
+        """Load a learned embedding and register its trigger; returns the
+        trigger.  Formats: diffusers ``{"<token>": [n, hidden]}``, A1111 .pt
+        ``{"string_to_param": {"*": ...}, "name": ...}``, community
+        ``{"emb_params": [n, hidden]}``, SDXL ``{"clip_l", "clip_g"}`` (an
+        SDXL model needs this one).  `source` is a path (.safetensors, or a
+        torch pickle read with ``weights_only=True``; full pickle, which can
+        run code, only with `allow_pickle`) or a dict.  The rows are
+        appended to each tower's token-embedding table as a new parameter
+        of its dtype and device, and the trigger maps to their ids."""
+        if isinstance(source, str):
+            name_hint = os.path.splitext(os.path.basename(source))[0]
+            if source.endswith(".safetensors"):
+                from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile
+
+                with SafetensorsFile(source) as f:
+                    state = {k: f.torch_tensor(k).clone() for k in f.keys()}
+            else:
+                try:
+                    state = torch.load(source, map_location="cpu", weights_only=True)
+                except Exception:
+                    if not allow_pickle:
+                        raise ValueError(
+                            f"{source!r} is not loadable with weights_only=True; pass "
+                            "allow_pickle=True only for embedding files you trust (full "
+                            "pickle deserialization can execute arbitrary code)")
+                    state = torch.load(source, map_location="cpu", weights_only=False)
+        else:
+            state, name_hint = dict(source), None
+
+        def rows(v) -> torch.Tensor:
+            t = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            t = t.detach().float()
+            return t.reshape(1, -1) if t.dim() == 1 else t
+
+        per_tower: Dict[str, torch.Tensor] = {}
+        if "string_to_param" in state:  # A1111 .pt
+            per_tower["text_encoder"] = rows(next(iter(state["string_to_param"].values())))
+            token = token or state.get("name") or name_hint
+        elif "emb_params" in state:
+            per_tower["text_encoder"] = rows(state["emb_params"])
+        elif "clip_l" in state or "clip_g" in state:  # SDXL
+            if not self.is_sdxl:
+                raise ValueError("clip_l/clip_g embedding needs an SDXL model")
+            if "clip_l" not in state or "clip_g" not in state:
+                raise ValueError("SDXL textual inversion needs BOTH clip_l and clip_g")
+            per_tower["text_encoder"] = rows(state["clip_l"])
+            per_tower["text_encoder_2"] = rows(state["clip_g"])
+        else:  # diffusers: one {token: tensor}
+            tensors = {k: v for k, v in state.items() if not isinstance(v, (str, int, float))}
+            if len(tensors) != 1:
+                raise ValueError(f"unrecognized embedding format: {sorted(state)}")
+            tok_key, vec = next(iter(tensors.items()))
+            token = token or tok_key
+            per_tower["text_encoder"] = rows(vec)
+        if self.is_sdxl and "text_encoder_2" not in per_tower:
+            raise ValueError("this embedding has no clip_g vectors; an SDXL model needs "
+                             "the dual-tower format")
+        token = token or name_hint
+        if not token:
+            raise ValueError("no trigger token given and none in the file")
+        towers = self._towers()
+        for comp in per_tower:
+            if towers[comp][0] is None:
+                raise ValueError(
+                    "textual inversion needs a tokenizer to register its trigger, but "
+                    f"{comp}'s tokenizer is None (single-file load without tokenizer_dir?)")
+        for comp, vec in per_tower.items():
+            hidden = towers[comp][1].text_model.embeddings.token_embedding.weight.shape[1]
+            if vec.shape[1] != hidden:
+                raise ValueError(f"embedding dim {vec.shape[1]} != {comp} hidden {hidden}")
+
+        if self._ti_state is None:
+            self._ti_state = {"orig_rows": {}, "tokens": {}}
+        for comp, vec in per_tower.items():
+            tok, encoder = towers[comp]
+            table = encoder.text_model.embeddings.token_embedding
+            n = table.weight.shape[0]
+            self._ti_state["orig_rows"].setdefault(comp, n)
+            _set_table(table, torch.cat([table.weight.detach(), vec.to(table.weight)]))
+            tok.add_tokens({token: list(range(n, n + vec.shape[0]))})
+        self._ti_state["tokens"][token] = sorted(per_tower)
+        return token
+
+    def unload_textual_inversion(self) -> None:
+        """Remove every loaded textual inversion: the tables go back to
+        their original rows, the triggers are dropped."""
+        if not self._ti_state:
+            return
+        towers = self._towers()
+        for comp, n in self._ti_state["orig_rows"].items():
+            tok, encoder = towers[comp]
+            table = encoder.text_model.embeddings.token_embedding
+            _set_table(table, table.weight.detach()[:n].clone())
+            tok.clear_added_tokens()
+        self._ti_state = None
+
+    # -- LoRA adapters (wrapper.py:460-561) ----------------------------------
+    def _lora_modules(self) -> Dict[str, nn.Module]:
+        return {c: m for c, m in (("unet", self.unet), ("text_encoder", self.text_encoder),
+                                  ("text_encoder_2", self.text_encoder_2)) if m is not None}
+
+    def get_list_adapters(self) -> Dict[str, float]:
+        return dict(self.adapters)
+
+    def lora_module_paths(self) -> Dict[str, List[str]]:
+        """Every linear-module path per component: the resolver table for
+        kohya's underscore-flattened LoRA keys (``lora/formats.py``)."""
+        return {c: linear_module_paths(m, ("",)) for c, m in self._lora_modules().items()}
+
+    def load_lora_weights(self, name: str, adapter: Dict[str, Dict[str, dict]]) -> None:
+        """Register a parsed adapter ({component: {module path: factors}})
+        under `name`, its factors moved to the model's device in fp32."""
+        self._adapter_store[name] = {
+            comp: {path: {k: v.to(self.device, torch.float32) for k, v in f.items()}
+                   for path, f in tree.items()}
+            for comp, tree in adapter.items()}
+
+    def set_adapters(self, weights: Dict[str, float]) -> None:
+        """Fuse the named adapters at the given scales into the modules, in
+        place of any earlier fusion (fused from the pristine copies)."""
+        unknown = [n for n in weights if n not in self._adapter_store]
+        if unknown:
+            raise ValueError(f"unknown adapters {unknown}; loaded: "
+                             f"{sorted(self._adapter_store)}")
+        for comp, module in self._lora_modules().items():
+            pristine = self._pristine.setdefault(comp, {})
+            comp_adapters = {n: self._adapter_store[n][comp] for n in weights
+                             if comp in self._adapter_store[n]}
+            fused = fuse(module, comp_adapters, weights, base=pristine) if comp_adapters else {}
+            write_fused(module, fused, pristine)
+        self.adapters = dict(weights)
+
+    def scaled_tower_weights(self, comp: str,
+                             lora_scale: float) -> Optional[Dict[str, torch.Tensor]]:
+        """The weights of text tower `comp` ("text_encoder" or
+        "text_encoder_2") with the active adapters fused from the pristine
+        copies at their scales times `lora_scale`, for one
+        ``torch.func.functional_call`` (``unified.py:449-480``: the
+        per-request text-encoder LoRA scale); None when no adapter touches
+        the tower."""
+        module = self._lora_modules().get(comp)
+        scaled = {n: w * lora_scale for n, w in self.adapters.items()}
+        comp_adapters = {n: self._adapter_store[n][comp] for n in scaled
+                         if comp in self._adapter_store[n]}
+        if module is None or not comp_adapters:
+            return None
+        pristine = self._pristine.get(comp, {})
+        return {**pristine, **fuse(module, comp_adapters, scaled, base=pristine)}
 
     def delete_adapters(self) -> None:
-        raise NotImplementedError(_LORA_LATER)
+        """Drop every adapter and restore the original weights bit for bit."""
+        modules = self._lora_modules()
+        for comp, pristine in self._pristine.items():
+            restore(modules[comp], pristine)
+        self._pristine = {}
+        self._adapter_store = {}
+        self.adapters = {}
+
+    def load_loras(self, loras, lora_dir: Optional[str] = None) -> None:
+        """A name, a list of names or {name: scale}: read each file
+        ``{lora_dir}/{model_type}_{name}.safetensors`` and fuse them all, in
+        place of the adapters fused before."""
+        from stablediffusion_tpu_torch.lora.formats import load_lora_file
+
+        if isinstance(loras, str):
+            loras = {loras: 1.0}
+        elif isinstance(loras, (list, tuple)):
+            loras = {n: 1.0 for n in loras}
+        self.delete_adapters()
+        model_paths = None
+        for name in loras:
+            path = os.path.join(lora_dir or ".", f"{self.model_type}_{name}.safetensors")
+            if model_paths is None:
+                model_paths = self.lora_module_paths()
+            self.load_lora_weights(name, load_lora_file(path, model_paths))
+        self.set_adapters(dict(loras))
+
+
+def _set_table(table: nn.Embedding, weight: torch.Tensor) -> None:
+    """Give an embedding table new rows: a new frozen parameter."""
+    table.weight = nn.Parameter(weight, requires_grad=False)
+    table.num_embeddings = weight.shape[0]

@@ -15,7 +15,11 @@ hidden states concatenated, and the UNet takes SDXL's micro-conditioning
 (``added_cond``: the pooled embedding of the last tower and the
 ``_add_time_ids``); ``pooled_prompt_embeds`` may come precomputed, and
 ``use_refiner`` runs the loaded refiner UNet, conditioned on the second
-tower alone, in place of the base.
+tower alone, in place of the base.  ``cross_attention_kwargs={"scale": s}``
+scales the text towers' LoRA adapters for one call: the towers run through
+``torch.func.functional_call`` with weights fused from the pristine copies
+at each adapter's scale times `s`, while the UNet keeps its fused weights,
+as in JAX (``unified.py:449-480``).
 
 The denoise loop is a Python loop over the scheduler's ``step``; latents stay
 in the compute dtype between steps, the scheduler state in fp32, as in the
@@ -188,15 +192,18 @@ class StableDiffusionUnifiedPipeline:
     # -- prompt encoding (unified.py:91-108, 438-587) -------------------------
     @torch.no_grad()
     def _clip_encode(self, tokenizer, encoder, texts: List[str], mode: str,
-                     clip_skip: Optional[int] = None):
+                     clip_skip: Optional[int] = None,
+                     weights: Optional[Dict[str, torch.Tensor]] = None):
         """-> (hidden states [B, 77, H], pooled [B, P]).  mode "last": the
         last hidden state; "skip_renorm" (SD1.x clip skip): the hidden state
         `clip_skip` layers before the last, through final_layer_norm;
         "penultimate" (SDXL): hidden_states[-(clip_skip + 2)], no final
         norm.  The pooled output is the projected one of a tower that has a
-        projection (bigG)."""
+        projection (bigG).  `weights` ({name: tensor}) stand in for the
+        tower's own for this call."""
         ids = torch.from_numpy(tokenizer(texts)).to(self.device)
-        out = encoder(ids)
+        out = (torch.func.functional_call(encoder, weights, (ids,)) if weights
+               else encoder(ids))
         pooled = out.projected_pooled if encoder.config.with_projection else out.pooled_output
         if mode == "last":
             h = out.last_hidden_state
@@ -219,21 +226,25 @@ class StableDiffusionUnifiedPipeline:
         clip_skip: Optional[int] = None,
         do_cfg: bool = True,
         refiner_mode: bool = False,
+        lora_scale: Optional[float] = None,
     ):
         """-> (embeds, neg_embeds, pooled, neg_pooled), each [B * n, ...],
         the negatives None without CFG.  SDXL: both towers, `prompt_2` and
         `negative_prompt_2` defaulting to `prompt` and `negative_prompt`,
         hidden states concatenated on the last axis, pooled from the last
         tower; `refiner_mode` uses the second tower alone.  The clip skip
-        applies to the prompts, not to the negatives, as in JAX."""
+        applies to the prompts, not to the negatives, as in JAX.
+        `lora_scale` scales the towers' adapters for this call."""
         prompt = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompt)
-        towers = [(model.tokenizer, model.text_encoder)]
+        tw = {c: None if lora_scale is None else model.scaled_tower_weights(c, lora_scale)
+              for c in ("text_encoder", "text_encoder_2")}
+        towers = [(model.tokenizer, model.text_encoder, tw["text_encoder"])]
         prompts = [prompt]
         if model.is_sdxl:
             prompt_2 = prompt_2 or prompt
             prompt_2 = [prompt_2] if isinstance(prompt_2, str) else list(prompt_2)
-            towers.append((model.tokenizer_2, model.text_encoder_2))
+            towers.append((model.tokenizer_2, model.text_encoder_2, tw["text_encoder_2"]))
             prompts = [prompt, prompt_2]
             if refiner_mode:  # the refiner conditions on encoder 2 only
                 towers, prompts = towers[1:], [prompt_2]
@@ -251,14 +262,14 @@ class StableDiffusionUnifiedPipeline:
 
         def encode(texts, use_clip_skip):
             hs, pooled = [], None
-            for txts, (tok, enc) in zip(texts, towers):
+            for txts, (tok, enc, weights) in zip(texts, towers):
                 if model.is_sdxl:
                     mode, skip = "penultimate", (clip_skip if use_clip_skip else 0)
                 elif use_clip_skip and clip_skip:
                     mode, skip = "skip_renorm", clip_skip
                 else:
                     mode, skip = "last", None
-                h, pooled = self._clip_encode(tok, enc, txts, mode, skip)
+                h, pooled = self._clip_encode(tok, enc, txts, mode, skip, weights)
                 hs.append(h)
             return torch.cat(hs, dim=-1), pooled
 
@@ -422,7 +433,7 @@ class StableDiffusionUnifiedPipeline:
         denoising_end: Optional[float] = None,
         guidance_scale: float = 5.0,
         guidance_rescale: float = 0.0,
-        cross_attention_kwargs: Optional[dict] = None,  # LoRA scale: no adapters here
+        cross_attention_kwargs: Optional[dict] = None,  # {"scale": text-tower LoRA scale}
         clip_skip: Optional[int] = None,
         seed: Union[int, List[int], None] = None,
         latents: Optional[torch.Tensor] = None,
@@ -499,7 +510,8 @@ class StableDiffusionUnifiedPipeline:
             embeds, neg_embeds, pooled, neg_pooled = self.encode_prompt(
                 model, prompt, prompt_2, negative_prompt, negative_prompt_2,
                 num_images_per_prompt=n, clip_skip=clip_skip, do_cfg=do_cfg,
-                refiner_mode=use_refiner)
+                refiner_mode=use_refiner,
+                lora_scale=(cross_attention_kwargs or {}).get("scale"))
         embeds = embeds.to(self.dtype)
 
         lat_c = model.vae_config.latent_channels

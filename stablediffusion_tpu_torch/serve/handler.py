@@ -2,10 +2,21 @@
 
 Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * request schema {id, input: {mode?, model?, params?, prompt...}};
-  * the "inference" mode; an optional model block {type, name, scheduler,
-    prediction_type} hot-reloads the model from a diffusers folder
-    ``{type}_{name}`` under the model dir (type "sd15" or "sdxl"; with no
-    type and no model loaded, "sdxl", as in JAX) and switches the scheduler;
+  * the "inference" and "constructor" modes (the latter a grid over
+    schedulers x lora_scales x steps_grid x guidance_grid, which restores
+    the adapters' own scales after);
+  * an optional model block {type, name, scheduler, prediction_type, loras,
+    textual_inversion}:
+    - ``name`` hot-reloads the model from the diffusers folder
+      ``{type}_{name}`` under the model dir (type "sd15" or "sdxl"; with no
+      type and no model loaded, "sdxl", as in JAX), or from the A1111
+      single file it names, with the tokenizers of a ``tokenizer/`` folder
+      beside it or in the model dir;
+    - ``loras`` ({name: scale} or names) fuses
+      ``{lora_dir}/{type}_{name}.safetensors`` (the lora dir defaults to
+      the model dir); an empty value clears them;
+    - ``textual_inversion`` is declarative: the list is the state (.pt
+      files load with ``weights_only=True`` only);
   * SDXL requests take ``prompt_2`` / ``negative_prompt_2``, and
     ``use_refiner`` through ``params`` (without a loaded refiner it answers
     on the error channel, as the JAX pipeline raises);
@@ -15,11 +26,10 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * every failure answers on the error channel ({"error", "traceback"}).
 
 Not ported here; each answers on the error channel and names its ROADMAP §1
-item: the "constructor" (item 14), "train" (item 19) and "inference_wandb"
-(item 21) modes, the model block's "loras" (item 14) and "quantize" (item
-16), SD3 (item 18) and a serving mesh (item 20).  The model
-has no ``load_textual_inversion`` or ``load_ip_adapter``, so those keys
-answer "not supported", as they do for JAX model types without them.
+item: the "train" (item 19) and "inference_wandb" (item 21) modes, the
+model block's "quantize" (item 16), SD3 (item 18) and a serving mesh (item
+20).  The model has no ``load_ip_adapter``, so that key answers "not
+supported", as it does for JAX model types without it.
 """
 
 from __future__ import annotations
@@ -37,7 +47,11 @@ import numpy as np
 import torch
 
 from stablediffusion_tpu_torch.core.config import resolve_device
-from stablediffusion_tpu_torch.io.loader import load_sd_model, resolve_checkpoint
+from stablediffusion_tpu_torch.io.loader import (
+    load_sd_model,
+    load_sd_single_file,
+    resolve_checkpoint,
+)
 from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 
@@ -120,6 +134,7 @@ class Handler:
         self,
         model: Optional[SDModel] = None,
         model_dir: Optional[str] = None,
+        lora_dir: Optional[str] = None,
         uploader=None,
         mesh=None,
         device: Union[str, torch.device, None] = None,
@@ -132,6 +147,7 @@ class Handler:
             else resolve_device(device)
         self.model = model
         self.model_dir = model_dir
+        self.lora_dir = lora_dir or model_dir
         # bumped on every request that may change the model's state; the
         # Batcher snapshots it at enqueue and re-runs requests queued under
         # another state serially (see serve/batcher.py)
@@ -149,7 +165,15 @@ class Handler:
             path = resolve_checkpoint(mtype, name, cache_dir=self.model_dir)
             if self.model is None or self.model.path not in (path, os.path.abspath(path)):
                 logger.info("loading model %s (%s)", name, path)
-                self.model = load_sd_model(path, model_type=mtype, device=self.device)
+                if os.path.isfile(path):  # an A1111 single file
+                    tok_dir = next((d for d in (os.path.dirname(path), self.model_dir)
+                                    if d and os.path.isdir(os.path.join(d, "tokenizer"))),
+                                   None)
+                    self.model = load_sd_single_file(
+                        path, tokenizer_dir=tok_dir, device=self.device,
+                        prediction_type=model_cfg.get("prediction_type"))
+                else:
+                    self.model = load_sd_model(path, model_type=mtype, device=self.device)
         if self.model is None:
             raise ValueError("no model loaded and no model.name provided")
         if model_cfg.get("prediction_type"):
@@ -162,17 +186,24 @@ class Handler:
                 self.model._scheduler = None  # rebuilt from the new config
         if "loras" in model_cfg:
             if model_cfg["loras"]:
-                self.model.load_loras(model_cfg["loras"], lora_dir=self.model_dir)
+                self.model.load_loras(model_cfg["loras"], lora_dir=self.lora_dir)
             else:
                 self.model.delete_adapters()
         if "scheduler" in model_cfg:
             self.model.set_scheduler(model_cfg["scheduler"])
-        for key, method, item in (("textual_inversion", "load_textual_inversion", 14),
-                                  ("ip_adapter", "load_ip_adapter", 15)):
-            if model_cfg.get(key) and not hasattr(self.model, method):
-                raise ValueError(
-                    f"{key} is not supported for model type {self.model.model_type!r} "
-                    f"(ROADMAP §1 item {item})")
+        if "textual_inversion" in model_cfg:
+            # declarative: the list is the wanted state.  Requests name files
+            # on disk, so .pt embeddings load with weights_only=True only
+            self.model.unload_textual_inversion()
+            for ti in model_cfg["textual_inversion"] or []:
+                src = ti["path"] if isinstance(ti, dict) else str(ti)
+                if not os.path.exists(src) and self.model_dir:
+                    src = os.path.join(self.model_dir, src)
+                self.model.load_textual_inversion(
+                    src, token=ti.get("token") if isinstance(ti, dict) else None)
+        if model_cfg.get("ip_adapter") and not hasattr(self.model, "load_ip_adapter"):
+            raise ValueError(f"ip_adapter is not supported for model type "
+                             f"{self.model.model_type!r} (ROADMAP §1 item 15)")
         if model_cfg.get("quantize"):
             raise _later("quantize", 16)
 
@@ -183,6 +214,8 @@ class Handler:
             mode = request_input.get("mode", "inference")
             if "model" in request_input and request_input["model"]:
                 self.maybe_reload_model(request_input["model"])
+                self.model_generation += 1
+            if mode == "constructor":  # switches schedulers and adapter scales
                 self.model_generation += 1
             if self.model is None:
                 raise ValueError("no model loaded")
@@ -196,6 +229,8 @@ class Handler:
 
             if mode == "inference":
                 return self.inference_mode(args, t0, request_id=request_id)
+            if mode == "constructor":
+                return self.constructor_mode(args, t0)
             if mode in _LATER_MODES:
                 raise _later(f"mode {mode!r}", _LATER_MODES[mode])
             raise ValueError(f"unknown mode {mode!r}")
@@ -248,6 +283,34 @@ class Handler:
             "time_sec": round(time.time() - t0, 3),
         }
 
+    def constructor_mode(self, args: Dict[str, Any], t0: float) -> Dict:
+        """A grid sweep (``handler.py:471-508``): every scheduler x LoRA
+        scale (applied to every active adapter) x step count x guidance
+        scale, one generation each; the adapters' own scales come back
+        after."""
+        schedulers = args.pop("schedulers", ["DPM++ 2M SDE Karras"])
+        lora_scales = args.pop("lora_scales", [0.7])
+        steps_grid = args.pop("steps_grid", [30])
+        cfg_grid = args.pop("guidance_grid", [7])
+        base_adapters = self.model.get_list_adapters()
+        results = []
+        for sched in schedulers:
+            self.model.set_scheduler(sched)
+            for scale in lora_scales:
+                if base_adapters:
+                    self.model.set_adapters({n: scale for n in base_adapters})
+                for steps in steps_grid:
+                    for cfg in cfg_grid:
+                        out = self._generate(dict(args, num_inference_steps=int(steps),
+                                                  guidance_scale=float(cfg)))
+                        results.append({"scheduler": sched, "lora_scale": scale,
+                                        "steps": steps, "guidance_scale": cfg,
+                                        "seed": out.seed,
+                                        "images": encode_images_b64(out.images)})
+        if base_adapters:
+            self.model.set_adapters(base_adapters)
+        return {"grid": results, "time_sec": round(time.time() - t0, 3)}
+
 
 # the JAX handler's other modes -> the ROADMAP §1 item that brings them
-_LATER_MODES = {"constructor": 14, "train": 19, "inference_wandb": 21}
+_LATER_MODES = {"train": 19, "inference_wandb": 21}

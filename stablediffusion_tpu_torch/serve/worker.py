@@ -6,11 +6,16 @@ GET /, and merges concurrent txt2img requests through the micro-batcher
 (``--max_batch`` > 1)::
 
     python -m stablediffusion_tpu_torch.serve.worker \\
-        --model_dir D --model_name N [--model_type sdxl|sd15] [--warmup]
+        --model_dir D --model_name N [--model_type sdxl|sd15] [--lora_dir L] \\
+        [--warmup]
 
 loads the diffusers folder ``D/{model_type}_N`` (``--model_type`` "sdxl"
-unless given, as in JAX) onto the card and serves it on ``--port`` (8000).  The server, its handler and its batcher are one object
-(``make_server``), so a program can run one in a thread and shut it down.
+unless given, as in JAX), or the A1111 single file ``D/N`` when N ends in
+.safetensors or .ckpt, onto the card and serves it on ``--port`` (8000).
+Requests' ``loras`` are read from ``L/{model_type}_{name}.safetensors``
+(``--lora_dir``, default the model dir).  The server, its handler and its
+batcher are one object (``make_server``), so a program can run one in a
+thread and shut it down.
 ``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) and ``--quantize`` (item
 16) raise; the web UI (item 17) and the serverless-queue entry are not
 ported.
@@ -115,6 +120,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--model_dir", type=str, default=None)
     p.add_argument("--model_type", type=str, default="sdxl")
+    p.add_argument("--lora_dir", type=str, default=None,
+                   help="where requests' LoRA files live (default: --model_dir)")
     p.add_argument("--model_name", type=str, default=None,
                    help="load this checkpoint before serving")
     p.add_argument("--max_batch", type=int, default=8,
@@ -138,7 +145,7 @@ def build(args: argparse.Namespace) -> Server:
     if args.quantize:
         raise NotImplementedError("--quantize: not ported yet, it comes with ROADMAP §1 "
                                   "item 16")
-    handler = Handler(model_dir=args.model_dir)
+    handler = Handler(model_dir=args.model_dir, lora_dir=args.lora_dir)
     if args.model_name:
         handler.maybe_reload_model({"type": args.model_type, "name": args.model_name})
     if args.warmup:

@@ -4,8 +4,10 @@ Port of ``stablediffusion_tpu/tokenizer/clip_bpe.py`` (``CLIPTokenizer``
 :135, its pure-Python merge loop and text cleaning).  Word BPE over UTF-8
 bytes through the reversible byte table, the ``</w>`` end-of-word marker,
 vocab.json + merges.txt files (read and written), bos/eos wrapping,
-truncation and right padding.  The JAX package's native C++ merge loop (``native/bpe.cpp``) and
-textual-inversion triggers are not ported in this slice.
+truncation and right padding, and textual-inversion triggers (``add_tokens``
+:235, ``clear_added_tokens``, the boundary-aware split of ``tokenize``
+:269-290).  The JAX package's native C++ merge loop (``native/bpe.cpp``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import html
 import json
 import os
+import re as _std_re
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -124,6 +127,9 @@ class CLIPTokenizer:
         self.model_max_length = model_max_length
         self.byte_encoder = _bytes_to_unicode()
         self._cache: Dict[str, List[str]] = {}
+        # textual-inversion triggers: lowercased whole-string match -> the
+        # embedding-table ids it emits in place of BPE (one or more rows)
+        self.added_tokens: Dict[str, List[int]] = {}
 
     @classmethod
     def from_files(cls, vocab_file: str, merges_file: str, **kw) -> "CLIPTokenizer":
@@ -205,13 +211,32 @@ class CLIPTokenizer:
         self._cache[token] = out
         return out
 
+    def add_tokens(self, mapping: Dict[str, List[int]]) -> None:
+        """Register textual-inversion triggers: whole-string matches that
+        emit pre-assigned embedding ids instead of going through BPE."""
+        self.added_tokens.update({k.lower(): [int(i) for i in v] for k, v in mapping.items()})
+
+    def clear_added_tokens(self) -> None:
+        self.added_tokens.clear()
+
     def tokenize(self, text: str) -> List[int]:
         text = _clean(text).lower()
+        parts = [text]
+        if self.added_tokens:
+            # word-ish boundaries, longest trigger first: "thing" does not
+            # fire inside "something"
+            alts = "|".join(f"(?<![a-z0-9]){_std_re.escape(t)}(?![a-z0-9])"
+                            for t in sorted(self.added_tokens, key=len, reverse=True))
+            parts = _std_re.split(f"({alts})", text)
         unk = self.vocab.get("<|endoftext|>")
         ids: List[int] = []
-        for tok in _PATTERN.findall(text):
-            tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
-            ids.extend(self.vocab.get(piece, unk) for piece in self._bpe(tok))
+        for part in parts:
+            if part in self.added_tokens:
+                ids.extend(self.added_tokens[part])
+                continue
+            for tok in _PATTERN.findall(part):
+                tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+                ids.extend(self.vocab.get(piece, unk) for piece in self._bpe(tok))
         return ids
 
     def __call__(

@@ -4,8 +4,14 @@ Port of ``stablediffusion_tpu/utils/testing.py:17-55,78-134``
 (``random_params_like`` / ``random_model_params``, ``bench_tokenizer``,
 ``random_full_model`` for SD1.5 and SDXL), a random SDXL refiner, a random
 training batch as
-``benchmarks/bench_train.py`` builds it, and the error rules that hold a CUDA
-kernel against its plain version.  The values follow ``random_params_like`` — 1-D
+``benchmarks/bench_train.py`` builds it, the error rules that hold a CUDA
+kernel against its plain version, and files for the adapter and single-file
+paths: seeded random LoRA factors (``random_lora``, saved by
+``lora/formats.save_lora_file`` as peft or kohya) and textual-inversion
+embeddings (``random_textual_inversion``), and an A1111/LDM single-file
+writer (``ldm_state_dict``, ``save_ldm_single_file``), the inverse of
+``io/a1111``'s UNet, VAE and CLIP-L mapping (as the JAX tests' inverse,
+``tests/test_a1111.py:42-140``).  The values follow ``random_params_like`` — 1-D
 parameters (norm scales, biases) are ones, the rest normal with std
 min(0.02, fan_in**-0.5) — but are drawn by a ``torch.Generator`` on the
 target device, so the two packages' weights differ.  Modules are built on the
@@ -15,7 +21,8 @@ costs no host time.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import re
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -465,3 +472,135 @@ def random_train_batch(B: int, res: int, generator: torch.Generator) -> dict:
         "input_ids": torch.randint(0, 49407, (B, 77), generator=generator,
                                    device=device),
     }
+
+
+def random_lora(module: nn.Module, suffixes: Sequence[str], rank: int, seed: int,
+                std: float = 0.02, alpha: Optional[float] = None) -> Dict[str, dict]:
+    """Factors {path: {"down" [in, r], "up" [r, out], "alpha"}} for every
+    linear of `module` whose path ends with one of `suffixes` (``""``: all
+    of them), fp32 on the module's device, normal with std `std` (up too,
+    so that the adapter changes the weights); alpha = rank unless given."""
+    from stablediffusion_tpu_torch.lora.core import linear_module_paths
+
+    device = next(module.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for path in linear_module_paths(module, suffixes):
+        n_out, n_in = module.get_submodule(path).weight.shape
+        out[path] = {
+            "down": torch.randn(n_in, rank, generator=g, device=device) * std,
+            "up": torch.randn(rank, n_out, generator=g, device=device) * std,
+            "alpha": torch.tensor(float(alpha if alpha is not None else rank)),
+        }
+    return out
+
+
+def random_textual_inversion(model: SDModel, n_vectors: int, seed: int,
+                             std: float = 0.02) -> Dict[str, torch.Tensor]:
+    """Embedding rows from `seed` in the format the model takes: SDXL's
+    ``{"clip_l", "clip_g"}``, else community ``{"emb_params"}``; fp32 on
+    the CPU, ready for ``save_safetensors``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rows(cfg):
+        return torch.randn(n_vectors, cfg.hidden_size, generator=g) * std
+
+    if model.is_sdxl:
+        return {"clip_l": rows(model.text_encoder_config),
+                "clip_g": rows(model.text_encoder_2_config)}
+    return {"emb_params": rows(model.text_encoder_config)}
+
+
+_RESNET_TO_LDM = {"norm1": "in_layers.0", "conv1": "in_layers.2",
+                  "time_emb_proj": "emb_layers.1", "norm2": "out_layers.0",
+                  "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+_VAE_ATTN_TO_LDM = {"group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v",
+                    "to_out.0": "proj_out"}
+
+
+def _unet_key_to_ldm(key: str, cfg: UNetConfig) -> str:
+    L = cfg.layers_per_block
+    simple = {"conv_in.": "input_blocks.0.0.", "time_embedding.linear_1.": "time_embed.0.",
+              "time_embedding.linear_2.": "time_embed.2.", "conv_norm_out.": "out.0.",
+              "conv_out.": "out.2.", "add_embedding.linear_1.": "label_emb.0.0.",
+              "add_embedding.linear_2.": "label_emb.0.2."}
+    for new, old in simple.items():
+        if key.startswith(new):
+            return old + key[len(new):]
+    if m := re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.(\w+)\.(.*)", key):
+        i, j = int(m.group(1)), int(m.group(2))
+        return f"input_blocks.{1 + i * (L + 1) + j}.0.{_RESNET_TO_LDM[m.group(3)]}.{m.group(4)}"
+    if m := re.match(r"down_blocks\.(\d+)\.attentions\.(\d+)\.(.*)", key):
+        i, j = int(m.group(1)), int(m.group(2))
+        return f"input_blocks.{1 + i * (L + 1) + j}.1.{m.group(3)}"
+    if m := re.match(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)", key):
+        return f"input_blocks.{1 + int(m.group(1)) * (L + 1) + L}.0.op.{m.group(2)}"
+    if m := re.match(r"mid_block\.resnets\.(\d)\.(\w+)\.(.*)", key):
+        slot = 0 if m.group(1) == "0" else 2
+        return f"middle_block.{slot}.{_RESNET_TO_LDM[m.group(2)]}.{m.group(3)}"
+    if m := re.match(r"mid_block\.attentions\.0\.(.*)", key):
+        return f"middle_block.1.{m.group(1)}"
+    if m := re.match(r"up_blocks\.(\d+)\.resnets\.(\d+)\.(\w+)\.(.*)", key):
+        i, j = int(m.group(1)), int(m.group(2))
+        return f"output_blocks.{i * (L + 1) + j}.0.{_RESNET_TO_LDM[m.group(3)]}.{m.group(4)}"
+    if m := re.match(r"up_blocks\.(\d+)\.attentions\.(\d+)\.(.*)", key):
+        i, j = int(m.group(1)), int(m.group(2))
+        return f"output_blocks.{i * (L + 1) + j}.1.{m.group(3)}"
+    if m := re.match(r"up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)", key):
+        i = int(m.group(1))
+        slot = 2 if cfg.up_block_types[i] == "CrossAttnUpBlock2D" else 1
+        return f"output_blocks.{i * (L + 1) + L}.{slot}.conv.{m.group(2)}"
+    raise KeyError(f"no LDM name for UNet key {key!r}")
+
+
+def _vae_key_to_ldm(key: str, val: torch.Tensor, n_up: int):
+    """(LDM key, tensor) of one VAE tensor; the mid-block attention's
+    linears become the 1x1 convolutions LDM stores."""
+    if key.startswith(("quant_conv.", "post_quant_conv.")):
+        return "first_stage_model." + key, val
+    side, rest = key.split(".", 1)
+    if rest.startswith(("conv_in.", "conv_out.")):
+        nk = rest
+    elif rest.startswith("conv_norm_out."):
+        nk = "norm_out." + rest[len("conv_norm_out."):]
+    elif m := re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", rest):
+        nk = f"down.{m.group(1)}.block.{m.group(2)}.{m.group(3)}"
+    elif m := re.match(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.*)", rest):
+        nk = f"down.{m.group(1)}.downsample.conv.{m.group(2)}"
+    elif m := re.match(r"up_blocks\.(\d+)\.resnets\.(\d+)\.(.*)", rest):
+        nk = f"up.{n_up - 1 - int(m.group(1))}.block.{m.group(2)}.{m.group(3)}"
+    elif m := re.match(r"up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.*)", rest):
+        nk = f"up.{n_up - 1 - int(m.group(1))}.upsample.conv.{m.group(2)}"
+    elif m := re.match(r"mid_block\.resnets\.(\d)\.(.*)", rest):
+        nk = f"mid.block_{int(m.group(1)) + 1}.{m.group(2)}"
+    elif m := re.match(r"mid_block\.attentions\.0\.(\w+(?:\.0)?)\.(.*)", rest):
+        part, r = m.group(1), m.group(2)
+        if r == "weight" and part != "group_norm":
+            val = val[:, :, None, None]
+        nk = f"mid.attn_1.{_VAE_ATTN_TO_LDM[part]}.{r}"
+    else:
+        raise KeyError(f"no LDM name for VAE key {key!r}")
+    return f"first_stage_model.{side}.{nk.replace('conv_shortcut', 'nin_shortcut')}", val
+
+
+def ldm_state_dict(model: SDModel) -> Dict[str, torch.Tensor]:
+    """An SD1.x model's tensors under A1111/LDM names, as a single-file
+    checkpoint holds them: the UNet under ``model.diffusion_model.``, the
+    VAE under ``first_stage_model.`` (attention as 1x1 convolutions), CLIP-L
+    under ``cond_stage_model.transformer.``; each in its module's dtype."""
+    if model.is_sdxl:
+        raise NotImplementedError("the LDM writer covers SD1.x (UNet, VAE, CLIP-L)")
+    out = {"model.diffusion_model." + _unet_key_to_ldm(k, model.unet_config): v
+           for k, v in model.unet.state_dict().items()}
+    n_up = len(model.vae_config.block_out_channels)
+    out.update(_vae_key_to_ldm(k, v, n_up) for k, v in model.vae.state_dict().items())
+    out.update({"cond_stage_model.transformer." + k: v
+                for k, v in model.text_encoder.state_dict().items()})
+    return out
+
+
+def save_ldm_single_file(model: SDModel, path: str) -> None:
+    """Write `model` as an A1111/LDM .safetensors single file."""
+    from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
+
+    save_safetensors(ldm_state_dict(model), path)

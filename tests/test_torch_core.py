@@ -62,7 +62,8 @@ def test_import_pulls_in_no_jax():
     mods = _modules()
     for sub in ("lora.core", "train.optim", "train.train_step", "schedulers.ddpm",
                 "io.loader", "io.safetensors_io", "serve.handler", "serve.worker",
-                "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms"):
+                "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms",
+                "lora.formats", "io.a1111"):
         assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

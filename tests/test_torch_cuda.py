@@ -353,3 +353,61 @@ def test_served_request_is_deterministic(cuda):
     a, b = h(dict(req), "a"), h(dict(req), "b")
     assert "error" not in a, a.get("traceback")
     assert a["images"] == b["images"] and a["seed"] == 11
+
+
+# -- the adapter slice: in-place LoRA fusion and textual inversion ------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_fusion_on_card(cuda, dtype):
+    """Adapters fused in place on the card: each fused weight against the
+    plain fuse on the CPU from the same factors within one ulp of its dtype
+    plus the fp32 error bound of the two dW sums, which run in other orders
+    ((r + 2) unit roundoffs of sum |down_ik * up_kj| times the scale; next
+    to a bf16 ulp it is nothing); a scale swap equals the direct fusion bit
+    for bit; delete_adapters gives back every weight bit for bit; the
+    pristine copies stay on the card."""
+    from stablediffusion_tpu_torch.lora import core
+    from stablediffusion_tpu_torch.utils.testing import random_lora
+
+    model = _tiny_model(cuda, dtype=dtype, seed=2)
+    before = {k: v.clone() for k, v in model.unet.state_dict().items()}
+    lora = {"unet": random_lora(model.unet, ("",), rank=4, seed=3, std=0.1)}
+    model.load_lora_weights("a", lora)
+    model.set_adapters({"a": 0.5})
+    model.set_adapters({"a": 0.8})
+    fused = {k: v.clone() for k, v in model.unet.state_dict().items()}
+    assert all(p.device.type == "cuda" for p in model._pristine["unet"].values())
+    cpu_base = {k: v.cpu() for k, v in model._pristine["unet"].items()}
+    cpu_lora = {p: {n: t.cpu() for n, t in f.items()} for p, f in lora["unet"].items()}
+    ref = core.fuse(model.unet, {"a": cpu_lora}, {"a": 0.8}, base=cpu_base)
+    assert set(ref) == set(cpu_base)
+    for key, want in ref.items():
+        got = fused[key].cpu().float()
+        big = torch.maximum(got.abs(), want.float().abs())
+        ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent
+                          - (24 if dtype == torch.float32 else 8))
+        f = cpu_lora[key[:-len(".weight")]]
+        r = f["down"].shape[1]
+        dw_bound = (r + 2) * 2.0**-24 * 0.8 * (f["alpha"] / r) * (
+            f["down"].abs() @ f["up"].abs()).t()
+        assert bool(((got - want.float()).abs() <= ulp + dw_bound).all()), key
+    model.set_adapters({"a": 0.0})
+    assert all(torch.equal(model.unet.state_dict()[k], v) for k, v in before.items())
+    model.set_adapters({"a": 0.8})
+    assert all(torch.equal(model.unet.state_dict()[k], v) for k, v in fused.items())
+    model.delete_adapters()
+    assert all(torch.equal(model.unet.state_dict()[k], v) for k, v in before.items())
+    assert model._pristine == {}
+
+
+def test_textual_inversion_rows_on_card(cuda):
+    """A textual inversion extends the table on the card in its dtype;
+    unloading slices it back bit for bit."""
+    model = _tiny_model(cuda, seed=4)
+    table0 = model.text_encoder.text_model.embeddings.token_embedding.weight.clone()
+    model.load_textual_inversion({"<x>": torch.ones(2, table0.shape[1])})
+    t = model.text_encoder.text_model.embeddings.token_embedding.weight
+    assert t.device.type == "cuda" and t.dtype == table0.dtype and t.shape[0] == 1002
+    model.unload_textual_inversion()
+    assert torch.equal(model.text_encoder.text_model.embeddings.token_embedding.weight, table0)

@@ -155,7 +155,7 @@ def test_strict_keys_and_unported_formats(folders, tmp_path):
         loader.load_sd_model(d, model_type="sd3", device="cpu")
     single = tmp_path / "model.safetensors"
     save_safetensors({"x": torch.zeros(1)}, str(single))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="load_sd_single_file"):
         loader.load_sd_model(str(single), device="cpu")
 
 

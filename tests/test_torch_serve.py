@@ -76,15 +76,17 @@ def test_scheduler_swap_via_model_block(handler):
     handler.model.set_scheduler("DDIM")
 
 
+# the ids are those the cases had before the constructor mode, LoRAs and
+# textual inversion were ported (their cases moved to tests of their own)
 @pytest.mark.parametrize("request_input, item", [
-    ({"mode": "inference_wandb"}, "item 21"),
-    ({"mode": "constructor"}, "item 14"),
-    ({"mode": "train"}, "item 19"),
-    ({"model": {"loras": [{"name": "x"}]}}, "item 14"),
-    ({"model": {"quantize": "w8a8"}}, "item 16"),
-    ({"model": {"type": "sd3", "name": "x"}}, "item 18"),
-    ({"hires_scale": 2.0}, "item 15"),
-    ({"model": {"textual_inversion": ["a.pt"]}}, "not supported"),
+    pytest.param({"mode": "inference_wandb"}, "item 21", id="request_input0-item 21"),
+    pytest.param({"mode": "train"}, "item 19", id="request_input2-item 19"),
+    pytest.param({"model": {"quantize": "w8a8"}}, "item 16", id="request_input4-item 16"),
+    pytest.param({"model": {"type": "sd3", "name": "x"}}, "item 18",
+                 id="request_input5-item 18"),
+    pytest.param({"hires_scale": 2.0}, "item 15", id="request_input6-item 15"),
+    pytest.param({"model": {"ip_adapter": "ip.bin"}}, "not supported",
+                 id="request_input7-not supported"),
 ])
 def test_unported_features_answer_on_the_error_channel(handler, request_input, item):
     resp = handler({**ARGS, "seed": 1, **request_input}, "req-6")
@@ -191,6 +193,80 @@ def test_worker_flags_for_unported_features():
     args = parse_args(["--model_dir", "d", "--model_name", "n", "--max_batch", "4"])
     # the JAX worker's default model type (serve/worker.py:155)
     assert (args.model_type, args.max_batch, args.port) == ("sdxl", 4, 8000)
+
+
+def _kohya_file(model, path):
+    from stablediffusion_tpu_torch.lora.core import UNET_TARGET_SUFFIXES
+    from stablediffusion_tpu_torch.lora.formats import save_lora_file
+    from stablediffusion_tpu_torch.utils.testing import random_lora
+
+    save_lora_file({"unet": random_lora(model.unet, UNET_TARGET_SUFFIXES, 2, 0, 0.3)},
+                   str(path), format="kohya")
+
+
+def test_lora_dir_apart_from_the_model_dir(tmp_path, monkeypatch):
+    """A LoRA kept outside the model folder is found through lora_dir
+    (Handler and the worker's --lora_dir), which defaults to the model dir."""
+    from stablediffusion_tpu_torch.serve import worker
+
+    model = tiny_port_model(seed=4)
+    (tmp_path / "models").mkdir()
+    (tmp_path / "loras").mkdir()
+    _kohya_file(model, tmp_path / "loras" / "sd15_style.safetensors")
+    h = Handler(model=model, model_dir=str(tmp_path / "models"),
+                lora_dir=str(tmp_path / "loras"))
+    plain = h({**ARGS, "seed": 2}, "plain")
+    styled = h({**ARGS, "seed": 2, "model": {"loras": {"style": 1.0}}}, "style")
+    assert "error" not in styled, styled.get("traceback")
+    assert model.get_list_adapters() == {"style": 1.0}
+    assert styled["images"] != plain["images"]
+    assert Handler(model=model, model_dir="m").lora_dir == "m"
+    # the worker hands --lora_dir to its handler (built here on the CPU model)
+    monkeypatch.setattr(worker, "Handler", lambda **kw: Handler(model=model, **kw))
+    for flags, want in ((["--lora_dir", str(tmp_path / "loras")], str(tmp_path / "loras")),
+                        ([], "m")):
+        server = worker.build(parse_args(["--model_dir", "m", "--host", "127.0.0.1",
+                                          "--port", "0", "--max_batch", "1", *flags]))
+        server.server_close()
+        assert server.handler.lora_dir == want
+
+
+@pytest.mark.parametrize("loras", [[], None, {}])
+def test_empty_loras_clear_the_adapters(loras, tmp_path):
+    """{"model": {"loras": []}} (or null) answers with images on a model
+    with no adapters, as in JAX, and clears any that are fused: the image
+    comes back to the plain one byte for byte."""
+    model = tiny_port_model(seed=5)
+    h = Handler(model=model, model_dir=str(tmp_path))
+    plain = h({**ARGS, "seed": 3}, "plain")
+    resp = h({**ARGS, "seed": 3, "model": {"loras": loras}}, "empty")
+    assert "error" not in resp, resp.get("traceback")
+    assert resp["images"] == plain["images"]
+    _kohya_file(model, tmp_path / "sd15_s.safetensors")
+    fused = h({**ARGS, "seed": 3, "model": {"loras": ["s"]}}, "fused")
+    assert fused["images"] != plain["images"]
+    cleared = h({**ARGS, "seed": 3, "model": {"loras": loras}}, "cleared")
+    assert cleared["images"] == plain["images"] and model.get_list_adapters() == {}
+
+
+def test_constructor_mode_grid(tmp_path):
+    """schedulers x lora_scales x steps_grid x guidance_grid, one image
+    each; the scheduler and the adapters' scales it switches; without
+    adapters the scales leave the model as it is."""
+    model = tiny_port_model(seed=6)
+    _kohya_file(model, tmp_path / "sd15_s.safetensors")
+    h = Handler(model=model, model_dir=str(tmp_path))
+    body = {"mode": "constructor", "prompt": "a cat", "height": 32, "width": 32, "seed": 1,
+            "params": {"schedulers": ["DDIM", "euler"], "lora_scales": [0.5],
+                       "steps_grid": [1, 2], "guidance_grid": [7.5]}}
+    bare = h(dict(body), "bare")
+    assert "error" not in bare, bare.get("traceback")
+    assert [(r["scheduler"], r["steps"]) for r in bare["grid"]] == [
+        ("DDIM", 1), ("DDIM", 2), ("euler", 1), ("euler", 2)]
+    assert all(r["seed"] == 1 and len(r["images"]) == 1 for r in bare["grid"])
+    with_lora = h({**body, "model": {"loras": {"s": 0.8}}}, "lora")
+    assert model.get_list_adapters() == {"s": 0.8} and model.scheduler_name == "euler"
+    assert with_lora["grid"][0]["images"] != bare["grid"][0]["images"]
 
 
 def test_bucket_upload_sink(handler, tmp_path, monkeypatch):
