@@ -120,6 +120,32 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    textual inversion, card against CPU in fp32, the text scale through
    ``cross_attention_kwargs``: images within 1e-4 of max(1, max |ref|).
 
+23. The trainer (run after phase 9): ``SDLoRATrainer.train()`` on the
+   full-width SDXL model over a seeded folder of four 1024x1024 JPEGs with
+   captions (``utils/testing.write_image_folder``): batch 2, rank 16 on the
+   UNet's attention projections and both towers' q/k/v/out_proj
+   (train_text_encoder, the JAX trainer's default), Min-SNR 5, constant
+   LR, 4 steps, a checkpoint every 2, a one-image 4-step validation render
+   each epoch, no remat.  Each step's wall, loss, grad norm and launches by
+   kernel and shape, held exactly to the plan: 140 UNet + 12 CLIP-L + 32
+   bigG forwards with lse, 140 + 11 + 32 of each backward kernel (SDXL
+   reads CLIP-L's penultimate states, so its last layer's attention gets
+   no backward), one ``flash_stream`` (the encode); each render 648 + 1.
+   Every factor of the saved file moved except the four ``up``s of
+   CLIP-L's last layer, which are named.  Peak memory, images/s over the
+   three timed steps, a profiled step; then the saved file through
+   ``load_loras`` in one 1024² request (2888 + 1).
+24. The trainer's kernels at every (shape, dtype) phases 23 and 25
+   launched that no earlier phase held: the bf16 ``<64>`` backward at
+   [2,4096,10,64], [2,1024,20,64] and their x77 rows, the fp32 causal pair
+   at [2,77,12,64] and [2,77,20,64], ``flash_stream`` at [2,16384,1,512],
+   under phase 3's and phase 8's rules and times.
+25. Trainer variants on the full-width SD1.5 model at 512², batch 2: 8-bit
+   Adam, two-step bf16 accumulation, cache_latents (the separate no-grad
+   encode), a kohya file; 4 steps straight against 2 steps and a resume
+   from checkpoint-2 for 2 more, factors within ``RESUME_TOL``; exact
+   launches per data step; the kohya file equal to the trainer's factors.
+
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, when CUDA is not available.
@@ -131,6 +157,7 @@ import copy
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -189,7 +216,8 @@ def _device_ms(fn, key: str, reps: int) -> float:
     kernel events over `reps` calls after one warm-up: the kernel's own
     time, without the wrapper's host work.  The mean is over the events
     the profiler kept: late in a long run it drops some, and a profiling
-    run that kept none is repeated."""
+    run that kept none is repeated; after three such runs the calls are
+    timed with CUDA events, and a ``device_ms_fallback`` line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,7 +233,12 @@ def _device_ms(fn, key: str, reps: int) -> float:
               if e.device_type == DeviceType.CUDA and key in e.name]
         if us:
             return sum(us) / 1e3 / len(us)
-    raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+    # the profiler kept no event of the kernel: time the calls with CUDA
+    # events instead (the wrapper's host work included), and say so
+    ms = _time_ms(fn, reps)
+    print(json.dumps({"device_ms_fallback": key, "event_ms": ms,
+                      "why": "torch.profiler kept no kernel event in 3 runs"}), flush=True)
+    return ms
 
 
 @functools.lru_cache(maxsize=None)
@@ -667,6 +700,7 @@ def _profile(label, fn):
     row = {
         "profile": label,
         "wall_ms_profiled": wall_ms, "device_kernel_ms": sum(groups.values()),
+        "device_kernels": len(spans),
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[n[:90], ms] for n, ms in top],
@@ -1010,6 +1044,386 @@ def phase_train_reference():
                       "worst_rel_err": worst, "tol": TRAIN_REF_TOL}), flush=True)
     if not worst <= TRAIN_REF_TOL:
         raise AssertionError(f"train step on the card disagrees with the CPU: {worst}")
+
+
+# -- the trainer slice ---------------------------------------------------------
+
+TRAIN_SDXL_BATCH = 2
+TRAIN_SDXL_STEPS = 4  # one warm step and three timed ones
+TRAIN_PROMPT = "a photograph of an astronaut riding a horse"
+# phase 25: 4 steps straight against 2 + a resume for 2 more, each factor
+# relative to its largest element.  The kernels use no atomics and the
+# frozen UNet computes no weight gradient, but cuBLAS and cuDNN pick their
+# algorithms per call, and a last-bit difference in a moment can flip one
+# 8-bit code (an update apart by up to 2/127 of its size, ~lr / 64)
+RESUME_TOL = 1e-3
+
+
+class _TrainProbe:
+    """Wraps the trainer's step, its separate encode (cache_latents) and
+    its validation render, for the duration of a ``with`` block: each data
+    step (its encode included) records its wall, loss, grad norm and
+    launches by kernel and call shape, each validation render its launches;
+    the first step keeps a copy of the initial factors, the last its
+    arguments (for a profiled step after the run)."""
+
+    def __init__(self):
+        self.steps, self.validations = [], []
+        self.initial, self.last_call = None, None
+        self._encode = None
+
+    def _snap(self):
+        return {n: (c.count, dict(c.by_shape)) for n, c in _train_counters().items()}
+
+    def _delta(self, snap):
+        out = {}
+        for n, c in _train_counters().items():
+            count, shapes = snap[n]
+            by = {k: v - shapes.get(k, 0) for k, v in c.by_shape.items()
+                  if v != shapes.get(k, 0)}
+            out[n] = (c.count - count, by)
+        return out
+
+    def __enter__(self):
+        import torch
+
+        import stablediffusion_tpu_torch.train.trainer as trainer_mod
+
+        self._mod = trainer_mod
+        self._orig = (trainer_mod.make_train_step, trainer_mod.make_encode_fn,
+                      trainer_mod.SDLoRATrainer._log_validation)
+        probe = self
+
+        def make_encode_fn(statics):
+            encode = probe._orig[1](statics)
+
+            def timed(*args, **kw):
+                snap = probe._snap()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = encode(*args, **kw)
+                torch.cuda.synchronize()
+                probe._encode = (snap, time.perf_counter() - t)
+                return out
+
+            return timed
+
+        def make_train_step(statics, scheduler, optimizer):
+            step = probe._orig[0](statics, scheduler, optimizer)
+
+            def timed(trainable, opt_state, frozen, batch, generator, draws=None):
+                if probe.initial is None:
+                    probe.initial = {c: {p: {k: v.clone() for k, v in f.items()}
+                                         for p, f in t.items()} for c, t in trainable.items()}
+                snap, encode_s = probe._encode or (probe._snap(), 0.0)
+                probe._encode = None
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(trainable, opt_state, frozen, batch, generator, draws)
+                loss, gnorm = out[2]["loss"].item(), out[2]["grad_norm"].item()
+                torch.cuda.synchronize()
+                probe.steps.append({"wall_s": time.perf_counter() - t + encode_s,
+                                    "encode_s": encode_s, "loss": loss, "grad_norm": gnorm,
+                                    "launches": probe._delta(snap)})
+                probe.last_call = (step, trainable, opt_state, frozen, batch, generator)
+                return out
+
+            return timed
+
+        def log_validation(trainer, lora, epoch, step):
+            snap = probe._snap()
+            probe._orig[2](trainer, lora, epoch, step)
+            probe.validations.append(probe._delta(snap))
+
+        trainer_mod.make_train_step = make_train_step
+        trainer_mod.make_encode_fn = make_encode_fn
+        trainer_mod.SDLoRATrainer._log_validation = log_validation
+        return self
+
+    def __exit__(self, *exc):
+        m = self._mod
+        m.make_train_step, m.make_encode_fn, m.SDLoRATrainer._log_validation = self._orig
+
+
+def _step_launches(delta):
+    """{kernel: count} of one step's launch delta, flash_fwd split by kind."""
+    got = {n: count for n, (count, _) in delta.items()}
+    got["flash_fwd"] = _fwd_split(*delta["flash_fwd"])
+    return got
+
+
+def _shape_rows(delta):
+    return [[n, list(qs), skv, dt, causal, lse, k]
+            for n, (_, by) in sorted(delta.items())
+            for (qs, skv, dt, causal, lse), k in sorted(by.items())]
+
+
+def _check_steps(label, probe, want):
+    """Print each step and hold its launches to `want`."""
+    import math
+
+    for i, s in enumerate(probe.steps):
+        got = _step_launches(s["launches"])
+        print(json.dumps({label: i, "wall_s": s["wall_s"], "encode_s": s["encode_s"],
+                          "loss": s["loss"], "grad_norm": s["grad_norm"], "launches": got,
+                          "by_shape": _shape_rows(s["launches"])}), flush=True)
+        if not (math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                and s["grad_norm"] > 0):
+            raise AssertionError(f"{label} step {i}: loss {s['loss']}, grad norm "
+                                 f"{s['grad_norm']}")
+        if got != want:
+            raise AssertionError(f"{label} step {i}: launches {got} != expected {want}")
+
+
+def phase_train_sdxl(smi):
+    """The trainer's main path: ``SDLoRATrainer.train()`` on the full-width
+    SDXL model at 1024², batch 2, rank 16 on the UNet's attention
+    projections and both towers' q/k/v/out_proj (train_text_encoder, the
+    JAX trainer's default), Min-SNR 5, constant LR, 4 steps, a checkpoint
+    every 2, a 4-step validation render each epoch; then the saved file
+    served through ``load_loras`` in one 1024² request.  Exact launches
+    per step, per render and for the request."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.lora.formats import load_lora_file
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_sdxl_")
+    model = random_full_model("sdxl", device="cuda", seed=7)
+    data = write_image_folder(os.path.join(root, "data"), 2 * TRAIN_SDXL_BATCH, SDXL_RES,
+                              seed=3, caption=TRAIN_PROMPT)
+    args = SDTrainingArgs(
+        train_batch_size=TRAIN_SDXL_BATCH, rank=16, train_text_encoder=True, snr_gamma=5.0,
+        learning_rate=1e-4, lr_scheduler="constant", lr_warmup_steps=0,
+        max_train_steps=TRAIN_SDXL_STEPS, log_every=1, checkpointing_steps=2,
+        validation_prompt=TRAIN_PROMPT, num_validation_images=1, validation_inference_steps=4,
+        report_to=None, resolution=SDXL_RES, output_dir=os.path.join(root, "out"))
+    n_tf = _n_tf(model.unet)
+    l1 = model.text_encoder_config.num_hidden_layers
+    l2 = model.text_encoder_2_config.num_hidden_layers
+    # every attention under grad writes its lse; SDXL reads CLIP-L's
+    # penultimate states, so its last layer's attention gets no backward
+    want = {"flash_fwd": {"with_lse": 2 * n_tf + l1 + l2, "causal_no_lse": 0, "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": 2 * n_tf + l1 - 1 + l2,
+            "flash_bwd_dkv": 2 * n_tf + l1 - 1 + l2}
+    counters = _train_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with _TrainProbe() as probe:
+        trainer = SDLoRATrainer(model, args, data)
+        lora = trainer.train()
+    train_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    _check_steps("train_sdxl_step", probe, want)
+    want_render = _want(model, args.validation_inference_steps, 1)
+    for v in probe.validations:
+        got = {n: v[n][0] for n in want_render}
+        print(json.dumps({"train_sdxl_validation_launches": got, "expected": want_render}),
+              flush=True)
+        if got != want_render or v["flash_bwd_dq"][0] or v["flash_bwd_dkv"][0]:
+            raise AssertionError(f"validation render launches {got} != {want_render}")
+    if len(probe.validations) != TRAIN_SDXL_STEPS // 2:
+        raise AssertionError(f"{len(probe.validations)} validation renders, not 2")
+    if sorted(os.listdir(args.output_dir)) != ["checkpoint-2", "checkpoint-4",
+                                                 "pytorch_lora_weights.safetensors"]:
+        raise AssertionError(f"output dir holds {sorted(os.listdir(args.output_dir))}")
+
+    # every factor moved but the four `up`s of CLIP-L's last layer, which
+    # SDXL never reads (zero gradient, zero start, decay of zero)
+    path = os.path.join(args.output_dir, "pytorch_lora_weights.safetensors")
+    saved = load_lora_file(path, model.lora_module_paths())
+    last = f"text_model.encoder.layers.{l1 - 1}.self_attn."
+    exempt = sorted(f"text_encoder.{last}{p}.up" for p in ("q_proj", "k_proj", "v_proj",
+                                                               "out_proj"))
+    still = sorted(f"{c}.{p}.{k}" for c, tree in saved.items() for p, f in tree.items()
+                   for k in ("down", "up")
+                   if torch.equal(f[k], probe.initial[c][p][k].cpu()))
+    for c, tree in lora.items():
+        for p, f in tree.items():
+            for k in ("down", "up"):
+                if not torch.equal(saved[c][p][k], f[k].cpu()):
+                    raise AssertionError(f"saved {c}.{p}.{k} differs from the trainer's")
+    print(json.dumps({"train_sdxl_unmoved_factors": still, "exempt": exempt}), flush=True)
+    if still != exempt:
+        raise AssertionError(f"unmoved factors {still} != the exempt {exempt}")
+
+    walls = [s["wall_s"] for s in probe.steps[1:]]
+    summary = {
+        "train_sdxl": "SDLoRATrainer SDXL 1024x1024, LoRA r16 on the UNet's to_q/k/v/out.0 "
+                      "and both towers' q/k/v/out_proj, Min-SNR 5, AdamW constant 1e-4, bf16 "
+                      "UNet, fp32 towers and VAE encode, no remat",
+        "card": smi, "batch": TRAIN_SDXL_BATCH, "remat_policy": "none",
+        "step_wall_s": [s["wall_s"] for s in probe.steps],
+        "timed_steps_images_per_s": TRAIN_SDXL_BATCH * len(walls) / sum(walls),
+        "train_call_s": train_s, "peak_memory_gib": peak,
+        "launches_per_step": want, "launches_total": totals,
+        "lora_params": {c: sum(t.numel() for f in tree.values() for t in f.values())
+                        for c, tree in lora.items()},
+    }
+    print(json.dumps(summary), flush=True)
+    step, *call = probe.last_call
+    _profile(f"one SDXL train step, 1024x1024, batch {TRAIN_SDXL_BATCH}, text-encoder LoRA",
+             lambda: step(*call)[2]["loss"].item())
+    del call, probe
+
+    # the trained file served as a request's LoRA is: `load_loras` reads
+    # {lora_dir}/{model_type}_{name}.safetensors and fuses it
+    lora_dir = os.path.join(root, "loras")
+    os.makedirs(lora_dir)
+    shutil.copy(path, os.path.join(lora_dir, "sdxl_trained.safetensors"))
+    model.load_loras({"trained": 1.0}, lora_dir=lora_dir)
+    for c in counters.values():
+        c.reset()
+    pipe = StableDiffusionUnifiedPipeline(device="cuda")
+    t = time.perf_counter()
+    out = pipe(model, prompt=TRAIN_PROMPT, seed=0, height=SDXL_RES, width=SDXL_RES,
+               num_inference_steps=SDXL_STEPS, guidance_scale=7.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = {n: counters[n].count for n in ("flash_fwd", "flash_stream")}
+    want_req = _want(model, SDXL_STEPS, 1)
+    im = out.images
+    print(json.dumps({"train_sdxl_served": "the trained LoRA file, one 1024x1024 request",
+                      "wall_s": wall, "launches": got, "expected_launches": want_req,
+                      "shape": list(im.shape), "mean": float(im.mean())}), flush=True)
+    if got != want_req or not np.isfinite(im).all() or im.shape != (1, SDXL_RES, SDXL_RES, 3):
+        raise AssertionError(f"serving the trained LoRA: launches {got}, shape {im.shape}")
+    model.delete_adapters()
+    del model, pipe, trainer, lora, saved
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, summary
+
+
+def phase_train_kernels_at(by_shape, path, checked):
+    """Phase 8 for `path`: each forward at every shape and dtype it
+    launched (phase 3's rule and times; under grad the launch also writes
+    the lse, which ``bwd_case`` times), and both backward kernels at every
+    shape and dtype it launched (``bwd_case``: the rule, the forward's lse,
+    plain and SDPA times, the bounds), skipping the (kernel, shape, Skv,
+    causal, dtype) in `checked`, to which it adds its own."""
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import attention_plain, flash_fwd
+    from stablediffusion_tpu_torch.ops.flash_attention import flash_stream, flash_stream_plain
+
+    fns = {"flash_fwd": (flash_fwd, attention_plain),
+           "flash_stream": (flash_stream, flash_stream_plain)}
+    rows = []
+    for name, fn in fns.items():
+        launched = {}  # with and without the lse: one case
+        for (qs, skv, dname, causal, _lse), n in by_shape[name].items():
+            launched[(qs, skv, dname, causal)] = launched.get((qs, skv, dname, causal), 0) + n
+        for (qs, skv, dname, causal), n in sorted(launched.items()):
+            if (name, *qs, skv, causal, dname) in checked:
+                continue
+            checked.add((name, *qs, skv, causal, dname))
+            row = kernel_case(name, *fn, *qs, skv, getattr(torch, dname), causal, n, 0)
+            rows.append(dict(row, path=path))
+    for (qs, skv, dname, causal, _lse), n in sorted(by_shape["flash_bwd_dkv"].items()):
+        if ("flash_bwd_dkv", *qs, skv, causal, dname) in checked:
+            continue
+        checked.update(((k, *qs, skv, causal, dname) for k in ("flash_bwd_dkv", "flash_bwd_dq")))
+        rows += [dict(r, path=path) for r in
+                 bwd_case(*qs, skv, causal, getattr(torch, dname), n, False)]
+    print(json.dumps({"path_kernel_rows": path, "columns": [
+        "kernel", "shape", "skv", "dtype", "causal", "launches", "kernel_ms", "fwd_lse_ms",
+        "bound_ms", "plain_ms", "library_ms", "worst_over_limit"],
+        "rows": [[r["kernel"], r["shape"], r["skv"], r["dtype"], r["causal"], r["launches"],
+                  r["kernel_ms"], r.get("fwd_lse_ms"), r["bound_ms"], r["plain_ms"],
+                  r["library_ms"], r["worst_over_limit"]] for r in rows]}), flush=True)
+    return rows
+
+
+def phase_train_variants(smi):
+    """The SD1.5 trainer at 512², batch 2, rank 16 on the UNet, with the
+    8-bit Adam, two-step bf16 accumulation, cache_latents and a kohya file:
+    4 steps straight, against 2 steps and a resume from checkpoint-2 for 2
+    more.  Exact launches per data step (the separate encode: CLIP
+    without lse and flash_stream; the step: the UNet with lse and both
+    backward kernels); the resumed factors within RESUME_TOL of the straight
+    run's; the kohya file equal to the trainer's factors."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stablediffusion_tpu_torch.lora.formats import load_lora_file
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_variants_")
+    model = random_full_model("sd15", device="cuda", seed=8)
+    model.vae.float()  # as load_sd_model holds it
+    data = write_image_folder(os.path.join(root, "data"), 4, 512, seed=4, caption=TRAIN_PROMPT)
+    n_tf = _n_tf(model.unet)
+    l1 = model.text_encoder_config.num_hidden_layers
+    want = {"flash_fwd": {"with_lse": 2 * n_tf, "causal_no_lse": l1, "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": 2 * n_tf, "flash_bwd_dkv": 2 * n_tf}
+
+    def run(out, steps, **kw):
+        args = SDTrainingArgs(
+            train_batch_size=2, rank=16, train_text_encoder=False, snr_gamma=5.0,
+            learning_rate=1e-4, lr_scheduler="constant", lr_warmup_steps=0, max_train_steps=steps,
+            use_8bit_adam=True, gradient_accumulation_steps=2, accum_dtype="bf16",
+            cache_latents=True, checkpointing_steps=2, lora_format="kohya", log_every=1,
+            report_to=None, resolution=512, output_dir=os.path.join(root, out), **kw)
+        with _TrainProbe() as probe:
+            trainer = SDLoRATrainer(model, args, data)
+            lora = trainer.train()
+        _check_steps(f"train_variants_{out}_step", probe, want)
+        return trainer, lora, probe
+
+    counters = _train_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, straight, probe = run("straight", 4)
+    straight_s = time.perf_counter() - t
+    run("resumed", 2)
+    trainer, resumed, _ = run("resumed", 4, resume_from_checkpoint="latest")
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    if [s for s, _ in trainer.history] != [3, 4]:
+        raise AssertionError(f"resumed history {trainer.history}")
+    worst, exact = 0.0, True
+    for p, f in straight["unet"].items():
+        for k in ("down", "up"):
+            a, b = resumed["unet"][p][k], f[k]
+            exact &= torch.equal(a, b)
+            worst = max(worst, ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item())
+    saved = load_lora_file(os.path.join(root, "straight", "pytorch_lora_weights.safetensors"),
+                           model.lora_module_paths())["unet"]
+    file_equal = all(torch.equal(saved[p][k], f[k].cpu())
+                     for p, f in straight["unet"].items() for k in ("down", "up"))
+    row = {"train_variants": "SD1.5 512x512 trainer, 8-bit Adam, accumulation 2 in bf16, "
+                             "cache_latents, kohya file; straight 4 against 2 + resume 2",
+           "card": smi, "straight_call_s": straight_s,
+           "step_wall_s": [s["wall_s"] for s in probe.steps],
+           "encode_s": [s["encode_s"] for s in probe.steps],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resumed_equal_bitwise": exact, "resumed_worst_rel_err": worst,
+           "tol": RESUME_TOL, "kohya_file_equal": file_equal, "launches_total": totals}
+    print(json.dumps(row), flush=True)
+    if not worst <= RESUME_TOL:
+        raise AssertionError(f"resumed run {worst} from the straight run")
+    if not file_equal:
+        raise AssertionError("the kohya file differs from the trainer's factors")
+    del model, straight, resumed, trainer
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, row
 
 
 # -- the serving slice ---------------------------------------------------------
@@ -2048,9 +2462,20 @@ def main() -> int:
     phase_train_reference()
     torch.cuda.empty_cache()
 
+    # the trainer slice: SDXL 1024² with text-encoder LoRA, then the SD1.5
+    # variants; their kernels at every shape no earlier phase held
+    held = {(r["kernel"], *r["shape"], r["skv"], r["causal"], r["dtype"]) for r in rows}
+    train_sdxl_launches, train_sdxl_by_shape, _ = phase_train_sdxl(smi)
+    rows += phase_train_kernels_at(train_sdxl_by_shape, "train_sdxl", held)
+    variants_launches, variants_by_shape, _ = phase_train_variants(smi)
+    rows += phase_train_kernels_at(variants_by_shape, "train_variants", held)
+    torch.cuda.empty_cache()
+
     serve_launches, serve_by_shape = phase_serve(smi)
     torch.cuda.empty_cache()
-    checked = {(r["kernel"], *r["shape"], r["skv"], r["causal"]) for r in rows}
+    # the inference paths hold their own shapes, the trainer's apart
+    checked = {(r["kernel"], *r["shape"], r["skv"], r["causal"]) for r in rows
+               if r.get("path") not in ("train_sdxl", "train_variants")}
     rows += phase_new_shapes(serve_by_shape, checked, "serve")
     phase_inpaint_reference()
     torch.cuda.empty_cache()
@@ -2077,6 +2502,12 @@ def main() -> int:
         "flash_fwd": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
         "flash_stream": dict(shape=[1, 16384, 1, 512], skv=16384, dtype="float32"),
     }
+    train_sdxl_case = {
+        "flash_fwd": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
+        "flash_stream": dict(shape=[2, 16384, 1, 512], skv=16384, dtype="float32"),
+        "flash_bwd_dkv": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
+        "flash_bwd_dq": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
+    }
     lib_flash = "stablediffusion_tpu/ops/attention.py:165"
     meta = {
         "flash_fwd": ("stablediffusion_tpu_torch/csrc/flash_fwd.cu", lib_flash),
@@ -2099,6 +2530,8 @@ def main() -> int:
         mine = [r for r in rows if r["kernel"] == name]
         by_path = {"txt2img": launches.get(name, 0), "serve": serve_launches.get(name, 0),
                    "train": train_launches[name],
+                   "train_sdxl": train_sdxl_launches[name],
+                   "train_variants": variants_launches[name],
                    **{p: n.get(name, 0) for p, n in sdxl_launches.items()},
                    "single_file_constructor": single_launches.get(name, 0)}
         sdxl = None
@@ -2108,6 +2541,13 @@ def main() -> int:
             sdxl = {k: r[k] for k in ("shape", "skv", "dtype", "launches", "max_abs_err",
                                       "worst_over_limit", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
+        # the SDXL trainer's heaviest shape (D=64 over 4096 tokens; the
+        # stream: the batch-2 1024² encode)
+        tr = next(r for r in rows if r["kernel"] == name and r.get("path") == "train_sdxl"
+                  and all(r[k] == v for k, v in train_sdxl_case[name].items()))
+        train_sdxl = {k: tr[k] for k in ("shape", "skv", "dtype", "launches", "max_abs_err",
+                                         "worst_over_limit", "kernel_ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -2123,6 +2563,7 @@ def main() -> int:
             "cases": len(mine),
             "worst_over_limit": max(r["worst_over_limit"] for r in mine),
             "sdxl_case": sdxl,
+            "train_sdxl_case": train_sdxl,
         })
     print(f"chip_smoke total command time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

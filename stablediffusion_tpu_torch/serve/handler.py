@@ -2,9 +2,10 @@
 
 Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * request schema {id, input: {mode?, model?, params?, prompt...}};
-  * the "inference" and "constructor" modes (the latter a grid over
-    schedulers x lora_scales x steps_grid x guidance_grid, which restores
-    the adapters' own scales after);
+  * the "inference", "constructor" and "train" modes (the second a grid
+    over schedulers x lora_scales x steps_grid x guidance_grid, which
+    restores the adapters' own scales after; the third trains a LoRA on the
+    loaded model through ``train/trainer.SDLoRATrainer``);
   * an optional model block {type, name, scheduler, prediction_type, loras,
     textual_inversion}:
     - ``name`` hot-reloads the model from the diffusers folder
@@ -26,9 +27,10 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * every failure answers on the error channel ({"error", "traceback"}).
 
 Not ported here; each answers on the error channel and names its ROADMAP §1
-item: the "train" (item 19) and "inference_wandb" (item 21) modes, the
-model block's "quantize" (item 16), SD3 (item 18) and a serving mesh (item
-20).  The model has no ``load_ip_adapter``, so that key answers "not
+item: the "inference_wandb" mode (item 21), the model block's "quantize"
+(item 16), SD3 (item 18) and a serving mesh (item 20); in the "train" mode,
+the trainer's options that ``train/trainer.check_args`` refuses (items 19
+and 20).  The model has no ``load_ip_adapter``, so that key answers "not
 supported", as it does for JAX model types without it.
 """
 
@@ -215,7 +217,7 @@ class Handler:
             if "model" in request_input and request_input["model"]:
                 self.maybe_reload_model(request_input["model"])
                 self.model_generation += 1
-            if mode == "constructor":  # switches schedulers and adapter scales
+            if mode in ("constructor", "train"):  # scales, adapters or weights move
                 self.model_generation += 1
             if self.model is None:
                 raise ValueError("no model loaded")
@@ -231,6 +233,8 @@ class Handler:
                 return self.inference_mode(args, t0, request_id=request_id)
             if mode == "constructor":
                 return self.constructor_mode(args, t0)
+            if mode == "train":
+                return self.train_mode(request_input)
             if mode in _LATER_MODES:
                 raise _later(f"mode {mode!r}", _LATER_MODES[mode])
             raise ValueError(f"unknown mode {mode!r}")
@@ -311,6 +315,23 @@ class Handler:
             self.model.set_adapters(base_adapters)
         return {"grid": results, "time_sec": round(time.time() - t0, 3)}
 
+    def train_mode(self, request_input: Dict[str, Any]) -> Dict:
+        """In-process LoRA training (``handler.py:510-530``): the request's
+        "train" block holds ``data_dir`` and any ``SDTrainingArgs`` fields;
+        the answer holds the logged (step, loss) pairs and the saved LoRA
+        file's path."""
+        from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+
+        cfg = dict(request_input.get("train") or {})
+        data_dir = cfg.pop("data_dir", None)
+        if not data_dir:
+            raise ValueError("train mode requires train.data_dir")
+        args = SDTrainingArgs(**cfg)
+        trainer = SDLoRATrainer(self.model, args, data_dir)
+        trainer.train()
+        return {"history": trainer.history,
+                "lora_path": f"{args.output_dir}/pytorch_lora_weights.safetensors"}
+
 
 # the JAX handler's other modes -> the ROADMAP §1 item that brings them
-_LATER_MODES = {"train": 19, "inference_wandb": 21}
+_LATER_MODES = {"inference_wandb": 21}

@@ -1,27 +1,40 @@
 """LR schedules and the optimizer of the LoRA train step.
 
-Port of the fp32 subset of ``stablediffusion_tpu/train/optim.py``:
-``make_lr_schedule`` with the six diffusers schedule names, evaluated at the
-same 0-based update count as optax, and ``make_optimizer``'s chain of
-``optax.clip_by_global_norm`` and ``optax.adamw`` with weight decay masked to
-leaves of two or more dims (``optim.py:131-172``).  Clipping uses optax's
-rule, g * max / ||g|| only when ||g|| >= max (``torch.nn.utils
-.clip_grad_norm_`` adds 1e-6 to the norm and is not the same).
+Port of ``stablediffusion_tpu/train/optim.py``: ``make_lr_schedule`` with
+the six diffusers schedule names, evaluated at the same 0-based update count
+as optax, and ``make_optimizer``'s chain of ``optax.clip_by_global_norm``
+and ``optax.adamw`` with weight decay masked to leaves of two or more dims
+(``optim.py:131-172``).  Clipping uses optax's rule, g * max / ||g|| only
+when ||g|| >= max (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm
+and is not the same).
+
+``use_8bit`` stores the Adam moments as the JAX package's blockwise 8-bit
+codes (``scale_by_adam_8bit``, :179-290): leaves of at least
+``MIN_QUANT_SIZE`` elements keep an int8 sqrt-companded first moment and a
+uint8 sqrt-companded second moment against a per-``BLOCK_SIZE`` absmax
+scale; smaller leaves keep fp32 moments.  The recurrences are written in
+the JAX version's order of operations, so that the same gradients give the
+same codes.
+
+``grad_accum_steps > 1`` wraps the chain in gradient accumulation:
+``optax.MultiSteps`` (``accum_dtype`` "fp32"), whose fp32 accumulator is
+Welford's running mean acc + (g - acc) / (n + 1), or ``multi_steps_lowmem``
+("bf16", :62-128), a bf16 running sum whose fp32 mean is taken every k-th
+call.  On the other calls nothing moves: not the params, not the inner
+chain's count.
 
 The optimizer is functional in its interface, as optax is: ``init(params)``
 gives a state, ``update(grads, state, params)`` gives (params, state).
 Params are nested dicts of tensors (a LoRA tree).  To keep one copy of each
 tensor, ``update`` writes the new params and moments in place and returns
-the same dicts.
-
-The blockwise 8-bit Adam (``use_8bit``) and gradient accumulation
-(``grad_accum_steps > 1``) come with the trainer slice and raise here.
+the same dicts.  A state is a dict of tensors, ``QuantizedMoment``s and
+ints (``count``, ``mini_step``), which ``train/checkpoint.py`` stores.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -105,25 +118,99 @@ def tree_leaves(tree: Mapping) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
+def unflatten(like: Mapping, values) -> Dict:
+    """`values` (in ``tree_leaves`` order) in the nested-dict shape of `like`."""
+    it = iter(values)
+
+    def build(node):
+        return {k: build(v) if isinstance(v, Mapping) else next(it) for k, v in node.items()}
+
+    return build(like)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm), fp32."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+# -- blockwise 8-bit moments (optim.py:179-290) ------------------------------
+
+BLOCK_SIZE = 256
+MIN_QUANT_SIZE = 4096  # bitsandbytes min_8bit_size: smaller leaves stay fp32
+
+
+class QuantizedMoment(NamedTuple):
+    """One moment as 8-bit codes over the flattened, zero-padded leaf, [n
+    blocks, BLOCK_SIZE] (int8 for the first moment, uint8 for the second),
+    and each block's absmax, fp32 [n blocks]."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _blocked(x: torch.Tensor) -> torch.Tensor:
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % BLOCK_SIZE
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, BLOCK_SIZE)
+
+
+def quantize_m(x: torch.Tensor) -> QuantizedMoment:
+    """Signed codes round(sqrt(|x| / absmax) * 127) * sign(x)."""
+    xb = _blocked(x.float())
+    scale = xb.abs().amax(dim=1)
+    frac = xb.abs() / scale.clamp_min(1e-30)[:, None]
+    q = torch.sign(xb) * torch.round(torch.sqrt(frac) * 127.0)
+    return QuantizedMoment(q.to(torch.int8), scale)
+
+
+def quantize_v(x: torch.Tensor) -> QuantizedMoment:
+    """Unsigned codes round(sqrt(x / max) * 255) of a non-negative moment."""
+    xb = _blocked(x.float())
+    scale = xb.amax(dim=1)
+    q = torch.round(torch.sqrt(xb / scale.clamp_min(1e-30)[:, None]) * 255.0)
+    return QuantizedMoment(q.to(torch.uint8), scale)
+
+
+def dequantize(mom: QuantizedMoment, like: torch.Tensor) -> torch.Tensor:
+    """The fp32 moment of `like`'s shape that `mom` codes."""
+    if mom.q.dtype == torch.int8:
+        frac = mom.q.float() / 127.0
+        vals = torch.sign(frac) * frac * frac * mom.scale[:, None]
+    else:
+        frac = mom.q.float() / 255.0
+        vals = frac * frac * mom.scale[:, None]
+    return vals.reshape(-1)[: like.numel()].reshape(like.shape)
+
+
+Moment = Union[torch.Tensor, QuantizedMoment]
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(max_grad_norm), adamw(...)) with the
-    decay masked to leaves of ndim >= 2."""
+    decay masked to leaves of ndim >= 2; with `use_8bit`, the chain of
+    ``scale_by_adam_8bit``, the masked ``add_decayed_weights`` and
+    ``scale_by_learning_rate`` (``make_optimizer``, :143-149)."""
 
     def __init__(self, lr_schedule: Schedule, b1: float, b2: float, eps: float,
-                 weight_decay: float, max_grad_norm: Optional[float]):
+                 weight_decay: float, max_grad_norm: Optional[float],
+                 use_8bit: bool = False):
         self.lr_schedule = lr_schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.use_8bit = use_8bit
+
+    def _zero_moment(self, t: torch.Tensor, quantize) -> Moment:
+        z = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        return quantize(z) if self.use_8bit and t.numel() >= MIN_QUANT_SIZE else z
 
     def init(self, params: Mapping) -> Dict:
-        zeros = lambda: {p: torch.zeros_like(t) for p, t in tree_leaves(params)}  # noqa: E731
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
+        leaves = tree_leaves(params)
+        return {"count": 0,
+                "mu": {p: self._zero_moment(t, quantize_m) for p, t in leaves},
+                "nu": {p: self._zero_moment(t, quantize_v) for p, t in leaves}}
 
     @torch.no_grad()
     def update(self, grads: Mapping, state: Dict, params: Mapping) -> Tuple[Mapping, Dict]:
@@ -141,14 +228,71 @@ class AdamW:
         bc1 = 1.0 - self.b1 ** count
         bc2 = 1.0 - self.b2 ** count
         for (path, p), gi in zip(named, g):
-            mu, nu = state["mu"][path], state["nu"][path]
-            mu.mul_(self.b1).add_(gi, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(gi, gi, value=1.0 - self.b2)
-            u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
+            if self.use_8bit:
+                u = self._moments_8bit(state, path, gi, bc1, bc2)
+            else:
+                mu, nu = state["mu"][path], state["nu"][path]
+                mu.mul_(self.b1).add_(gi, alpha=1.0 - self.b1)
+                nu.mul_(self.b2).addcmul_(gi, gi, value=1.0 - self.b2)
+                u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps)
             if p.dim() >= 2:
                 u = u + self.weight_decay * p
             p.sub_(lr * u)
         state["count"] = count
+        return params, state
+
+    def _moments_8bit(self, state: Dict, path: str, g: torch.Tensor,
+                      bc1: float, bc2: float) -> torch.Tensor:
+        """Advance one leaf's moments in fp32 in scale_by_adam_8bit's order
+        of operations (:263-268), store them back (requantized where they
+        were codes), and return the Adam direction."""
+        m_s, v_s = state["mu"][path], state["nu"][path]
+        quantized = isinstance(m_s, QuantizedMoment)
+        m = dequantize(m_s, g) if quantized else m_s
+        v = dequantize(v_s, g) if quantized else v_s
+        m = self.b1 * m + (1.0 - self.b1) * g
+        v = self.b2 * v + (1.0 - self.b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+        state["mu"][path] = quantize_m(m) if quantized else m
+        state["nu"][path] = quantize_v(v) if quantized else v
+        return u
+
+
+class MultiSteps:
+    """Gradient accumulation around an inner optimizer: the inner update
+    runs on every `every_k`-th call with the mean of the last `every_k`
+    gradients; the other calls only accumulate.  ``acc_dtype`` fp32 is
+    ``optax.MultiSteps`` (Welford's running mean), bf16 is
+    ``multi_steps_lowmem`` (a bf16 running sum, divided by k in fp32)."""
+
+    def __init__(self, inner: AdamW, every_k: int, acc_dtype: torch.dtype = torch.float32):
+        self.inner, self.every_k, self.acc_dtype = inner, every_k, acc_dtype
+
+    def init(self, params: Mapping) -> Dict:
+        return {"mini_step": 0,
+                "acc": {p: torch.zeros(t.shape, dtype=self.acc_dtype, device=t.device)
+                        for p, t in tree_leaves(params)},
+                "inner": self.inner.init(params)}
+
+    @torch.no_grad()
+    def update(self, grads: Mapping, state: Dict, params: Mapping) -> Tuple[Mapping, Dict]:
+        n = state["mini_step"]
+        acc = state["acc"]
+        for path, g in tree_leaves(grads):
+            if self.acc_dtype == torch.float32:
+                acc[path] = acc[path] + (g.float() - acc[path]) / (n + 1)
+            else:
+                acc[path] = acc[path] + g.to(self.acc_dtype)
+        if n == self.every_k - 1:
+            if self.acc_dtype == torch.float32:
+                mean = dict(acc)
+            else:
+                mean = {p: a.float() / self.every_k for p, a in acc.items()}
+            mean_tree = unflatten(params, [mean[p] for p, _ in tree_leaves(params)])
+            params, state["inner"] = self.inner.update(mean_tree, state["inner"], params)
+            for a in acc.values():
+                a.zero_()
+        state["mini_step"] = (n + 1) % self.every_k
         return params, state
 
 
@@ -161,16 +305,14 @@ def make_optimizer(
     max_grad_norm: Optional[float] = 1.0,
     grad_accum_steps: int = 1,
     use_8bit: bool = False,
-) -> AdamW:
-    if use_8bit:
-        raise NotImplementedError(
-            "use_8bit: the blockwise 8-bit Adam comes with the trainer slice "
-            "of the port (ROADMAP §1 item 19)"
-        )
+    accum_dtype: Optional[str] = None,
+) -> Union[AdamW, MultiSteps]:
+    """The optimizer of ``make_optimizer`` (:131-168): `accum_dtype` None or
+    "fp32" accumulates as optax.MultiSteps, "bf16"/"bfloat16" as
+    multi_steps_lowmem."""
+    opt = AdamW(lr_schedule, adam_beta1, adam_beta2, adam_eps, weight_decay,
+                max_grad_norm, use_8bit=use_8bit)
     if grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1: gradient accumulation comes with the "
-            "trainer slice of the port (ROADMAP §1 item 19)"
-        )
-    return AdamW(lr_schedule, adam_beta1, adam_beta2, adam_eps, weight_decay,
-                 max_grad_norm)
+        low = accum_dtype in ("bf16", "bfloat16")
+        return MultiSteps(opt, grad_accum_steps, torch.bfloat16 if low else torch.float32)
+    return opt

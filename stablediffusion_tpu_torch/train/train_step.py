@@ -1,40 +1,48 @@
-"""The SD1.5 LoRA train step.
+"""The LoRA train step, SD1.5 and SDXL, with text-encoder LoRA.
 
-Port of the SD1.5 LoRA path of ``stablediffusion_tpu/train/train_step.py``
+Port of the LoRA path of ``stablediffusion_tpu/train/train_step.py``
 (``compute_snr``, ``min_snr_weight``, ``TrainStatics``,
-``encode_prompt_train``, ``_prepare_diffusion``, ``_prediction_loss``,
-``loss_fn``, ``make_train_step``): VAE encode -> noise and random timesteps
--> add_noise -> text encode -> UNet forward with LoRA-fused weights ->
-epsilon or velocity MSE with optional Min-SNR weighting -> gradients to the
-LoRA factors -> clip + AdamW.
+``encode_prompt_train``, ``_resolve_remat``, ``_prepare_diffusion``,
+``make_encode_fn``, ``_prediction_loss``, ``loss_fn``, ``make_train_step``):
+VAE encode -> noise and random timesteps -> add_noise -> text encode (SDXL:
+both towers' penultimate states and bigG's projected pooled) -> SDXL
+micro-conditioning -> UNet forward with LoRA-fused weights -> epsilon or
+velocity MSE with optional Min-SNR weighting -> gradients to the LoRA
+factors -> the optimizer of ``train/optim.py``.
 
 Where the JAX step is one jitted function, this one runs eagerly:
 
-  * The VAE encode and the text encode run under ``torch.no_grad()``; the
-    VAE's mid-block attention therefore takes the forward-only
-    flash_stream kernel on the card.
-  * The UNet runs through ``torch.func.functional_call`` with the fused
-    weights of ``lora/core.apply_lora_for_training``, in the compute dtype
-    (bf16 on the card); the loss is fp32.  Its attention differentiates
-    through the backward kernels (``ops/attention.FlashAttnFn``).
+  * The VAE encode runs under ``torch.no_grad()``, so the VAE's mid-block
+    attention takes the forward-only flash_stream kernel on the card.  The
+    text encode does too, unless ``train_text_encoder``: then each tower
+    with a LoRA runs through ``torch.func.functional_call`` with its fused
+    weights, under grad, and its causal attention differentiates through
+    the backward kernels (``ops/attention.FlashAttnFn``, fp32).
+  * The UNet runs through ``functional_call`` with the fused weights of
+    ``lora/core.apply_lora_for_training``, in the compute dtype (bf16 on
+    the card); the loss is fp32.
+  * A factor that no path of the loss reaches gets a zero gradient, as
+    ``jax.grad`` gives it: SDXL reads CLIP-L's penultimate states only, so
+    the last CLIP-L layer's factors never move, and its attention's
+    backward never runs.
   * The random draws (the latent epsilon, the noise, the timesteps, the
     offset noise) come from a ``torch.Generator``, or are injected through
     ``draws=``: ``jax.random`` cannot be reproduced in torch, so the parity
     tests hand both sides the same numbers.
-  * ``remat_policy`` "full" wraps the UNet forward in
-    ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``).
+  * Remat "full" (``remat_policy="full"``, or JAX's legacy
+    ``gradient_checkpointing`` flag with ``remat_policy=""``) wraps the
+    UNet forward in ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``).
 
 Layouts: the batch keeps the JAX package's public NHWC (``pixel_values``
 [B, H, W, 3] in [-1, 1], ``latents`` [B, h, w, 4]); the draws are NCHW, the
-layout the step computes in.  SDXL, text-encoder training, textual
-inversion, ControlNet and the "dots" / "offload" remat policies belong to
-later slices and raise.
+layout the step computes in.  Textual-inversion training, ControlNet and
+the "dots" / "offload" remat policies raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 from torch.func import functional_call
@@ -49,9 +57,19 @@ from stablediffusion_tpu_torch.core.config import (
 from stablediffusion_tpu_torch.lora.core import apply_lora_for_training
 from stablediffusion_tpu_torch.models.vae import sample_latent
 from stablediffusion_tpu_torch.schedulers.common import BaseScheduler
-from stablediffusion_tpu_torch.train.optim import AdamW, global_norm, tree_leaves
+from stablediffusion_tpu_torch.train.optim import global_norm, tree_leaves, unflatten
 
-_LATER = "the trainer slice of the port (ROADMAP §1 item 19)"
+# what the port does not train yet -> the ROADMAP §1 item that brings it
+_LATER = {
+    "textual-inversion training": "item 19",
+    "ControlNet training": "item 19 (after item 15's ControlNet model)",
+    "remat_policy 'dots'": "item 19",
+    "remat_policy 'offload'": "item 19",
+}
+
+
+def later(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP §1 {_LATER[what]}")
 
 
 def compute_snr(alphas_cumprod, timesteps: torch.Tensor) -> torch.Tensor:
@@ -70,13 +88,9 @@ def min_snr_weight(snr: torch.Tensor, gamma: float, prediction_type: str) -> tor
 
 @dataclass(frozen=True)
 class TrainStatics:
-    """Static settings of the step, with the JAX package's field names.  The
-    SD1.5 LoRA path reads the configs, ``snr_gamma``, ``noise_offset``,
-    ``compute_dtype``, ``vae_microbatch``, ``remat_policy`` and
-    ``prior_loss_weight``; the other fields must keep their defaults (their
-    paths raise).  JAX's legacy ``gradient_checkpointing`` flag is
-    ``remat_policy="full"`` here, and the VAE encodes in its own parameters'
-    dtype (JAX's ``vae_dtype``)."""
+    """Static settings of the step, with the JAX package's field names and
+    defaults.  ``controlnet_config`` and ``ti_rows`` / ``ti_rows_2`` must
+    keep theirs (their paths raise)."""
 
     unet_config: UNetConfig
     vae_config: VAEConfig
@@ -87,10 +101,16 @@ class TrainStatics:
     snr_gamma: Optional[float]
     noise_offset: float = 0.0
     compute_dtype: torch.dtype = torch.bfloat16
+    # legacy flag: remat_policy "" means "full" when set, else "none"
+    gradient_checkpointing: bool = False
+    # the VAE encodes in this dtype (a VAE held in another one is cast for
+    # the call)
+    vae_dtype: torch.dtype = torch.float32
     # encode pixels through the VAE in chunks of this many images (0: all)
     vae_microbatch: int = 0
-    # "none" | "full" (torch.utils.checkpoint around the UNet forward)
-    remat_policy: str = "none"
+    # "" (the legacy flag decides) | "none" | "full" (torch.utils.checkpoint
+    # around the UNet forward)
+    remat_policy: str = ""
     controlnet_config: Optional[UNetConfig] = None
     ti_rows: Optional[tuple] = None
     ti_rows_2: Optional[tuple] = None
@@ -103,33 +123,78 @@ class TrainStatics:
 
 
 def check_supported(statics: TrainStatics) -> None:
-    """Raise on settings whose path this slice does not port."""
-    if statics.is_sdxl:
-        raise NotImplementedError(f"SDXL training comes with {_LATER}, after SDXL inference")
-    if statics.train_text_encoder:
-        raise NotImplementedError(f"train_text_encoder (text-encoder LoRA) comes with {_LATER}")
+    """Raise on settings whose path the port does not have."""
     if statics.ti_rows is not None or statics.ti_rows_2 is not None:
-        raise NotImplementedError(f"textual-inversion training comes with {_LATER}")
+        raise later("textual-inversion training")
     if statics.controlnet_config is not None:
-        raise NotImplementedError(f"ControlNet training comes with {_LATER}")
-    _remat_policy(statics)
+        raise later("ControlNet training")
+    _resolve_remat(statics)
 
 
-def _remat_policy(statics: TrainStatics) -> str:
-    policy = statics.remat_policy
+def _resolve_remat(statics: TrainStatics) -> str:
+    """"none" or "full", as ``_resolve_remat`` (:122-141) resolves them."""
+    policy = statics.remat_policy or ("full" if statics.gradient_checkpointing else "none")
     if policy in ("dots", "offload"):
-        raise NotImplementedError(f"remat_policy {policy!r} comes with {_LATER}")
+        raise later(f"remat_policy {policy!r}")
     if policy not in ("none", "full"):
         raise ValueError(f"unknown remat_policy {policy!r}")
     return policy
 
 
+def encode_prompt_train(statics: TrainStatics, text_encoder: Callable,
+                        text_encoder_2: Optional[Callable], input_ids: torch.Tensor,
+                        input_ids_2: Optional[torch.Tensor]):
+    """Train-time prompt encoding: (last_hidden_state, None) for SD1.5; for
+    SDXL both towers' penultimate states concatenated and bigG's projected
+    pooled.  The towers are modules or callables with a module's output
+    (the LoRA-fused ones of :func:`loss_fn`)."""
+    if not statics.is_sdxl:
+        return text_encoder(input_ids).last_hidden_state, None
+    out1 = text_encoder(input_ids)
+    out2 = text_encoder_2(input_ids_2)
+    embeds = torch.cat([out1.hidden_states[-2], out2.hidden_states[-2]], dim=-1)
+    return embeds, out2.projected_pooled
+
+
+class _Encode(torch.nn.Module):
+    """A VAE's encode as a module's forward, for ``functional_call``."""
+
+    def __init__(self, vae):
+        super().__init__()
+        self.vae = vae
+
+    def forward(self, pixels):
+        return self.vae.encode(pixels)
+
+
 @torch.no_grad()
-def encode_prompt_train(statics: TrainStatics, text_encoder, input_ids: torch.Tensor):
-    """Train-time prompt encoding, SD1.5: (last_hidden_state, None)."""
-    if statics.is_sdxl:
-        raise NotImplementedError(f"SDXL prompt encoding comes with {_LATER}")
-    return text_encoder(input_ids).last_hidden_state, None
+def vae_moments(vae, pixels: torch.Tensor, vae_dtype: torch.dtype, microbatch: int = 0):
+    """(mean, logvar), NCHW, of `pixels` (NCHW) encoded with the VAE's
+    weights in `vae_dtype` (cast for the call where the module holds
+    another dtype), in chunks of `microbatch` images when that divides the
+    batch."""
+    pixels = pixels.to(vae_dtype)
+    if next(vae.parameters()).dtype == vae_dtype:
+        encode = vae.encode
+    else:
+        wrapper = _Encode(vae)
+        cast = {f"vae.{n}": p.to(vae_dtype) for n, p in vae.named_parameters()}
+        encode = lambda x: functional_call(wrapper, cast, (x,))  # noqa: E731
+    mb = microbatch
+    chunks = (pixels.split(mb) if mb and pixels.shape[0] > mb and pixels.shape[0] % mb == 0
+              else [pixels])
+    moments = [encode(c) for c in chunks]
+    return torch.cat([m for m, _ in moments]), torch.cat([lv for _, lv in moments])
+
+
+def _draw(draws, generator, device, name, shape, make=None):
+    """draws[name] on `device` when given, else a fresh standard normal of
+    `shape` from `generator` (or `make(shape)`)."""
+    if draws is not None and name in draws:
+        return draws[name].to(device)
+    if make is not None:
+        return make(shape)
+    return torch.randn(shape, generator=generator, device=device)
 
 
 def _prepare_diffusion(
@@ -139,35 +204,27 @@ def _prepare_diffusion(
     statics: TrainStatics,
     scheduler: BaseScheduler,
     draws: Optional[Mapping[str, torch.Tensor]] = None,
+    te: Optional[Callable] = None,
+    te2: Optional[Callable] = None,
 ):
-    """Forward diffusion: (latents, noise, timesteps, noisy, embeds), the
-    latents NCHW fp32.  Draws, in this order, from `generator` unless
-    `draws` holds them (NCHW, on the step's device): "latent_eps" [B, 4, h,
-    w] for the latent sample, "noise" [B, 4, h, w], "timesteps" [B] in
-    [0, T), and, with a noise offset, "offset" [B, 4, 1, 1]."""
+    """Forward diffusion: (latents, noise, timesteps, noisy, embeds,
+    added_cond), the latents NCHW fp32, `added_cond` None unless SDXL.
+    Draws, in this order, from `generator` unless `draws` holds them (NCHW,
+    on the step's device): "latent_eps" [B, 4, h, w] for the latent sample,
+    "noise" [B, 4, h, w], "timesteps" [B] in [0, T), and, with a noise
+    offset, "offset" [B, 4, 1, 1].  `te` / `te2` replace the frozen text
+    towers (the LoRA-fused ones, under grad); without them the text encode
+    runs under no grad."""
     device = next(frozen["unet"].parameters()).device
-
-    def draw(name, shape, make=None):
-        if draws is not None and name in draws:
-            return draws[name].to(device)
-        if make is not None:
-            return make(shape)
-        return torch.randn(shape, generator=generator, device=device)
+    draw = lambda *a, **kw: _draw(draws, generator, device, *a, **kw)  # noqa: E731
 
     # 1. VAE encode, or latents already sampled and scaled
     if "latents" in batch:
         latents = batch["latents"].to(device).float().permute(0, 3, 1, 2)
     else:
-        vae = frozen["vae"]
-        vae_dtype = next(vae.parameters()).dtype
-        pixels = batch["pixel_values"].to(device).permute(0, 3, 1, 2).to(vae_dtype)
-        mb = statics.vae_microbatch
-        chunks = (pixels.split(mb) if mb and pixels.shape[0] > mb
-                  and pixels.shape[0] % mb == 0 else [pixels])
-        with torch.no_grad():
-            moments = [vae.encode(c) for c in chunks]
-        mean = torch.cat([m for m, _ in moments])
-        logvar = torch.cat([lv for _, lv in moments])
+        pixels = batch["pixel_values"].to(device).permute(0, 3, 1, 2)
+        mean, logvar = vae_moments(frozen["vae"], pixels, statics.vae_dtype,
+                                   statics.vae_microbatch)
         eps = draw("latent_eps", mean.shape)
         latents = sample_latent(mean, logvar, eps=eps).float()
         latents = latents * statics.vae_config.scaling_factor
@@ -186,10 +243,58 @@ def _prepare_diffusion(
     # 3. text encode, or embeddings precomputed
     if "prompt_embeds" in batch:
         embeds = batch["prompt_embeds"].to(device)
+        pooled = batch.get("pooled_embeds")
+        pooled = pooled.to(device) if pooled is not None else None
     else:
-        embeds, _ = encode_prompt_train(statics, frozen["text_encoder"],
-                                        batch["input_ids"].to(device))
-    return latents, noise, timesteps, noisy, embeds
+        ids = batch["input_ids"].to(device)
+        ids_2 = batch["input_ids_2"].to(device) if statics.is_sdxl else None
+        towers = (te or frozen["text_encoder"], te2 or frozen.get("text_encoder_2"))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and (te or te2) is not None):
+            embeds, pooled = encode_prompt_train(statics, *towers, ids, ids_2)
+
+    # 4. SDXL micro-conditioning
+    added_cond = None
+    if statics.is_sdxl:
+        time_ids = torch.cat([batch["original_sizes"], batch["crop_top_lefts"],
+                              batch["target_sizes"]], dim=-1).to(device)
+        added_cond = {"text_embeds": pooled.to(statics.compute_dtype), "time_ids": time_ids}
+    return latents, noise, timesteps, noisy, embeds, added_cond
+
+
+def make_encode_fn(statics: TrainStatics):
+    """The ``cache_latents`` program (:244-293): ``encode(frozen, batch,
+    generator, draws=None) -> batch'``, where batch' replaces
+    pixel_values / input_ids(_2) with "latents" (sampled and scaled, fp32,
+    NHWC) and "prompt_embeds" / "pooled_embeds", and keeps the
+    micro-conditioning keys.  It runs under no grad, apart from the step,
+    so that the VAE's activations and the towers are gone before the UNet's
+    backward.  Not valid with train_text_encoder (the towers must be inside
+    the gradient)."""
+    if statics.train_text_encoder:
+        raise ValueError("cached encode is incompatible with train_text_encoder")
+
+    @torch.no_grad()
+    def encode(frozen, batch, generator, draws=None):
+        vae = frozen["vae"]
+        device = next(vae.parameters()).device
+        pixels = batch["pixel_values"].to(device).permute(0, 3, 1, 2)
+        mean, logvar = vae_moments(vae, pixels, statics.vae_dtype)
+        eps = _draw(draws, generator, device, "latent_eps", mean.shape)
+        latents = sample_latent(mean, logvar, eps=eps).float()
+        latents = latents * statics.vae_config.scaling_factor
+        embeds, pooled = encode_prompt_train(
+            statics, frozen["text_encoder"], frozen.get("text_encoder_2"),
+            batch["input_ids"].to(device),
+            batch["input_ids_2"].to(device) if statics.is_sdxl else None)
+        out = {k: v for k, v in batch.items()
+               if k not in ("pixel_values", "input_ids", "input_ids_2")}
+        out["latents"] = latents.permute(0, 2, 3, 1)
+        out["prompt_embeds"] = embeds
+        if pooled is not None:
+            out["pooled_embeds"] = pooled
+        return out
+
+    return encode
 
 
 def _prediction_loss(pred, latents, noise, timesteps, statics: TrainStatics,
@@ -208,6 +313,12 @@ def _prediction_loss(pred, latents, noise, timesteps, statics: TrainStatics,
     return per_sample.mean()
 
 
+def _fused_tower(module, factors) -> Callable:
+    """`module` with its LoRA-fused weights, differentiable in `factors`."""
+    fused = apply_lora_for_training(module, factors)
+    return lambda ids: functional_call(module, fused, (ids,), strict=False)
+
+
 def loss_fn(
     lora: Mapping[str, Mapping],
     frozen: Mapping[str, Any],
@@ -218,34 +329,42 @@ def loss_fn(
     draws: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Forward diffusion + prediction loss, differentiable in the factors of
-    ``lora["unet"]``.  `frozen` holds the modules "unet", "vae",
-    "text_encoder"."""
+    ``lora["unet"]`` and, with ``train_text_encoder``, of
+    ``lora["text_encoder"]`` / ``lora["text_encoder_2"]``.  `frozen` holds
+    the modules "unet", "vae", "text_encoder" (and "text_encoder_2")."""
     check_supported(statics)
-    latents, noise, timesteps, noisy, embeds = _prepare_diffusion(
-        frozen, batch, generator, statics, scheduler, draws
+    te = te2 = None
+    if statics.train_text_encoder:
+        if "text_encoder" in lora:
+            te = _fused_tower(frozen["text_encoder"], lora["text_encoder"])
+        if frozen.get("text_encoder_2") is not None and "text_encoder_2" in lora:
+            te2 = _fused_tower(frozen["text_encoder_2"], lora["text_encoder_2"])
+    latents, noise, timesteps, noisy, embeds, added_cond = _prepare_diffusion(
+        frozen, batch, generator, statics, scheduler, draws, te=te, te2=te2
     )
     unet = frozen["unet"]
     fused = apply_lora_for_training(unet, lora["unet"])
 
-    def unet_fwd(x, t, ctx):
-        return functional_call(unet, fused, (x, t, ctx), strict=False)
+    def unet_fwd(x, t, ctx, added):
+        return functional_call(unet, fused, (x, t, ctx, added), strict=False)
 
     dt = statics.compute_dtype
-    args = (noisy.to(dt), timesteps, embeds.to(dt))
-    if _remat_policy(statics) == "full":
+    args = (noisy.to(dt), timesteps, embeds.to(dt), added_cond)
+    if _resolve_remat(statics) == "full":
         pred = checkpoint(unet_fwd, *args, use_reentrant=False)
     else:
         pred = unet_fwd(*args)
     return _prediction_loss(pred.float(), latents, noise, timesteps, statics, scheduler)
 
 
-def make_train_step(statics: TrainStatics, scheduler: BaseScheduler, optimizer: AdamW):
+def make_train_step(statics: TrainStatics, scheduler: BaseScheduler, optimizer):
     """The train step ``step(trainable, opt_state, frozen, batch, generator,
     draws=None) -> (trainable, opt_state, {"loss", "grad_norm"})``.
-    `trainable` is {"unet": lora}; its factors are updated in place (see
-    ``train/optim.py``) and returned.  ``grad_norm`` is the global norm of the
-    gradients before clipping, as ``optax.global_norm(grads)`` is in the JAX
-    step; both metrics are 0-d fp32 tensors on the device."""
+    `trainable` is {"unet": lora[, "text_encoder": lora, "text_encoder_2":
+    lora]}; its factors are updated in place (see ``train/optim.py``) and
+    returned.  ``grad_norm`` is the global norm of the gradients before
+    clipping, as ``optax.global_norm(grads)`` is in the JAX step; both
+    metrics are 0-d fp32 tensors on the device."""
     check_supported(statics)
 
     def step(trainable, opt_state, frozen, batch, generator, draws=None):
@@ -253,22 +372,15 @@ def make_train_step(statics: TrainStatics, scheduler: BaseScheduler, optimizer: 
         for t in leaves:
             t.requires_grad_(True)
         loss = loss_fn(trainable, frozen, batch, generator, statics, scheduler, draws)
-        grads = torch.autograd.grad(loss, leaves)
+        # a factor no path reaches (CLIP-L's last layer under SDXL) gets a
+        # zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         for t in leaves:
             t.requires_grad_(False)
-        grad_tree = _unflatten(trainable, grads)
+        grad_tree = unflatten(trainable, grads)
         trainable, opt_state = optimizer.update(grad_tree, opt_state, trainable)
         return trainable, opt_state, {"loss": loss.detach(),
                                       "grad_norm": global_norm(list(grads))}
 
     return step
 
-
-def _unflatten(like: Mapping, values) -> Dict:
-    """`values` (in ``tree_leaves`` order) in the nested-dict shape of `like`."""
-    it = iter(values)
-
-    def build(node):
-        return {k: build(v) if isinstance(v, Mapping) else next(it) for k, v in node.items()}
-
-    return build(like)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import re
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -461,17 +462,50 @@ def random_refiner(model: SDModel, config: UNetConfig = SDXL_REFINER_UNET,
     return model
 
 
-def random_train_batch(B: int, res: int, generator: torch.Generator) -> dict:
+def random_train_batch(B: int, res: int, generator: torch.Generator,
+                       sdxl: bool = False) -> dict:
     """A training batch as ``benchmarks/bench_train.py:62-68`` builds it, on
     `generator`'s device: "pixel_values" NHWC [B, res, res, 3] fp32, normal
-    with std 0.5, and "input_ids" [B, 77] uniform in [0, 49407)."""
+    with std 0.5, and "input_ids" [B, 77] uniform in [0, 49407).  With
+    `sdxl`, also "input_ids_2" and the micro-conditioning of an uncropped
+    res x res image ("original_sizes", "crop_top_lefts", "target_sizes",
+    fp32 [B, 2])."""
     device = generator.device
-    return {
+    batch = {
         "pixel_values": torch.randn(B, res, res, 3, generator=generator,
                                     device=device) * 0.5,
         "input_ids": torch.randint(0, 49407, (B, 77), generator=generator,
                                    device=device),
     }
+    if sdxl:
+        size = torch.full((B, 2), float(res), device=device)
+        batch.update(
+            input_ids_2=torch.randint(0, 49407, (B, 77), generator=generator, device=device),
+            original_sizes=size, crop_top_lefts=torch.zeros_like(size), target_sizes=size.clone())
+    return batch
+
+
+def write_image_folder(path: str, n: int, size, seed: int = 0,
+                       caption: str = "a photograph of an astronaut riding a horse") -> str:
+    """Write `n` JPEGs of `size` (an int, or (height, width)) with seeded
+    smooth random content, each with a caption file "`caption` {i}", into
+    `path` (made if missing): the folder layout ``train/dataset.py``
+    reads.  Returns `path`."""
+    import os
+
+    from PIL import Image
+
+    h, w = (size, size) if isinstance(size, int) else size
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        # a coarse random grid upsampled: content a VAE would see in a photo
+        coarse = rng.uniform(0, 255, (max(h // 32, 2), max(w // 32, 2), 3)).astype(np.uint8)
+        img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+        img.save(os.path.join(path, f"img{i:03d}.jpg"), quality=95)
+        with open(os.path.join(path, f"img{i:03d}.txt"), "w") as f:
+            f.write(f"{caption} {i}")
+    return path
 
 
 def random_lora(module: nn.Module, suffixes: Sequence[str], rank: int, seed: int,

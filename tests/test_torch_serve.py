@@ -80,7 +80,9 @@ def test_scheduler_swap_via_model_block(handler):
 # textual inversion were ported (their cases moved to tests of their own)
 @pytest.mark.parametrize("request_input, item", [
     pytest.param({"mode": "inference_wandb"}, "item 21", id="request_input0-item 21"),
-    pytest.param({"mode": "train"}, "item 19", id="request_input2-item 19"),
+    # the train mode is ported; its textual-inversion option is not
+    pytest.param({"mode": "train", "train": {"data_dir": "unused", "textual_inversion": "<x>"}},
+                 "item 19", id="request_input2-item 19"),
     pytest.param({"model": {"quantize": "w8a8"}}, "item 16", id="request_input4-item 16"),
     pytest.param({"model": {"type": "sd3", "name": "x"}}, "item 18",
                  id="request_input5-item 18"),
@@ -174,7 +176,8 @@ def test_http_worker_roundtrip(handler):
         assert r.status == 400
         r.read()
         # a failing request -> 500 with the error
-        conn.request("POST", "/", body=json.dumps({"input": {**ARGS, "mode": "train"}}))
+        conn.request("POST", "/", body=json.dumps({"input": {
+            **ARGS, "mode": "train", "train": {"data_dir": "unused", "full_finetune": True}}}))
         r = conn.getresponse()
         assert r.status == 500 and "item 19" in json.loads(r.read())["error"]
     finally:
