@@ -146,6 +146,34 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    from checkpoint-2 for 2 more, factors within ``RESUME_TOL``; exact
    launches per data step; the kohya file equal to the trainer's factors.
 
+26. SD3 main path (run after phase 22): SD3-medium and T5-XXL at full
+   width (``random_full_model("sd3", with_t5=True)``, every module in
+   bf16) answer 1024x1024 requests at 28 FlowMatchEuler steps and CFG 7.0:
+   two seeds, then the first again, bit for bit; exact launches: 672 joint
+   ``flash_fwd`` (24 blocks x 28 steps at [2,4429,24,64]), CLIP-L's and
+   bigG's causal layers each way, T5's 24 layers each way through the
+   counted masked route (``ATTENTION_MASKED_LAUNCHES``), one
+   ``flash_stream``, no lse.  One request profiled: device time by group,
+   busy share, peak memory, wall.
+27. Full width in bf16: one MM-DiT forward at B=2 on 128x128 latents with
+   333 text tokens, SD3-medium and a random SD3.5-medium (MMDiT-X, QK-RMSNorm),
+   through the kernels and through the plain attention, each against an
+   fp32 copy, under UNET_SLACK.
+28. The forward kernels at every shape the SD3 path launched that no earlier
+   phase held (the ragged joint [2,4429,24,64]), MMDiT-X's attn2
+   [2,4096,24,64] and SD3.5-large's [2,4429,38,64], under phase 3's rules
+   and times, with three wrong forwards as teeth at each of those three.
+29. SD3 reference: a narrow SD3 model (two joint blocks at head dim 64, the
+   first MMDiT-X with QK-RMSNorm, 2-layer CLIP-L/bigG at full width, a
+   2-layer T5 with d_kv 64, a 16-channel VAE whose mid-block takes
+   flash_stream), card against CPU, fp32, the same injected draws:
+   txt2img, img2img and inpainting, latents and pixels within REF_TOL.
+30. Serving SD3: the T5-free SD3-medium folder (``save_sd3_model``) loaded
+   by the worker with ``--model_type sd3``, every tensor equal; txt2img, a
+   payload with SDXL-only keys (dropped with a warning), img2img, inpainting
+   and a merged burst of two over loopback at 1024², each with exact
+   launches; then phase 28 for the shapes serving added.
+
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, when CUDA is not available.
@@ -194,6 +222,13 @@ TRAIN_REF_TOL = 1e-3
 MUFU_PER_CLOCK = 16
 FMA_EXP_PER_CLOCK = 128 / 4
 SMS = 132
+# the bf16 flash_fwd shapes where three wrong forwards must break the rule:
+# SD1.5's heaviest self-attention; SD3's ragged joint attention at 1024²,
+# MMDiT-X's attn2 and SD3.5-large's joint attention
+TEETH_CASES = {("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
+               ("flash_fwd", 2, 4429, 24, 64, 4429, "bfloat16"),
+               ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
+               ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -321,7 +356,7 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
         ref, flips = plain(q.float(), k.float(), v.float(), **kw), None
     err = kernel_error(out, ref, flips)
     teeth = None
-    if (name, B, Sq, H, D, Skv, dname) == ("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"):
+    if (name, B, Sq, H, D, Skv, dname) in TEETH_CASES:
         teeth = {n: kernel_error(w, ref, flips)["worst_over_limit"]
                  for n, w in attention_wrong_variants(q, k, v, causal).items()}
         print(json.dumps({"p_round_rule_teeth": "wrong bf16 forwards against "
@@ -1536,7 +1571,8 @@ def _folder_bytes(path: str) -> int:
 
 
 def _save_and_serve(model, root, folder_name, flags, label, card):
-    """Write `model` to ``root/folder_name`` with ``save_sd_model``, build
+    """Write `model` to ``root/folder_name`` with ``save_sd_model`` (an SD3
+    model with ``save_sd3_model``), build
     the HTTP worker on it (``serve.worker`` with `flags`, the worker's own
     --model_name load onto the card) and hold every loaded tensor equal to
     the saved one.  Returns the server, not yet serving."""
@@ -1544,12 +1580,13 @@ def _save_and_serve(model, root, folder_name, flags, label, card):
 
     import torch
 
-    from stablediffusion_tpu_torch.io.loader import save_sd_model
+    from stablediffusion_tpu_torch.io.loader import save_sd3_model, save_sd_model
     from stablediffusion_tpu_torch.serve.worker import build, parse_args
 
+    sd3 = model.model_type == "sd3"
     folder = os.path.join(root, folder_name)
     t = time.perf_counter()
-    save_sd_model(model, folder)
+    (save_sd3_model if sd3 else save_sd_model)(model, folder)
     save_s = time.perf_counter() - t
     t = time.perf_counter()
     server = build(parse_args(["--host", "127.0.0.1", "--port", "0", "--model_dir", root,
@@ -1558,7 +1595,12 @@ def _save_and_serve(model, root, folder_name, flags, label, card):
     load_s = time.perf_counter() - t
     loaded = server.handler.model
     n_tensors = 0
-    comps = ("unet", "vae", "text_encoder") + (("text_encoder_2",) if model.is_sdxl else ())
+    if sd3:
+        comps = ("transformer", "vae", "text_encoder", "text_encoder_2") + (
+            ("text_encoder_3",) if model.text_encoder_3 is not None else ())
+    else:
+        comps = ("unet", "vae", "text_encoder") + (
+            ("text_encoder_2",) if model.is_sdxl else ())
     for comp in comps:
         a, b = getattr(model, comp).state_dict(), getattr(loaded, comp).state_dict()
         if a.keys() != b.keys():
@@ -2413,6 +2455,403 @@ def phase_sdxl(smi, checked):
                   "sdxl_lora": lora_launches}
 
 
+SD3_RES = 1024
+SD3_STEPS = 28
+SD3_CFG = 7.0
+SD3_MAX_SEQ = 256  # T5 tokens, the pipeline's default
+SD3_REQUESTS = [
+    dict(prompt="a photograph of an astronaut riding a horse", seed=0),
+    dict(prompt="a watercolor painting of a fox in the snow", seed=1,
+         prompt_3="soft morning light, fine detail", negative_prompt="blurry"),
+]
+SD3_BURST = 2  # the SD3 worker's max_batch and its burst's size
+# the heaviest shapes held in the kernel phase besides those the path
+# launched: MMDiT-X's attn2 (SD3.5-medium, image tokens alone) and
+# SD3.5-large's joint attention (38 heads)
+SD3_EXTRA_CASES = [("flash_fwd", 2, 4096, 24, 64, 4096, False),
+                   ("flash_fwd", 2, 4429, 38, 64, 4429, False)]
+
+
+def _sd3_counters():
+    from stablediffusion_tpu_torch.ops.attention import (
+        ATTENTION_MASKED_LAUNCHES,
+        FLASH_FWD_LAUNCHES,
+    )
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+
+    return {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES,
+            "attention_masked": ATTENTION_MASKED_LAUNCHES}
+
+
+def _sd3_evals(steps, strength=1.0):
+    """MM-DiT evaluations of an SD3 call: the plan sliced at `strength`
+    (img2img and inpainting; ``pipelines/sd3.py``)."""
+    if strength >= 1.0:
+        return steps
+    return steps - min(max(int(steps * (1.0 - strength)), 0), steps - 1)
+
+
+def _want_sd3(model, n_evals, streams):
+    """The launches of one CFG call of an SD3 model: one encode each for the
+    prompts and the negatives (every layer of CLIP-L and bigG through the
+    causal ``flash_fwd``; every T5 layer through the counted masked route),
+    one joint attention per block per evaluation plus the MMDiT-X blocks'
+    ``attn2``, and `streams` VAE mid-block attentions."""
+    clip = (model.text_encoder_config.num_hidden_layers
+            + model.text_encoder_2_config.num_hidden_layers)
+    tf = model.transformer_config
+    t5 = model.text_encoder_3_config.num_layers if model.text_encoder_3 is not None else 0
+    per_eval = tf.num_layers + len(tf.dual_attention_layers)
+    return {"flash_fwd": 2 * clip + per_eval * n_evals, "flash_stream": streams,
+            "attention_masked": 2 * t5}
+
+
+def phase_sd3_main():
+    """SD3-medium and T5-XXL at full width (random weights, every module in
+    bf16 as the JAX package's ``_random_full_sd3`` holds them): two batch-1
+    1024² requests at 28 FlowMatchEuler steps and CFG 7.0 with two seeds,
+    then the first again, bit for bit; exact launches per request."""
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.pipelines.sd3 import StableDiffusion3Pipeline
+    from stablediffusion_tpu_torch.utils.testing import random_full_model
+
+    t0 = time.perf_counter()
+    model = random_full_model("sd3", device="cuda", seed=0, with_t5=True)
+    torch.cuda.synchronize()
+    n_params = {c: sum(p.numel() for p in getattr(model, c).parameters())
+                for c in ("transformer", "text_encoder", "text_encoder_2", "text_encoder_3",
+                          "vae")}
+    print(json.dumps({"sd3_model": "full-width SD3-medium + T5-XXL, random weights, bf16",
+                      "build_s": time.perf_counter() - t0, "parameters": n_params}), flush=True)
+    pipe = StableDiffusion3Pipeline(device="cuda")
+    counters = _sd3_counters()
+    for c in counters.values():
+        c.reset()
+    want = _want_sd3(model, SD3_STEPS, 1)
+    torch.cuda.reset_peak_memory_stats()
+    images, batch1 = [], None
+    for i, req in enumerate(SD3_REQUESTS + SD3_REQUESTS[:1]):
+        before = {n: c.count for n, c in counters.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe(model, height=SD3_RES, width=SD3_RES, num_inference_steps=SD3_STEPS,
+                   guidance_scale=SD3_CFG, **req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {n: c.count - before[n] for n, c in counters.items()}
+        im = out.images
+        print(json.dumps({"model": "sd3", "request": req, "wall_s": wall, "launches": got,
+                          "expected_launches": want, "shape": list(im.shape),
+                          "mean": float(im.mean()), "std": float(im.std())}), flush=True)
+        if im.shape != (1, SD3_RES, SD3_RES, 3) or im.dtype != np.float32:
+            raise AssertionError(f"sd3: bad output {im.shape} {im.dtype}")
+        if not (np.isfinite(im).all() and im.min() >= 0.0 and im.max() <= 1.0):
+            raise AssertionError("sd3: non-finite or out-of-range pixels")
+        if got != want:
+            raise AssertionError(f"sd3: launch counts {got} != expected {want}")
+        images.append(im)
+        if batch1 is None:
+            batch1 = {n: dict(c.by_shape) for n, c in counters.items()}
+    if np.array_equal(images[0], images[1]):
+        raise AssertionError("sd3: two seeds and prompts gave identical images")
+    if not np.array_equal(images[0], images[2]):
+        raise AssertionError("sd3: the repeated request differs from the first")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for n, shapes in batch1.items():
+        for (qs, skv, dtype, causal, _lse), count in sorted(shapes.items()):
+            print(json.dumps({"batch1_launches": n, "model": "sd3", "shape": list(qs),
+                              "skv": skv, "dtype": dtype, "causal": causal,
+                              "count": count}), flush=True)
+    print(json.dumps({"sd3_main_path": "repeat bit-identical", "peak_device_memory_gib": peak}),
+          flush=True)
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    totals = {n: c.count for n, c in counters.items()}
+    return totals, by_shape, model, pipe, images[0]
+
+
+def phase_sd3_bf16(model):
+    """One MM-DiT forward at B=2 on 128x128 latents (1024²) with 77 + 256
+    text tokens, in bf16 through the kernels and through the plain
+    attention, each against an fp32 copy with the plain attention: the main
+    path's SD3-medium and a random SD3.5-medium (MMDiT-X, QK-RMSNorm)."""
+    import torch
+
+    import stablediffusion_tpu_torch.models.mmdit as mmdit_module
+    from stablediffusion_tpu_torch.core.config import SD35_MEDIUM
+    from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
+    from stablediffusion_tpu_torch.ops.attention import attention_plain
+    from stablediffusion_tpu_torch.utils.testing import random_module
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    sd35 = random_module(SD3Transformer2DModel, SD35_MEDIUM, torch.device("cuda"),
+                         torch.bfloat16, g)
+    counts = {}
+    for name, tf in (("SD3-medium", model.transformer), ("SD3.5-medium", sd35)):
+        cfg = tf.config
+        hw = cfg.sample_size
+        x = torch.randn(2, cfg.in_channels, hw, hw, device="cuda", generator=g)
+        ctx = torch.randn(2, 77 + SD3_MAX_SEQ, cfg.joint_attention_dim, device="cuda",
+                          generator=g)
+        pooled = torch.randn(2, cfg.pooled_projection_dim, device="cuda", generator=g)
+        t = torch.tensor(500.0, device="cuda")
+        bf = lambda a: a.to(torch.bfloat16)  # noqa: E731
+        c = _sd3_counters()["flash_fwd"]
+        before = c.count
+        with torch.inference_mode():
+            kern = tf(bf(x), t, bf(ctx), bf(pooled)).float()
+            counts[name] = c.count - before
+            routed = mmdit_module.attention
+            mmdit_module.attention = attention_plain
+            try:
+                plain = tf(bf(x), t, bf(ctx), bf(pooled)).float()
+                ref = copy.deepcopy(tf).float()(x, t, ctx, pooled).float()
+            finally:
+                mmdit_module.attention = routed
+        err_kernel, err_plain = _rel_err(kern, ref), _rel_err(plain, ref)
+        print(json.dumps({
+            "mmdit_bf16": f"full-width {name} MM-DiT, B=2, {hw}x{hw} latents, "
+                          f"{77 + SD3_MAX_SEQ} text tokens, t=500",
+            "flash_fwd_launches": counts[name], "ref_std": ref.std().item(),
+            "kernels_vs_fp32": err_kernel, "plain_vs_fp32": err_plain,
+            "kernels_vs_plain": _rel_err(kern, plain),
+            "limit": f"kernels_vs_fp32 <= {UNET_SLACK} * plain_vs_fp32"}), flush=True)
+        want = cfg.num_layers + len(cfg.dual_attention_layers)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} flash_fwd launches, want {want}")
+        if not (torch.isfinite(kern).all() and err_kernel <= UNET_SLACK * err_plain):
+            raise AssertionError(f"bf16 {name} through the kernels: {err_kernel} from "
+                                 f"fp32, the plain path {err_plain}")
+        del ref, plain, kern
+        torch.cuda.empty_cache()
+    del sd35
+    torch.cuda.empty_cache()
+
+
+def _narrow_sd3(seed):
+    """The narrow SD3 model of the reference phase on the CPU, fp32: two
+    joint blocks at head dim 64 (2 heads), the first MMDiT-X ``dual`` with
+    QK-RMSNorm, CLIP-L and bigG at full width and 2 layers each, a 2-layer
+    T5 (d_kv 64) at the joint width, a 16-channel VAE with the SD3 shift
+    whose mid-block takes flash_stream."""
+    import dataclasses
+
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import (
+        SD3_MEDIUM,
+        SDXL_TEXT_ENCODER,
+        SDXL_TEXT_ENCODER_2,
+        VAEConfig,
+    )
+    from stablediffusion_tpu_torch.models.t5 import T5Config
+    from stablediffusion_tpu_torch.utils.testing import (
+        bench_t5_tokenizer,
+        bench_tokenizer,
+        random_sd3_model,
+    )
+
+    tf = dataclasses.replace(SD3_MEDIUM, sample_size=16, num_layers=2, num_attention_heads=2,
+                             joint_attention_dim=2176, pos_embed_max_size=12,
+                             qk_norm="rms_norm", dual_attention_layers=(0,))
+    vae = VAEConfig(block_out_channels=(64, 192), layers_per_block=1, latent_channels=16,
+                    scaling_factor=1.5305, shift_factor=0.0609, use_quant_conv=False,
+                    use_post_quant_conv=False)
+    t1 = dataclasses.replace(SDXL_TEXT_ENCODER, num_hidden_layers=2, with_projection=True)
+    t2 = dataclasses.replace(SDXL_TEXT_ENCODER_2, num_hidden_layers=2)
+    t5 = T5Config(vocab_size=512, d_model=2176, d_kv=64, d_ff=512, num_layers=2, num_heads=4)
+    return random_sd3_model(tf, vae, t1, t2, bench_tokenizer(), bench_tokenizer(pad_token_id=0),
+                            t5, bench_t5_tokenizer(), device="cpu", dtype=torch.float32,
+                            seed=seed)
+
+
+def phase_sd3_reference():
+    """The narrow SD3 model, card (kernels, the masked route) against CPU
+    (plain attention), fp32, TF32 off, the same weights and injected draws:
+    txt2img, img2img at 0.6 and inpainting at 0.8, 4 FlowMatchEuler steps,
+    CFG 7.0; latents and pixels within REF_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.pipelines.sd3 import StableDiffusion3Pipeline
+
+    cpu = _narrow_sd3(seed=41)
+    mods = {c: copy.deepcopy(getattr(cpu, c)).cuda()
+            for c in ("transformer", "vae", "text_encoder", "text_encoder_2", "text_encoder_3")}
+    gpu = dataclasses.replace(cpu, _scheduler=None, **mods)
+    r = np.random.default_rng(42)
+    image = r.random((1, 32, 32, 3)).astype(np.float32)
+    mask = np.zeros((1, 32, 32, 1), np.float32)
+    mask[:, 8:24, 8:24] = 1.0
+    draws = {"latents": r.standard_normal((1, 16, 16, 16)).astype(np.float32),
+             "encode": r.standard_normal((1, 16, 16, 16)).astype(np.float32)}
+    modes = {"txt2img": {}, "img2img": dict(image=image, strength=0.6),
+             "inpaint": dict(image=image, mask_image=mask, strength=0.8)}
+    counters = _sd3_counters()
+    for mode, extra in modes.items():
+        outs = {}
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            pipe = StableDiffusion3Pipeline(device=dev, dtype=torch.float32)
+            common = dict(prompt="a small red house", prompt_3="by the sea",
+                          num_inference_steps=4, guidance_scale=SD3_CFG,
+                          max_sequence_length=32, seed=3, draws=draws, **extra)
+            before = {n: c.count for n, c in counters.items()}
+            latents = pipe(model, output_type="latents", **common).latents
+            images = pipe(model, output_type="np", **common).images
+            outs[dev] = (latents.float().cpu().numpy(), images)
+            got = {n: c.count - before[n] for n, c in counters.items()}
+            if dev == "cuda" and min(got.values()) == 0:
+                raise AssertionError(f"SD3 reference {mode} on the card: launches {got}")
+        lat_ref, img_ref = outs["cpu"]
+        lat_err = float(np.abs(lat_ref - outs["cuda"][0]).max())
+        img_err = float(np.abs(img_ref - outs["cuda"][1]).max())
+        print(json.dumps({"reference": f"narrow SD3 {mode} (MMDiT-X dual block, QK-RMSNorm, "
+                          "head dim 64, 173 joint tokens, T5 d_kv 64), card vs CPU, fp32",
+                          "latents_max_abs_err": lat_err,
+                          "latents_max_abs_ref": float(np.abs(lat_ref).max()),
+                          "images_max_abs_err": img_err, "tol": REF_TOL}), flush=True)
+        if not (lat_err <= REF_TOL and img_err <= REF_TOL):
+            raise AssertionError(f"SD3 {mode}: card disagrees with CPU: {lat_err}, {img_err}")
+
+
+def phase_serve_sd3(card: str):
+    """Serving SD3: the T5-free SD3-medium folder (the documented drop-T5
+    configuration) written by ``save_sd3_model`` and loaded by the worker
+    with ``--model_type sd3``, every tensor equal, asked over loopback at
+    1024², 28 steps, CFG 7.0: txt2img, a payload with SDXL-only keys (dropped
+    with a warning), img2img at 0.6, inpainting at 0.8 and a burst of
+    SD3_BURST that the batcher merges, each with the launches its plan
+    implies."""
+    import logging
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.serve.handler import encode_images_b64
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        synthetic_clip_tokenizer,
+    )
+
+    class _Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_sd3_")
+    server = thread = None
+    warnings = _Warnings()
+    handler_log = logging.getLogger("stablediffusion_tpu_torch.serve.handler")
+    handler_log.addHandler(warnings)
+    try:
+        model = random_full_model("sd3", device="cuda", seed=4)
+        model.tokenizer = synthetic_clip_tokenizer()
+        model.tokenizer_2 = synthetic_clip_tokenizer(pad_token_id=0)
+        server = _save_and_serve(
+            model, root, "sd3_chip",
+            ["--model_type", "sd3", "--model_name", "chip", "--max_batch", str(SD3_BURST),
+             "--batch_window_ms", "200"],
+            "full-width SD3-medium without T5, random weights (seed 4), synthetic BPE", card)
+        loaded = server.handler.model
+        if loaded.model_type != "sd3" or loaded.text_encoder_3 is not None:
+            raise AssertionError(f"the worker loaded {loaded.model_type}")
+        del model
+        torch.cuda.empty_cache()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        counters = _sd3_counters()
+        for c in counters.values():
+            c.reset()
+        want = lambda strength=1.0, streams=1: _want_sd3(  # noqa: E731
+            loaded, _sd3_evals(SD3_STEPS, strength), streams)
+        base = dict(prompt="a photograph of an astronaut riding a horse", height=SD3_RES,
+                    width=SD3_RES, num_inference_steps=SD3_STEPS, guidance_scale=SD3_CFG)
+        mask = np.zeros((1, SD3_RES, SD3_RES, 3), np.uint8)
+        mask[:, 256:768, 256:768] = 255
+        walls = []
+        first, row = _ask(port, counters, card, "sd3 txt2img", {**base, "seed": 100}, want())
+        walls.append(row["wall_s"])
+        _, row = _ask(port, counters, card, "sd3 txt2img with SDXL-only keys",
+                      {**base, "seed": 101, "prompt_2": "fine detail", "guidance_rescale": 0.7,
+                       "denoising_end": 0.8, "negative_prompt_2": "blurry"}, want())
+        walls.append(row["wall_s"])
+        dropped = [m for m in warnings.messages if m.startswith("sd3: ignoring")]
+        print(json.dumps({"sd3_dropped_keys_warning": dropped}), flush=True)
+        if not any("guidance_rescale" in m and "denoising_end" in m for m in dropped):
+            raise AssertionError(f"sd3: no warning for the dropped keys: {warnings.messages}")
+        _ask(port, counters, card, "sd3 img2img strength 0.6",
+             {**base, "seed": 7, "image": first["images"][0], "strength": 0.6},
+             want(0.6, streams=2))
+        _ask(port, counters, card, "sd3 inpaint strength 0.8",
+             {**base, "seed": 8, "image": first["images"][0],
+              "mask_image": encode_images_b64(mask)[0], "strength": 0.8}, want(0.8, streams=2))
+        burst = [{**base, "prompt": p, "seed": 200 + i}
+                 for i, p in enumerate(["a bowl of ramen", "a snowy mountain village"])]
+        _, burst_row = _burst(server, port, counters, card, burst, want())
+        walls.sort()
+        launches = {n: c.count for n, c in counters.items()}
+        print(json.dumps({"serve_summary": "SD3-medium (T5-free) over HTTP, 1024x1024, "
+                          "28 steps, CFG 7.0",
+                          "batch1_txt2img_walls_s": walls,
+                          "burst_images_per_s": burst_row["images_per_s"],
+                          "launches": launches, "card": card}), flush=True)
+        return launches, {n: dict(c.by_shape) for n, c in counters.items()}
+    finally:
+        handler_log.removeHandler(warnings)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if thread is not None:
+            thread.join(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_sd3(smi, checked):
+    """The SD3 path: the main path with T5-XXL, a profiled request, the
+    full-width bf16 MM-DiTs, the kernels at the new shapes, the narrow
+    reference, and serving.  Returns the kernel rows and the launches by
+    path."""
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import attention_plain, flash_fwd
+
+    launches, by_shape, model, pipe, _ = phase_sd3_main()
+    torch.cuda.reset_peak_memory_stats()
+    _profile("one SD3-medium + T5-XXL batch-1 request, 1024x1024, 28 FlowMatchEuler "
+             "steps, CFG 7.0",
+             lambda: pipe(model, prompt="a photograph of an astronaut riding a horse", seed=0,
+                          height=SD3_RES, width=SD3_RES, num_inference_steps=SD3_STEPS,
+                          guidance_scale=SD3_CFG))
+    print(json.dumps({"sd3_profiled_request_peak_gib":
+                      torch.cuda.max_memory_allocated() / 2**30, "card": smi}), flush=True)
+    phase_sd3_bf16(model)
+    del model, pipe
+    torch.cuda.empty_cache()
+    kernels = lambda shapes: {n: shapes[n] for n in ("flash_fwd", "flash_stream")}  # noqa: E731
+    rows = phase_new_shapes(kernels(by_shape), checked, "sd3")
+    for (name, B, Sq, H, D, Skv, causal) in SD3_EXTRA_CASES:
+        checked.add((name, B, Sq, H, D, Skv, causal))
+        for dtype in (torch.bfloat16, torch.float32):
+            row = kernel_case(name, flash_fwd, attention_plain, B, Sq, H, D, Skv, dtype,
+                              causal, 0, 0)
+            rows.append(dict(row, path="sd3_extra"))
+    phase_sd3_reference()
+    serve_launches, serve_by_shape = phase_serve_sd3(smi)
+    torch.cuda.empty_cache()
+    rows += phase_new_shapes(kernels(serve_by_shape), checked, "sd3_serve")
+    return rows, {"sd3": launches, "sd3_serve": serve_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2487,6 +2926,14 @@ def main() -> int:
     single_launches, single_by_shape = phase_single_file(smi)
     rows += phase_new_shapes(single_by_shape, checked, "single_file")
     phase_adapter_reference()
+    torch.cuda.empty_cache()
+
+    sd3_rows, sd3_launches = phase_sd3(smi, checked)
+    rows += sd3_rows
+    # the masked route (T5's position bias) is no kernel: its count by path
+    print(json.dumps({"attention_masked_launches_by_path": {
+        p: n.get("attention_masked", 0) for p, n in sd3_launches.items()},
+        "route": "ops/attention.attention_plain on the card, by design"}), flush=True)
 
     # one line per kernel, at its heaviest main-path shape; launches from the
     # path that needs the kernel (txt2img for the forwards, training for the
@@ -2501,6 +2948,13 @@ def main() -> int:
     sdxl_case = {
         "flash_fwd": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
         "flash_stream": dict(shape=[1, 16384, 1, 512], skv=16384, dtype="float32"),
+    }
+    # the SD3 path's heaviest shape of each forward kernel (the decode's
+    # stream is held at that shape by the SDXL phase)
+    sd3_case = {
+        "flash_fwd": dict(path="sd3", shape=[2, 4429, 24, 64], skv=4429, dtype="bfloat16"),
+        "flash_stream": dict(path="sdxl", shape=[1, 16384, 1, 512], skv=16384,
+                             dtype="float32"),
     }
     train_sdxl_case = {
         "flash_fwd": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
@@ -2533,7 +2987,8 @@ def main() -> int:
                    "train_sdxl": train_sdxl_launches[name],
                    "train_variants": variants_launches[name],
                    **{p: n.get(name, 0) for p, n in sdxl_launches.items()},
-                   "single_file_constructor": single_launches.get(name, 0)}
+                   "single_file_constructor": single_launches.get(name, 0),
+                   **{p: n.get(name, 0) for p, n in sd3_launches.items()}}
         sdxl = None
         if name in sdxl_case:
             r = next(r for r in rows if r["kernel"] == name and r.get("path") == "sdxl"
@@ -2541,6 +2996,14 @@ def main() -> int:
             sdxl = {k: r[k] for k in ("shape", "skv", "dtype", "launches", "max_abs_err",
                                       "worst_over_limit", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
+        sd3 = None
+        if name in sd3_case:
+            r = next(r for r in rows if r["kernel"] == name
+                     and all(r.get(k) == v for k, v in sd3_case[name].items()))
+            sd3 = {k: r[k] for k in ("shape", "skv", "dtype", "max_abs_err",
+                                     "worst_over_limit", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
+            sd3["launches"] = sd3_launches["sd3"][name]
         # the SDXL trainer's heaviest shape (D=64 over 4096 tokens; the
         # stream: the batch-2 1024² encode)
         tr = next(r for r in rows if r["kernel"] == name and r.get("path") == "train_sdxl"
@@ -2564,6 +3027,7 @@ def main() -> int:
             "worst_over_limit": max(r["worst_over_limit"] for r in mine),
             "sdxl_case": sdxl,
             "train_sdxl_case": train_sdxl,
+            "sd3_case": sd3,
         })
     print(f"chip_smoke total command time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

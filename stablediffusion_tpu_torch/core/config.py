@@ -1,8 +1,8 @@
 """Model and scheduler configuration, and the device / dtype policy.
 
-Port of ``stablediffusion_tpu/core/config.py`` (the CLIP text, UNet, VAE and
-scheduler dataclasses, the SD1.5, SD2.1 and SDXL presets and the tiny test
-configs) and of the dtype policy of ``stablediffusion_tpu/core/dtypes.py``
+Port of ``stablediffusion_tpu/core/config.py`` (the CLIP text, UNet, VAE,
+MM-DiT and scheduler dataclasses, the SD1.5, SD2.1, SDXL and SD3 presets and
+the tiny test configs) and of the dtype policy of ``stablediffusion_tpu/core/dtypes.py``
 as the pipeline applies it (``pipelines/unified.py:417-420``): bf16 compute on the card, fp32
 on the CPU.  The dataclasses keep the JAX package's field names and defaults,
 so ``dataclasses.asdict`` of a preset here equals that of its counterpart.
@@ -131,6 +131,16 @@ class VAEConfig:
 
 SD15_VAE = VAEConfig()
 SDXL_VAE = VAEConfig(sample_size=1024, scaling_factor=0.13025)
+# SD3-family VAE: 16 latent channels, z' = (z - shift_factor) * scaling_factor,
+# no quant convs
+SD3_VAE = VAEConfig(
+    sample_size=1024,
+    latent_channels=16,
+    scaling_factor=1.5305,
+    shift_factor=0.0609,
+    use_quant_conv=False,
+    use_post_quant_conv=False,
+)
 
 
 def tiny_vae_config() -> VAEConfig:
@@ -330,6 +340,74 @@ def tiny_unet_config(
             use_linear_projection=True,
         )
     return UNetConfig(**kwargs)
+
+
+@dataclass(frozen=True)
+class SD3Config:
+    """SD3Transformer2DModel (MM-DiT, arXiv 2403.03206).  Defaults are
+    SD3-medium; `qk_norm="rms_norm"` switches on the SD3.5 QK-RMSNorm."""
+
+    sample_size: int = 128
+    patch_size: int = 2
+    in_channels: int = 16
+    num_layers: int = 24
+    attention_head_dim: int = 64
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    caption_projection_dim: int = 1536
+    pooled_projection_dim: int = 2048
+    out_channels: int = 16
+    pos_embed_max_size: int = 192
+    qk_norm: Optional[str] = None  # None | "rms_norm" (SD3.5)
+    # MMDiT-X (SD3.5-medium): these blocks carry a second image-stream
+    # self-attention (attn2) and a 9-chunk AdaLN-Zero
+    dual_attention_layers: Tuple[int, ...] = ()
+
+    @property
+    def dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "SD3Config":
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in known}
+        if "dual_attention_layers" in kw:
+            kw["dual_attention_layers"] = tuple(kw["dual_attention_layers"])
+        return cls(**kw)
+
+
+SD3_MEDIUM = SD3Config()
+SD35_LARGE = SD3Config(
+    num_layers=38,
+    num_attention_heads=38,
+    caption_projection_dim=2432,
+    qk_norm="rms_norm",
+)
+# MMDiT-X; real loads read transformer/config.json via from_diffusers_dict
+SD35_MEDIUM = SD3Config(
+    num_layers=24,
+    pos_embed_max_size=384,
+    qk_norm="rms_norm",
+    dual_attention_layers=tuple(range(13)),
+)
+
+
+def tiny_sd3_config() -> SD3Config:
+    return SD3Config(
+        sample_size=8,
+        patch_size=2,
+        in_channels=4,
+        num_layers=2,
+        attention_head_dim=8,
+        num_attention_heads=2,
+        # must exceed the two concatenated CLIP hidden sizes (2*32 in tests),
+        # as 4096 > 768+1280 does for real SD3
+        joint_attention_dim=80,
+        caption_projection_dim=16,
+        pooled_projection_dim=20,
+        out_channels=4,
+        pos_embed_max_size=16,
+    )
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,12 @@ The inverse of ``stablediffusion_tpu/io/torch_convert.py:90-98``
 (``deconvert_tensor``): the JAX package keeps conv kernels HWIO and linear
 kernels (in, out); the port's modules keep PyTorch's OIHW and (out, in).
 Embedding tables keep their (vocab, dim) layout, by the same exact-suffix
-rule (:28-36), so that ``time_embedding.linear_1`` is still transposed.
+rule (:28-36), so that ``time_embedding.linear_1`` is still transposed.  The
+rule covers every tree of the port's modules: CLIP, the UNet and the VAE,
+the MM-DiT (its HWIO patch kernel ``pos_embed.proj.weight``, and
+``pos_embed.pos_embed``, a [1, positions, dim] table that is no weight and
+keeps its layout) and T5 (the ``shared`` and ``relative_attention_bias``
+tables).
 
 A tree is nested dicts of numpy arrays (``jax.device_get`` of a param tree
 gives one), so this module imports nothing of JAX.  Loading is strict: a key

@@ -1,14 +1,15 @@
-"""Diffusers-layout checkpoint folders -> SDModel, and back.
+"""Diffusers-layout checkpoint folders -> SDModel or SD3Model, and back.
 
-Port of the SD1.x, SD2.x and SDXL parts of ``stablediffusion_tpu/io/loader.py``:
+Port of ``stablediffusion_tpu/io/loader.py``:
 ``resolve_checkpoint`` (:42, local folders only), ``_find_weights`` (:169,
 the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
 ``_resolve_scheduler_name`` (:252), ``load_sd_model`` (:275; an SDXL folder
 adds ``text_encoder_2/`` and ``tokenizer_2/``, whose pad token comes from
-its special_tokens_map), ``save_sd_model`` (:497, floating point only) and
-the config writers (:649-680).  The SDXL refiner's folder is read by
-:func:`load_unet` (``SDModel.load_refiner``).  A1111/LDM single files load
-through :func:`load_sd_single_file` (:75-161, with ``io/convert_cli.
+its special_tokens_map), ``load_sd3_model`` (:360; ``text_encoder_3/`` and
+``tokenizer_3/`` optional), ``save_sd_model`` (:497) and ``save_sd3_model``
+(:560), floating point only, and the config writers (:649-680).  The SDXL
+refiner's folder is read by :func:`load_unet` (``SDModel.load_refiner``).
+A1111/LDM single files load through :func:`load_sd_single_file` (:75-161, with ``io/convert_cli.
 load_single_file`` :16-27), which converts them in memory with the port's
 copy of ``io/a1111.py``; their dtypes follow ``load_sd_model``'s, not the
 JAX loader's (which keeps the file's).
@@ -18,8 +19,9 @@ are what diffusers files hold, so a component loads by a strict copy into
 its ``state_dict``: no transposes, ``position_ids`` dropped, and every
 missing, unexpected or misshapen key raises.  Components are built on the
 meta device and filled straight from the safetensors mmap on their device.
-Not ported here (each raises and names its ROADMAP §1 item): int8-on-disk
-folders and ``quantize=`` (item 16), SD3 (item 18).
+Not ported here (it raises and names its ROADMAP §1 item): int8-on-disk
+folders and ``quantize=`` (item 16).  SD3 single files are refused, as in
+JAX: SD3 loads from diffusers folders.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch import nn
 from stablediffusion_tpu_torch.core.config import (
     CLIPTextConfig,
     SchedulerConfig,
+    SD3Config,
     UNetConfig,
     VAEConfig,
     default_dtype,
@@ -45,10 +48,16 @@ from stablediffusion_tpu_torch.core.config import (
 )
 from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile, save_safetensors
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
+from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
+from stablediffusion_tpu_torch.models.t5 import T5Config, T5EncoderModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
+from stablediffusion_tpu_torch.tokenizer.sentencepiece_unigram import (
+    SentencePieceUnigramTokenizer,
+)
 
 DEFAULT_CHECKPOINTS = {
     "sd15": "runwayml/stable-diffusion-v1-5",
@@ -60,7 +69,6 @@ logger = logging.getLogger(__name__)
 
 _LATER = {
     "int8": "int8 checkpoints and quantize= come with ROADMAP §1 item 16",
-    "sd3": "SD3 comes with ROADMAP §1 item 18",
 }
 
 
@@ -207,9 +215,10 @@ def load_sd_model(
         raise ValueError(f"{path} is a single file: load it with load_sd_single_file")
     if model_type is None:
         model_type = "sdxl" if os.path.isdir(os.path.join(path, "text_encoder_2")) else "sd15"
+    if model_type == "sd3":
+        raise ValueError(f"{path}: an SD3 folder loads with load_sd3_model")
     if model_type not in ("sd15", "sdxl"):
-        raise NotImplementedError(f"model type {model_type!r}: "
-                                  f"{_LATER.get(model_type, 'not an SD1.x, SD2.x or SDXL folder')}")
+        raise NotImplementedError(f"model type {model_type!r}: not an SD1.x, SD2.x or SDXL folder")
     idx = os.path.join(path, "model_index.json")
     if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
         raise NotImplementedError(f"{path}: {_LATER['int8']}")
@@ -250,6 +259,66 @@ def load_sd_model(
         model_type=model_type,
         path=path,
         **sdxl,
+    )
+
+
+def load_sd3_model(
+    path: str,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+    variant: Optional[str] = "fp16",
+    scheduler_name: str = "FlowMatchEuler",
+) -> SD3Model:
+    """Load a diffusers-layout SD3-family folder (``transformer/``, ``vae/``,
+    CLIP-L and bigG with their tokenizers; ``text_encoder_3/`` and
+    ``tokenizer_3/`` optional, the T5-free serving configuration) onto
+    `device` (default ``cuda``; raises without a card unless
+    ``device="cpu"``).  Every component is held in `dtype` (default: the
+    device's compute dtype), as ``utils/testing.random_full_model("sd3")``
+    holds them; the pipeline runs the VAE's encode and decode in fp32."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    if os.path.isfile(path):
+        raise ValueError("SD3 single-file checkpoints are not supported; "
+                         "provide a diffusers-layout folder")
+    idx = os.path.join(path, "model_index.json")
+    if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
+        raise NotImplementedError(f"{path}: {_LATER['int8']}")
+
+    def cfg(cls, sub):
+        return cls.from_diffusers_dict(_read_json(os.path.join(path, sub, "config.json")))
+
+    def _load(sub, cls, config):
+        return load_component_state(os.path.join(path, sub),
+                                    _empty_module(cls, config, device, dtype), variant)
+
+    sched_path = os.path.join(path, "scheduler", "scheduler_config.json")
+    sched_cfg = (SchedulerConfig.from_diffusers_dict(_read_json(sched_path))
+                 if os.path.exists(sched_path) else SchedulerConfig(shift=3.0))
+    tf_cfg, vae_cfg = cfg(SD3Config, "transformer"), cfg(VAEConfig, "vae")
+    te_cfg, te2_cfg = cfg(CLIPTextConfig, "text_encoder"), cfg(CLIPTextConfig, "text_encoder_2")
+    t5 = {}
+    if os.path.exists(os.path.join(path, "text_encoder_3", "config.json")):
+        t5_cfg = cfg(T5Config, "text_encoder_3")
+        t5 = dict(text_encoder_3_config=t5_cfg,
+                  text_encoder_3=_load("text_encoder_3", T5EncoderModel, t5_cfg),
+                  tokenizer_3=SentencePieceUnigramTokenizer.from_pretrained(
+                      os.path.join(path, "tokenizer_3")))
+    return SD3Model(
+        transformer_config=tf_cfg,
+        transformer=_load("transformer", SD3Transformer2DModel, tf_cfg),
+        vae_config=vae_cfg,
+        vae=_load("vae", AutoencoderKL, vae_cfg),
+        text_encoder_config=te_cfg,
+        text_encoder=_load("text_encoder", CLIPTextModel, te_cfg),
+        tokenizer=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer")),
+        text_encoder_2_config=te2_cfg,
+        text_encoder_2=_load("text_encoder_2", CLIPTextModel, te2_cfg),
+        tokenizer_2=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer_2")),
+        scheduler_config=sched_cfg,
+        scheduler_name=scheduler_name,
+        path=path,
+        **t5,
     )
 
 
@@ -425,6 +494,41 @@ def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
              "_scheduler_type": model.scheduler_name}
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump(index, f)
+
+
+def save_sd3_model(model: SD3Model, path: str, variant: Optional[str] = None,
+                   quantize: Optional[str] = None) -> None:
+    """Write a diffusers-layout SD3-family folder that ``load_sd3_model``
+    (and the JAX package's) reads back: the transformer, the VAE and the
+    text towers (T5 only when the model has one) with their configs and
+    tokenizers, the scheduler config, and model_index.json."""
+    if quantize:
+        raise NotImplementedError(_LATER["int8"])
+    os.makedirs(path, exist_ok=True)
+    tf_cfg = dataclasses.asdict(model.transformer_config)
+    tf_cfg["dual_attention_layers"] = list(tf_cfg["dual_attention_layers"])
+    tf_cfg["_class_name"] = "SD3Transformer2DModel"
+    _dump_component(path, "transformer", model.transformer, tf_cfg, variant=variant)
+    _dump_component(path, "vae", model.vae, _vae_cfg_dict(model.vae_config), variant=variant)
+    for sub in ("text_encoder", "text_encoder_2"):
+        _dump_component(path, sub, getattr(model, sub),
+                        _clip_cfg_dict(getattr(model, f"{sub}_config")), fname="model",
+                        variant=variant)
+    tokenizers = [("tokenizer", model.tokenizer), ("tokenizer_2", model.tokenizer_2)]
+    if model.text_encoder_3 is not None:
+        t5_cfg = dataclasses.asdict(model.text_encoder_3_config)
+        t5_cfg["architectures"] = ["T5EncoderModel"]
+        _dump_component(path, "text_encoder_3", model.text_encoder_3, t5_cfg, fname="model",
+                        variant=variant)
+        tokenizers.append(("tokenizer_3", model.tokenizer_3))
+    for sub, tok in tokenizers:
+        if hasattr(tok, "save_pretrained"):
+            tok.save_pretrained(os.path.join(path, sub))
+    os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
+    with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(model.scheduler_config), f, indent=2)
+    with open(os.path.join(path, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusion3Pipeline"}, f)
 
 
 def _unet_cfg_dict(c: UNetConfig) -> dict:

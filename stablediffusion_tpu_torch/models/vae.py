@@ -12,7 +12,11 @@ encoder runs under ``torch.no_grad()`` on the card, as the training step
 runs it.
 
 ``encode`` and ``decode`` take and return NCHW, as do ``tiled_decode`` and
-``tiled_encode``.
+``tiled_encode``.  The SD3 family's VAE (``core/config.SD3_VAE``: 16 latent
+channels, no quant convs) normalises its latents with a shift as well as a
+scale (``stablediffusion_tpu/pipelines/sd3.py:323-355``):
+:func:`normalize_latents` after the encode, :func:`denormalize_latents`
+before the decode.
 """
 
 from __future__ import annotations
@@ -208,6 +212,22 @@ def sample_latent(
         eps = torch.randn(mean.shape, generator=generator, device=mean.device,
                           dtype=mean.dtype)
     return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+
+
+def normalize_latents(z: torch.Tensor, config: VAEConfig) -> torch.Tensor:
+    """Encoder latents -> the diffusion model's: (z - shift_factor) *
+    scaling_factor (no shift where the config has none)."""
+    if config.shift_factor:
+        z = z - config.shift_factor
+    return z * config.scaling_factor
+
+
+def denormalize_latents(z: torch.Tensor, config: VAEConfig) -> torch.Tensor:
+    """The inverse of :func:`normalize_latents`, before the decode."""
+    z = z / config.scaling_factor
+    if config.shift_factor:
+        z = z + config.shift_factor
+    return z
 
 
 # -- tiled decode and encode (diffusers' enable_vae_tiling) -------------------

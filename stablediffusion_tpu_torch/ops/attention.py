@@ -22,8 +22,12 @@ through a kernel (:func:`_route`):
                                     the VAE mid-block
   * CUDA, D > 160, under grad    -> NotImplementedError: no backward kernel
                                     exists for it, in JAX either
-  * CUDA tensors with an additive ``mask`` raise NotImplementedError: no path
-    needs one.
+  * CUDA, an additive ``mask``  -> ``attention_plain`` (T5's position bias):
+                                    the counterpart of the JAX package's
+                                    masked route, which goes to XLA's fusion
+                                    whatever the shape (no Pallas kernel takes
+                                    a mask there either); counted by
+                                    ``ATTENTION_MASKED_LAUNCHES``
 
 "Under grad" means ``torch.is_grad_enabled()`` and an input that requires
 grad.  On CUDA no output needing a gradient comes back without a
@@ -46,6 +50,8 @@ from stablediffusion_tpu_torch.ops.flash_attention import flash_stream
 FLASH_FWD_LAUNCHES = _build.LaunchCounter("flash_fwd")
 FLASH_BWD_DQ_LAUNCHES = _build.LaunchCounter("flash_bwd_dq")
 FLASH_BWD_DKV_LAUNCHES = _build.LaunchCounter("flash_bwd_dkv")
+# masked CUDA calls, which run the plain version by design (no kernel)
+ATTENTION_MASKED_LAUNCHES = _build.LaunchCounter("attention_masked")
 
 # head dims up to this go to flash_fwd, wider ones to flash_stream
 FLASH_FWD_MAX_D = 160
@@ -143,15 +149,18 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 def _route(q_shape, k_shape, causal: bool, device_type: str,
-           needs_grad: bool = False) -> str:
+           needs_grad: bool = False, masked: bool = False) -> str:
     """The kernel a call goes to: "plain" | "flash_fwd" | "flash" (the
     forward with lse and the backward kernels, :class:`FlashAttnFn`) |
-    "flash_stream".  Depends only on the device, the shapes and whether a
+    "flash_stream" | "plain_masked" (an additive mask on the card).  Depends
+    only on the device, the shapes, the mask's presence and whether a
     gradient is needed; raises where no kernel takes the call."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
         raise NotImplementedError(f"attention on device type {device_type!r}")
+    if masked:
+        return "plain_masked"
     D = q_shape[-1]
     if D <= FLASH_FWD_MAX_D:
         return "flash" if needs_grad else "flash_fwd"
@@ -285,15 +294,16 @@ def attention(
     scale: Optional[float] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """softmax(q k^T * scale) v, routed by :func:`_route`; `scale` defaults
-    to D**-0.5."""
-    route = _route(q.shape, k.shape, causal, q.device.type, needs_grad(q, k, v))
+    """softmax(q k^T * scale + mask) v, routed by :func:`_route`; `scale`
+    defaults to D**-0.5 (T5 passes 1.0, which reaches every route as it
+    is)."""
+    route = _route(q.shape, k.shape, causal, q.device.type, needs_grad(q, k, v),
+                   masked=mask is not None)
     if route == "plain":
         return attention_plain(q, k, v, mask=mask, scale=scale, causal=causal)
-    if mask is not None:
-        raise NotImplementedError(
-            "attention with an additive mask on CUDA: no kernel takes one"
-        )
+    if route == "plain_masked":
+        ATTENTION_MASKED_LAUNCHES.add(q, k, causal)
+        return attention_plain(q, k, v, mask=mask, scale=scale, causal=causal)
     if route in ("flash", "flash_fwd"):
         return flash_fwd(q, k, v, scale=scale, causal=causal)
     return flash_stream(q, k, v, scale=scale)

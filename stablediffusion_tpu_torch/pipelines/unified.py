@@ -36,7 +36,9 @@ loop itself runs on NCHW.
 
 Not ported here; each raises and names its ROADMAP §1 item: hires fix,
 FreeU, PAG, InstructPix2Pix, DeepCache, ControlNet, IP-Adapter, prompt
-weighting and editing (item 15); SD3's arguments (item 18).
+weighting and editing (item 15).  SD3's arguments (``prompt_3``,
+``max_sequence_length``) belong to ``pipelines/sd3.py``; here they are
+unexpected keywords, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -96,9 +98,6 @@ _UNPORTED = {
     "ip_adapter_image": (15, _is_set),
     "ip_adapter_image_embeds": (15, _is_set),
     "prompt_weighting": (15, bool),
-    "prompt_3": (18, _is_set),
-    "negative_prompt_3": (18, _is_set),
-    "max_sequence_length": (18, _is_set),
 }
 # settings that act only together with an unported feature above
 _INERT = ("hires_strength", "hires_steps", "pag_applied_layers",
@@ -171,6 +170,44 @@ class _Draws:
         return x if x is not None else step_noise(self.generator("steps", like.shape[0]), like)
 
 
+def to_nchw(x, channels: int, device: torch.device) -> torch.Tensor:
+    """NHWC or NCHW latents -> an NCHW tensor on `device`."""
+    x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                        device=device)
+    if x.dim() == 4 and x.shape[-1] == channels:
+        return x.permute(0, 3, 1, 2)
+    if x.dim() == 4 and x.shape[1] == channels:
+        return x
+    raise ValueError(f"cannot interpret latents of shape {tuple(x.shape)}")
+
+
+@torch.no_grad()
+def clip_encode(tokenizer, encoder, texts: List[str], mode: str, device: torch.device,
+                clip_skip: Optional[int] = None,
+                weights: Optional[Dict[str, torch.Tensor]] = None):
+    """-> (hidden states [B, 77, H], pooled [B, P]) of one CLIP tower
+    (``unified.py:91-108``).  mode "last": the last hidden state;
+    "skip_renorm" (SD1.x clip skip): the hidden state `clip_skip` layers
+    before the last, through final_layer_norm; "penultimate" (SDXL, SD3):
+    hidden_states[-(clip_skip + 2)], no final norm.  The pooled output is
+    the projected one of a tower that has a projection (bigG; SD3's CLIP-L
+    too).  `weights` ({name: tensor}) stand in for the tower's own for this
+    call."""
+    ids = torch.from_numpy(tokenizer(texts)).to(device)
+    out = (torch.func.functional_call(encoder, weights, (ids,)) if weights
+           else encoder(ids))
+    pooled = out.projected_pooled if encoder.config.with_projection else out.pooled_output
+    if mode == "last":
+        h = out.last_hidden_state
+    elif mode == "skip_renorm":
+        h = encoder.final_layer_norm(out.hidden_states[-(clip_skip + 1)])
+    elif mode == "penultimate":
+        h = out.skip_layer(clip_skip or 0)
+    else:
+        raise ValueError(mode)
+    return h, pooled
+
+
 class StableDiffusionUnifiedPipeline:
     """txt2img / img2img / inpaint on one device: ``cuda`` unless
     `device="cpu"` is passed."""
@@ -190,30 +227,10 @@ class StableDiffusionUnifiedPipeline:
         self.vae_dtype = vae_dtype
 
     # -- prompt encoding (unified.py:91-108, 438-587) -------------------------
-    @torch.no_grad()
     def _clip_encode(self, tokenizer, encoder, texts: List[str], mode: str,
                      clip_skip: Optional[int] = None,
                      weights: Optional[Dict[str, torch.Tensor]] = None):
-        """-> (hidden states [B, 77, H], pooled [B, P]).  mode "last": the
-        last hidden state; "skip_renorm" (SD1.x clip skip): the hidden state
-        `clip_skip` layers before the last, through final_layer_norm;
-        "penultimate" (SDXL): hidden_states[-(clip_skip + 2)], no final
-        norm.  The pooled output is the projected one of a tower that has a
-        projection (bigG).  `weights` ({name: tensor}) stand in for the
-        tower's own for this call."""
-        ids = torch.from_numpy(tokenizer(texts)).to(self.device)
-        out = (torch.func.functional_call(encoder, weights, (ids,)) if weights
-               else encoder(ids))
-        pooled = out.projected_pooled if encoder.config.with_projection else out.pooled_output
-        if mode == "last":
-            h = out.last_hidden_state
-        elif mode == "skip_renorm":
-            h = encoder.final_layer_norm(out.hidden_states[-(clip_skip + 1)])
-        elif mode == "penultimate":
-            h = out.skip_layer(clip_skip or 0)
-        else:
-            raise ValueError(mode)
-        return h, pooled
+        return clip_encode(tokenizer, encoder, texts, mode, self.device, clip_skip, weights)
 
     def encode_prompt(
         self,
@@ -530,7 +547,7 @@ class StableDiffusionUnifiedPipeline:
             if latents is None:
                 latents = rng.randn("latents", torch.empty(shape, device=self.device))
             else:
-                latents = self._to_nchw(latents, unet_c).float()
+                latents = to_nchw(latents, unet_c, self.device).float()
             # given latents are scaled too (unified.py:1101)
             latents = latents * plan.init_noise_sigma
         elif mask_image is None:  # img2img
@@ -538,7 +555,7 @@ class StableDiffusionUnifiedPipeline:
             plan, _ = self.get_timesteps(scheduler, num_inference_steps, strength, start,
                                          timesteps=timesteps, sigmas=sigmas)
             if getattr(image_arr, "ndim", 0) == 4 and image_arr.shape[-1] == lat_c:
-                init_latents = self._to_nchw(image_arr, lat_c)
+                init_latents = to_nchw(image_arr, lat_c, self.device)
             else:
                 init_latents = self._vae_encode(
                     model, img_utils.preprocess_image(image_arr, height, width), rng,
@@ -576,7 +593,7 @@ class StableDiffusionUnifiedPipeline:
             noise4 = rng.randn("latents", torch.empty(shape, device=self.device))
             if latents is not None:
                 # given latents act as the noise, scaled
-                noise4 = self._to_nchw(latents, lat_c).float()
+                noise4 = to_nchw(latents, lat_c, self.device).float()
                 latents = noise4 * plan.init_noise_sigma
             elif strength == 1.0:
                 latents = noise4 * plan.init_noise_sigma
@@ -588,7 +605,7 @@ class StableDiffusionUnifiedPipeline:
             mask_lat = torch.from_numpy(mask_small).to(self.device).permute(0, 3, 1, 2)
             mask_lat = mask_lat.repeat(B * n, 1, 1, 1)
             if masked_image_latents is not None:
-                masked_lat = self._to_nchw(masked_image_latents, lat_c)
+                masked_lat = to_nchw(masked_image_latents, lat_c, self.device)
             elif inpaint_mode == "concat9":
                 masked_lat = self._vae_encode(model, init_image * (mask_np < 0.5), rng,
                                               "encode_masked", vae_tiling)
@@ -640,16 +657,6 @@ class StableDiffusionUnifiedPipeline:
         return SDPipelineOutput(images_np, None, seed)
 
     # -- helpers -------------------------------------------------------------
-    def _to_nchw(self, x, channels: int) -> torch.Tensor:
-        """NHWC or NCHW latents -> an NCHW tensor on the pipeline's device."""
-        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                            device=self.device)
-        if x.dim() == 4 and x.shape[-1] == channels:
-            return x.permute(0, 3, 1, 2)
-        if x.dim() == 4 and x.shape[1] == channels:
-            return x
-        raise ValueError(f"cannot interpret latents of shape {tuple(x.shape)}")
-
     @staticmethod
     def _image_or_latents(image, lat_c: int):
         """Latent-shaped input (NHWC or NCHW with `lat_c` channels) goes to

@@ -9,10 +9,11 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * an optional model block {type, name, scheduler, prediction_type, loras,
     textual_inversion}:
     - ``name`` hot-reloads the model from the diffusers folder
-      ``{type}_{name}`` under the model dir (type "sd15" or "sdxl"; with no
-      type and no model loaded, "sdxl", as in JAX), or from the A1111
-      single file it names, with the tokenizers of a ``tokenizer/`` folder
-      beside it or in the model dir;
+      ``{type}_{name}`` under the model dir (type "sd15", "sdxl" or "sd3";
+      with no type and no model loaded, "sdxl", as in JAX), or from the
+      A1111 single file it names, with the tokenizers of a ``tokenizer/``
+      folder beside it or in the model dir (SD3 single files are refused,
+      as in JAX);
     - ``loras`` ({name: scale} or names) fuses
       ``{lora_dir}/{type}_{name}.safetensors`` (the lora dir defaults to
       the model dir); an empty value clears them;
@@ -21,6 +22,10 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * SDXL requests take ``prompt_2`` / ``negative_prompt_2``, and
     ``use_refiner`` through ``params`` (without a loaded refiner it answers
     on the error channel, as the JAX pipeline raises);
+  * an SD3 model's requests go to ``pipelines/sd3.StableDiffusion3Pipeline``
+    (``prompt_3``, ``negative_prompt_3``, ``max_sequence_length``); the keys
+    its ``__call__`` does not take are dropped with a warning
+    (``handler.py:352-368``), so an SDXL payload still serves;
   * `params` merge into the top-level arguments; a seed is drawn when absent
     and echoed;
   * images come back as base64 JPEG, or as URLs through an upload sink;
@@ -28,16 +33,19 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
 
 Not ported here; each answers on the error channel and names its ROADMAP §1
 item: the "inference_wandb" mode (item 21), the model block's "quantize"
-(item 16), SD3 (item 18) and a serving mesh (item 20); in the "train" mode,
-the trainer's options that ``train/trainer.check_args`` refuses (items 19
-and 20).  The model has no ``load_ip_adapter``, so that key answers "not
-supported", as it does for JAX model types without it.
+(item 16), a serving mesh (item 20), SD3 LoRAs (item 18) and SD3 training
+(item 19); in the "train" mode, the trainer's options that
+``train/trainer.check_args`` refuses (items 19 and 20).  The models have no
+``load_ip_adapter``, and an SD3 model no ``load_textual_inversion``, so
+those keys answer "not supported", as they do for JAX model types without
+them.
 """
 
 from __future__ import annotations
 
 import base64
 import dataclasses
+import inspect
 import io
 import logging
 import os
@@ -50,11 +58,13 @@ import torch
 
 from stablediffusion_tpu_torch.core.config import resolve_device
 from stablediffusion_tpu_torch.io.loader import (
+    load_sd3_model,
     load_sd_model,
     load_sd_single_file,
     resolve_checkpoint,
 )
 from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model, StableDiffusion3Pipeline
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 
 logger = logging.getLogger(__name__)
@@ -134,7 +144,7 @@ class Handler:
 
     def __init__(
         self,
-        model: Optional[SDModel] = None,
+        model: Union[SDModel, SD3Model, None] = None,
         model_dir: Optional[str] = None,
         lora_dir: Optional[str] = None,
         uploader=None,
@@ -160,14 +170,14 @@ class Handler:
     # -- model hot-swap --------------------------------------------------------
     def maybe_reload_model(self, model_cfg: Dict[str, Any]) -> None:
         mtype = model_cfg.get("type", getattr(self.model, "model_type", "sdxl"))
-        if mtype == "sd3":
-            raise _later("SD3 models", 18)
         name = model_cfg.get("name")
         if name is not None:
             path = resolve_checkpoint(mtype, name, cache_dir=self.model_dir)
             if self.model is None or self.model.path not in (path, os.path.abspath(path)):
                 logger.info("loading model %s (%s)", name, path)
-                if os.path.isfile(path):  # an A1111 single file
+                if mtype == "sd3":  # a folder; load_sd3_model refuses single files
+                    self.model = load_sd3_model(path, device=self.device)
+                elif os.path.isfile(path):  # an A1111 single file
                     tok_dir = next((d for d in (os.path.dirname(path), self.model_dir)
                                     if d and os.path.isdir(os.path.join(d, "tokenizer"))),
                                    None)
@@ -196,8 +206,14 @@ class Handler:
         if "textual_inversion" in model_cfg:
             # declarative: the list is the wanted state.  Requests name files
             # on disk, so .pt embeddings load with weights_only=True only
-            self.model.unload_textual_inversion()
-            for ti in model_cfg["textual_inversion"] or []:
+            tis = model_cfg["textual_inversion"] or []
+            if not hasattr(self.model, "load_textual_inversion"):  # SD3
+                if tis:  # clearing is a no-op
+                    raise ValueError(f"textual_inversion is not supported for model type "
+                                     f"{self.model.model_type!r}")
+            else:
+                self.model.unload_textual_inversion()
+            for ti in tis:
                 src = ti["path"] if isinstance(ti, dict) else str(ti)
                 if not os.path.exists(src) and self.model_dir:
                     src = os.path.join(self.model_dir, src)
@@ -252,6 +268,17 @@ class Handler:
         for key in ("image", "mask_image"):
             if isinstance(args.get(key), str):
                 args = dict(args, **{key: decode_image_b64(args[key])})
+        if self.model.model_type == "sd3":
+            # SD3's narrower argument surface: drop what its __call__ does not
+            # take, with a warning, rather than fail a reused SDXL payload
+            known = set(inspect.signature(StableDiffusion3Pipeline.__call__).parameters)
+            dropped = sorted(k for k in args if k not in known)
+            if dropped:
+                logger.warning("sd3: ignoring unsupported args %s", dropped)
+            args = {k: v for k, v in args.items() if k in known}
+            pipe = StableDiffusion3Pipeline(do_cfg=True, output_type=output_type,
+                                            device=self.device)
+            return pipe(self.model, **args)
         pipe = StableDiffusionUnifiedPipeline(do_cfg=True, output_type=output_type,
                                               device=self.device)
         return pipe(self.model, **args)
@@ -322,6 +349,8 @@ class Handler:
         file's path."""
         from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
 
+        if self.model.model_type == "sd3":
+            raise _later("training an SD3 model (sd3_train.py)", 19)
         cfg = dict(request_input.get("train") or {})
         data_dir = cfg.pop("data_dir", None)
         if not data_dir:

@@ -6,12 +6,13 @@ GET /, and merges concurrent txt2img requests through the micro-batcher
 (``--max_batch`` > 1)::
 
     python -m stablediffusion_tpu_torch.serve.worker \\
-        --model_dir D --model_name N [--model_type sdxl|sd15] [--lora_dir L] \\
+        --model_dir D --model_name N [--model_type sdxl|sd15|sd3] [--lora_dir L] \\
         [--warmup]
 
 loads the diffusers folder ``D/{model_type}_N`` (``--model_type`` "sdxl"
-unless given, as in JAX), or the A1111 single file ``D/N`` when N ends in
-.safetensors or .ckpt, onto the card and serves it on ``--port`` (8000).
+unless given, as in JAX; "sd3" serves an SD3-family folder, with or without
+T5), or the A1111 single file ``D/N`` when N ends in .safetensors or .ckpt
+(SD1.x and SDXL), onto the card and serves it on ``--port`` (8000).
 Requests' ``loras`` are read from ``L/{model_type}_{name}.safetensors``
 (``--lora_dir``, default the model dir).  The server, its handler and its
 batcher are one object (``make_server``), so a program can run one in a

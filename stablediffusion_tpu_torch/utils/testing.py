@@ -1,8 +1,10 @@
 """Random-weight models for smoke runs and benches.
 
-Port of ``stablediffusion_tpu/utils/testing.py:17-55,78-134``
+Port of ``stablediffusion_tpu/utils/testing.py:17-186``
 (``random_params_like`` / ``random_model_params``, ``bench_tokenizer``,
-``random_full_model`` for SD1.5 and SDXL), a random SDXL refiner, a random
+``bench_t5_tokenizer``, ``random_full_model`` for SD1.5, SDXL and SD3),
+a random SD3-family model of any configs (``random_sd3_model``), a random
+SDXL refiner, a random
 training batch as
 ``benchmarks/bench_train.py`` builds it, the error rules that hold a CUDA
 kernel against its plain version, and files for the adapter and single-file
@@ -21,6 +23,7 @@ costs no host time.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Optional, Sequence, Union
 
@@ -29,6 +32,8 @@ import torch
 from torch import nn
 
 from stablediffusion_tpu_torch.core.config import (
+    SD3_MEDIUM,
+    SD3_VAE,
     SD15_TEXT_ENCODER,
     SD15_UNET,
     SD15_VAE,
@@ -40,17 +45,25 @@ from stablediffusion_tpu_torch.core.config import (
     SDXL_VAE,
     CLIPTextConfig,
     SchedulerConfig,
+    SD3Config,
     UNetConfig,
     VAEConfig,
     default_dtype,
     resolve_device,
 )
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
+from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
+from stablediffusion_tpu_torch.models.t5 import T5_XXL, T5Config, T5EncoderModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.ops.attention import _row_dot
+from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer, _bytes_to_unicode
+from stablediffusion_tpu_torch.tokenizer.sentencepiece_unigram import (
+    METASPACE,
+    SentencePieceUnigramTokenizer,
+)
 
 # Limit of an attention kernel's output against its plain version evaluated in
 # fp32 on the same input values, per element: |out - ref| <= rtol*|ref| + atol.
@@ -332,6 +345,8 @@ def random_module(cls, config, device: torch.device, dtype: torch.dtype,
                 continue
             if p.dim() == 2:  # embedding tables are (vocab, dim), linears (out, in)
                 fan_in = p.shape[0] if name.endswith("embedding.weight") else p.shape[1]
+            elif p.dim() == 3:  # the MM-DiT's position table [1, positions, dim]
+                fan_in = p.shape[2]
             else:  # OIHW conv kernel
                 fan_in = p.shape[1] * p.shape[2] * p.shape[3]
             std = min(0.02, fan_in**-0.5)
@@ -351,6 +366,20 @@ def bench_tokenizer(pad_token_id: Optional[int] = None) -> CLIPTokenizer:
     vocab["<|startoftext|>"] = 49406
     vocab["<|endoftext|>"] = 49407
     return CLIPTokenizer(vocab, [], pad_token_id=pad_token_id)
+
+
+def bench_t5_tokenizer(extra_ids: int = 100) -> SentencePieceUnigramTokenizer:
+    """Char-level SentencePiece-unigram tokenizer with T5's special layout
+    (<pad> 0, </s> 1, <unk> 2, the sentinels at the end of the id space), so
+    a full-size T5 runs the real encode contract; its ids stay far below the
+    32128-row table, and ``save_pretrained`` round-trips it.  The JAX
+    package's tokenizer of the same name builds the same vocabulary."""
+    chars = "abcdefghijklmnopqrstuvwxyz0123456789.,!?'-"
+    vocab = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), (METASPACE, -1.0)]
+    vocab += [(c, -2.0) for c in chars]
+    vocab += [(METASPACE + c, -1.5) for c in chars]
+    return SentencePieceUnigramTokenizer(vocab, unk_id=2, eos_id=1, pad_id=0,
+                                         extra_ids=extra_ids)
 
 
 def synthetic_clip_tokenizer(pad_token_id: Optional[int] = None) -> CLIPTokenizer:
@@ -420,17 +449,72 @@ def random_model(
     )
 
 
+def random_sd3_model(
+    transformer_config: SD3Config,
+    vae_config: VAEConfig,
+    text_encoder_config: CLIPTextConfig,
+    text_encoder_2_config: CLIPTextConfig,
+    tokenizer,
+    tokenizer_2,
+    text_encoder_3_config: Optional[T5Config] = None,
+    tokenizer_3=None,
+    device: Union[str, torch.device, None] = None,
+    dtype: Optional[torch.dtype] = None,
+    seed: int = 0,
+    scheduler_config: Optional[SchedulerConfig] = None,
+) -> SD3Model:
+    """An SD3Model of the given configs with random weights from `seed`, on
+    `device` (default ``cuda``; raises without a card unless
+    ``device="cpu"``), every module in `dtype` (default: the device's
+    compute dtype).  A `text_encoder_3_config` adds T5."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    t5 = {}
+    if text_encoder_3_config is not None:
+        t5 = dict(text_encoder_3_config=text_encoder_3_config,
+                  text_encoder_3=random_module(T5EncoderModel, text_encoder_3_config,
+                                               device, dtype, g),
+                  tokenizer_3=tokenizer_3)
+    return SD3Model(
+        transformer_config=transformer_config,
+        transformer=random_module(SD3Transformer2DModel, transformer_config, device, dtype, g),
+        vae_config=vae_config,
+        vae=random_module(AutoencoderKL, vae_config, device, dtype, g),
+        text_encoder_config=text_encoder_config,
+        text_encoder=random_module(CLIPTextModel, text_encoder_config, device, dtype, g),
+        tokenizer=tokenizer,
+        text_encoder_2_config=text_encoder_2_config,
+        text_encoder_2=random_module(CLIPTextModel, text_encoder_2_config, device, dtype, g),
+        tokenizer_2=tokenizer_2,
+        scheduler_config=scheduler_config or SchedulerConfig(shift=3.0),
+        **t5,
+    )
+
+
 def random_full_model(
     name: str = "sd15",
     device: Union[str, torch.device, None] = None,
     dtype: Optional[torch.dtype] = None,
     seed: int = 0,
-) -> SDModel:
-    """Full-width SD1.5 or SDXL SDModel with random weights: the same FLOPs
-    and memory traffic as the real checkpoint, which the repository does not
-    hold.  SDXL: CLIP-L and bigG (its char-level tokenizer pads with id 0, as
-    OpenCLIP's does), the VAE in fp32 and the "leading" scheduler, as the
-    JAX package's ``random_full_model("sdxl")`` builds it."""
+    with_t5: bool = False,
+):
+    """Full-width SD1.5 or SDXL SDModel, or SD3-medium SD3Model, with random
+    weights: the same FLOPs and memory traffic as the real checkpoint, which
+    the repository does not hold.  SDXL: CLIP-L and bigG (its char-level
+    tokenizer pads with id 0, as OpenCLIP's does), the VAE in fp32 and the
+    "leading" scheduler, as the JAX package's ``random_full_model("sdxl")``
+    builds it.  SD3: the T5-free serving configuration unless `with_t5`
+    adds T5-XXL and ``bench_t5_tokenizer``; CLIP-L with its projection, as
+    SD3 checkpoints ship it (pooled 768 + 1280 = 2048); every module in
+    `dtype`, as the JAX package's ``_random_full_sd3`` holds them."""
+    if name == "sd3":
+        return random_sd3_model(
+            SD3_MEDIUM, SD3_VAE, dataclasses.replace(SDXL_TEXT_ENCODER, with_projection=True),
+            SDXL_TEXT_ENCODER_2, bench_tokenizer(), bench_tokenizer(pad_token_id=0),
+            text_encoder_3_config=T5_XXL if with_t5 else None,
+            tokenizer_3=bench_t5_tokenizer() if with_t5 else None,
+            device=device, dtype=dtype, seed=seed)
     if name == "sdxl":
         return random_model(
             SDXL_UNET, SDXL_VAE, SDXL_TEXT_ENCODER, bench_tokenizer(),
@@ -440,9 +524,7 @@ def random_full_model(
             vae_dtype=torch.float32, scheduler_config=SDXL_SCHEDULER,
         )
     if name != "sd15":
-        raise NotImplementedError(
-            f"model {name!r}: not ported yet, SD3 comes with ROADMAP §1 item 18"
-        )
+        raise ValueError(f"model {name!r}: one of 'sd15', 'sdxl', 'sd3'")
     return random_model(
         SD15_UNET, SD15_VAE, SD15_TEXT_ENCODER, bench_tokenizer(),
         device=device, dtype=dtype, seed=seed,

@@ -63,7 +63,8 @@ def test_import_pulls_in_no_jax():
     for sub in ("lora.core", "train.optim", "train.train_step", "schedulers.ddpm",
                 "io.loader", "io.safetensors_io", "serve.handler", "serve.worker",
                 "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms",
-                "lora.formats", "io.a1111"):
+                "lora.formats", "io.a1111", "models.t5", "models.mmdit", "pipelines.sd3",
+                "tokenizer.sentencepiece_unigram"):
         assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"
@@ -161,7 +162,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from stablediffusion_tpu_torch.pipelines.unified import (
         StableDiffusionUnifiedPipeline,
     )
-    from stablediffusion_tpu_torch.io.loader import load_sd_model
+    from stablediffusion_tpu_torch.io.loader import load_sd3_model, load_sd_model
+    from stablediffusion_tpu_torch.pipelines.sd3 import StableDiffusion3Pipeline
     from stablediffusion_tpu_torch.serve.handler import Handler
     from stablediffusion_tpu_torch.serve.worker import build, parse_args, serve_http
     from stablediffusion_tpu_torch.utils.testing import random_full_model, random_model
@@ -177,7 +179,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         serve_http(port=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StableDiffusionUnifiedPipeline()
-    for name in ("sd15", "sdxl"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_sd3_model("no-such-folder")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StableDiffusion3Pipeline()
+    for name in ("sd15", "sdxl", "sd3"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             random_full_model(name)
     with pytest.raises(RuntimeError, match="no CUDA device"):

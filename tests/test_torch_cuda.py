@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from stablediffusion_tpu_torch.ops.attention import (
+    ATTENTION_MASKED_LAUNCHES,
     FLASH_BWD_DKV_LAUNCHES,
     FLASH_BWD_DQ_LAUNCHES,
     FLASH_FWD_LAUNCHES,
@@ -125,8 +126,6 @@ def test_strided_inputs(cuda, dtype):
 
 def test_refusals(cuda):
     q = torch.randn(1, 16, 1, 64, device=cuda)
-    with pytest.raises(NotImplementedError):
-        attention(q, q, q, mask=torch.zeros(1, 1, 16, 16, device=cuda))
     with pytest.raises(ValueError):
         flash_fwd(torch.randn(1, 16, 1, 36, device=cuda), *[torch.randn(1, 16, 1, 36, device=cuda)] * 2)
     with pytest.raises(TypeError):
@@ -411,3 +410,36 @@ def test_textual_inversion_rows_on_card(cuda):
     assert t.device.type == "cuda" and t.dtype == table0.dtype and t.shape[0] == 1002
     model.unload_textual_inversion()
     assert torch.equal(model.text_encoder.text_model.embeddings.token_embedding.weight, table0)
+
+
+# -- the SD3 slice: the masked route and the ragged joint length --------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_route_counts_its_calls(cuda, dtype):
+    """An additive mask on the card (T5's position bias) goes to the plain
+    version by design: its own counter moves, no kernel launches, and the
+    scale reaches it as given (T5 passes 1.0)."""
+    q, k, v = _qkv(cuda, dtype, 2, 256, 4, 64, 256)
+    bias = torch.randn(1, 4, 256, 256, device=cuda)
+    counts = (ATTENTION_MASKED_LAUNCHES.count, FLASH_FWD_LAUNCHES.count)
+    out = attention(q, k, v, mask=bias, scale=1.0)
+    assert (ATTENTION_MASKED_LAUNCHES.count, FLASH_FWD_LAUNCHES.count) == (
+        counts[0] + 1, counts[1])
+    assert torch.equal(out, attention_plain(q, k, v, mask=bias, scale=1.0))
+    assert not torch.equal(out, attention_plain(q, k, v, mask=bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, S, H", [(1, 333, 3), (2, 1357, 24), (2, 4429, 24)])
+def test_flash_fwd_ragged_joint_length(cuda, dtype, B, S, H):
+    """The MM-DiT's joint attention: one ragged length on both sides (4429
+    = 69 * 64 + 13 at 1024², 1357 at 512²), head dim 64.  The last query
+    tile's rows are written (the output starts uninitialised) and the keys
+    past Skv are masked."""
+    q, k, v = _qkv(cuda, dtype, B, S, H, 64, S)
+    before = FLASH_FWD_LAUNCHES.count
+    out = flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_FWD_LAUNCHES.count == before + 1 and torch.isfinite(out).all()
+    _within_limit(out, attention_plain, q, k, v, p_rounded=dtype == torch.bfloat16)

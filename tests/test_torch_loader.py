@@ -151,7 +151,7 @@ def test_strict_keys_and_unported_formats(folders, tmp_path):
         loader.load_sd_model(d, device="cpu")
     with pytest.raises(NotImplementedError, match="item 16"):
         loader.save_sd_model(tm, str(tmp_path / "q"), quantize="w8")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="load_sd3_model"):
         loader.load_sd_model(d, model_type="sd3", device="cpu")
     single = tmp_path / "model.safetensors"
     save_safetensors({"x": torch.zeros(1)}, str(single))

@@ -231,9 +231,13 @@ def test_uint8_device_and_unported_arguments(models):
     assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
     np.testing.assert_array_equal(dev.numpy(), host)
     for extra, item in ((dict(hires_scale=2.0), "item 15"), (dict(freeu=True), "item 15"),
-                        (dict(pag_scale=3.0), "item 15"), (dict(prompt_3="x"), "item 18")):
+                        (dict(pag_scale=3.0), "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             pipe(tm, **kw, **extra)
+    # SD3's arguments belong to the SD3 pipeline; here, as in the JAX
+    # pipeline, they are unexpected keywords
+    with pytest.raises(TypeError, match="prompt_3"):
+        pipe(tm, prompt_3="x", **kw)
     # the SDXL arguments are ported: on an SD1.5 model prompt_2 is ignored
     # and use_refiner needs a loaded refiner, as in the JAX pipeline
     np.testing.assert_array_equal(pipe(tm, output_type="uint8", prompt_2="x", **kw).images,

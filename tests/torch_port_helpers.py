@@ -91,6 +91,95 @@ def tiny_sdxl_port_model(seed: int = 0, refiner: bool = False) -> SDModel:
     return model
 
 
+def tiny_sd3_port_model(seed: int = 0, with_t5: bool = True, dual=(), qk_norm=None):
+    """A tiny SD3-family port model on the CPU, fp32, in the layout of the
+    JAX tests' ``make_tiny_sd3_model``: the tiny MM-DiT (`dual` MMDiT-X
+    blocks, `qk_norm`), CLIP-L-like and bigG-like towers with projections of
+    12 and 8 (pooled 20, hidden 32 + 32 zero-padded to the joint width 80),
+    a T5 of d_model 80 with ``bench_t5_tokenizer(extra_ids=4)``, and an
+    SD3-style VAE without quant convs whose latents carry a shift."""
+    from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
+    from stablediffusion_tpu_torch.models.t5 import T5EncoderModel, tiny_t5_config
+    from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
+    from stablediffusion_tpu_torch.utils.testing import bench_t5_tokenizer
+
+    g = torch.Generator().manual_seed(seed)
+    tf = dataclasses.replace(tcfg.tiny_sd3_config(), dual_attention_layers=tuple(dual),
+                             qk_norm=qk_norm)
+    vc = dataclasses.replace(tcfg.tiny_vae_config(), use_quant_conv=False,
+                             use_post_quant_conv=False, shift_factor=0.1, scaling_factor=1.5)
+    c1 = dataclasses.replace(tcfg.tiny_clip_config(with_projection=True), projection_dim=12)
+    c2 = dataclasses.replace(tcfg.tiny_clip_config(with_projection=True), projection_dim=8,
+                             hidden_act="gelu")
+    t5 = {}
+    if with_t5:
+        t5c = dataclasses.replace(tiny_t5_config(), d_model=tf.joint_attention_dim)
+        t5 = dict(text_encoder_3_config=t5c, text_encoder_3=_init(T5EncoderModel(t5c), g),
+                  tokenizer_3=bench_t5_tokenizer(extra_ids=4))
+    return SD3Model(
+        transformer_config=tf, transformer=_init(SD3Transformer2DModel(tf), g),
+        vae_config=vc, vae=_init(AutoencoderKL(vc), g),
+        text_encoder_config=c1, text_encoder=_init(CLIPTextModel(c1), g),
+        tokenizer=port_tokenizer(),
+        text_encoder_2_config=c2, text_encoder_2=_init(CLIPTextModel(c2), g),
+        tokenizer_2=port_tokenizer(pad_token_id=0),
+        scheduler_config=tcfg.SchedulerConfig(shift=3.0), **t5)
+
+
+def to_jax_sd3_model(model):
+    """The same weights and configs as a JAX SD3Model (T5 with the JAX
+    package's own ``bench_t5_tokenizer`` of the same vocabulary)."""
+    from stablediffusion_tpu.models.t5 import T5Config as JT5Config
+    from stablediffusion_tpu.pipelines.sd3 import SD3Model as JSD3Model
+    from stablediffusion_tpu.utils.testing import bench_t5_tokenizer
+
+    extra = {}
+    if model.text_encoder_3 is not None:
+        extra = dict(text_encoder_3_config=_jax_cfg(JT5Config, model.text_encoder_3_config),
+                     text_encoder_3_params=jax_tree(model.text_encoder_3),
+                     tokenizer_3=bench_t5_tokenizer(extra_ids=4))
+    return JSD3Model(
+        transformer_config=_jax_cfg(jcfg.SD3Config, model.transformer_config),
+        transformer_params=jax_tree(model.transformer),
+        vae_config=_jax_cfg(jcfg.VAEConfig, model.vae_config), vae_params=jax_tree(model.vae),
+        text_encoder_config=_jax_cfg(jcfg.CLIPTextConfig, model.text_encoder_config),
+        text_encoder_params=jax_tree(model.text_encoder), tokenizer=tiny_tokenizer(),
+        text_encoder_2_config=_jax_cfg(jcfg.CLIPTextConfig, model.text_encoder_2_config),
+        text_encoder_2_params=jax_tree(model.text_encoder_2),
+        tokenizer_2=tiny_tokenizer(pad_token_id=0),
+        scheduler_config=_jax_cfg(jcfg.SchedulerConfig, model.scheduler_config), **extra)
+
+
+@contextlib.contextmanager
+def capture_jax_sd3_draws():
+    """As :func:`capture_jax_draws`, for the JAX SD3 pipeline: "latents"
+    (its one ``randn``) and "encode" (the VAE encode's sampling noise, from
+    the key handed to ``_sd3_vae_encode_any``)."""
+    from stablediffusion_tpu.pipelines import sd3 as js
+
+    draws = {}
+    orig = {n: getattr(js, n) for n in ("randn", "_sd3_vae_encode_any")}
+
+    def randn(*args, **kw):
+        out = orig["randn"](*args, **kw)
+        assert "latents" not in draws, "a second randn in one call"
+        draws["latents"] = np.array(out, np.float32)
+        return out
+
+    def vae_encode_any(params, image, key, **kw):
+        out = orig["_sd3_vae_encode_any"](params, image, key, **kw)
+        if kw.get("sample", True):
+            draws["encode"] = _jax_noise(key, out.shape)
+        return out
+
+    js.randn, js._sd3_vae_encode_any = randn, vae_encode_any
+    try:
+        yield draws
+    finally:
+        for n, f in orig.items():
+            setattr(js, n, f)
+
+
 def _jax_cfg(cls, cfg):
     """The JAX package's dataclass with the port config's fields (the two
     keep the same names and defaults)."""
