@@ -174,6 +174,38 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    and a merged burst of two over loopback at 1024², each with exact
    launches; then phase 28 for the shapes serving added.
 
+31. SD3 training (run after phase 30): ``SD3LoRATrainer`` on SD3-medium
+   with T5-XXL at 1024² (the joint stream 4096 + 77 + 77 = 4250 tokens),
+   batch 1, rank 16 on both streams' attention projections, 4 steps with a
+   checkpoint at step 2 and a resume from it for 2 more (bit for bit the
+   straight run); exact launches per step: 24 joint forwards with lse at
+   [1,4250,24,64] and 24 of each backward kernel, CLIP-L's 12 and bigG's
+   32 causal forwards without lse, T5's 24 masked plain calls, 1
+   ``flash_stream``; a profiled step; one step's loss and gradients under
+   "full", "dots" and "offload" against none (within REMAT_TOL, launches
+   with lse doubled by the recompute), with each policy's wall and peak
+   ("full" and "offload" under REMAT_PEAK_SHARE of none's);
+   ``cache_latents`` for 2 steps, bit for bit the straight run's
+   checkpoint-2.
+32. Full fine-tuning: the full-width SD1.5 UNet at 512², batch 8, with an
+   EMA for 3 steps (every forward with lse in bf16; the EMA's move against
+   its fp64 recomputation's, over the whole UNet, within EMA_TOL, which an
+   EMA left unchanged or one update short exceeds), the saved folder reloaded in fp32 by
+   ``load_sd_model`` with every UNet tensor equal to the fp32 EMA and
+   apart from the initial weights, rendering a finite image, then 2
+   steps with the 8-bit Adam; peak memory.
+33. Textual inversion on the full-width SDXL model at 1024², batch 2, two
+   vectors in both towers, 3 steps: every other row of both tables
+   unchanged bit for bit; ``learned_embeds.safetensors`` loaded into a
+   fresh model by the handler's model block and a request with the
+   trigger answered with a finite image, exact launches.
+34. DreamBooth with prior preservation, SD1.5 512²: the port's pipeline
+   renders 2 class images on the card, then 2 LoRA steps on [instance |
+   class] batches, exact launches.
+   After each of phases 31-34, phase 24's kernel check at every shape it
+   launched that no earlier phase held (the forward with lse and the
+   backward pair at [1,4250,24,64], with wrong variants as teeth).
+
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, when CUDA is not available.
@@ -223,12 +255,19 @@ MUFU_PER_CLOCK = 16
 FMA_EXP_PER_CLOCK = 128 / 4
 SMS = 132
 # the bf16 flash_fwd shapes where three wrong forwards must break the rule:
-# SD1.5's heaviest self-attention; SD3's ragged joint attention at 1024²,
-# MMDiT-X's attn2 and SD3.5-large's joint attention
+# SD1.5's heaviest self-attention; SD3's ragged joint attention at 1024²
+# (served with T5 at 256 tokens, trained with 77), MMDiT-X's attn2 and
+# SD3.5-large's joint attention
 TEETH_CASES = {("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
                ("flash_fwd", 2, 4429, 24, 64, 4429, "bfloat16"),
+               ("flash_fwd", 1, 4250, 24, 64, 4250, "bfloat16"),
                ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
                ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")}
+# the backward pairs (B, Sq, H, D, Skv, dtype) where four wrong backwards
+# must break the rule: SD1.5's heaviest, SD3's ragged joint stream in
+# training at 1024² (4250 = 66 * 64 + 26)
+BWD_TEETH_CASES = {(TRAIN_BATCH, 4096, 8, 40, 4096, "bfloat16"),
+                   (1, 4250, 24, 64, 4250, "bfloat16")}
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -1000,7 +1039,7 @@ def phase_train_kernels(by_shape):
     for (B, Sq, H, D, Skv, causal, dtype) in _train_bwd_cases(by_shape):
         dname = str(dtype).replace("torch.", "")
         key = ((B, Sq, H, D), Skv, dname, causal, False)
-        teeth = (B, Sq, H, D, Skv, dname) == (TRAIN_BATCH, 4096, 8, 40, 4096, "bfloat16")
+        teeth = (B, Sq, H, D, Skv, dname) in BWD_TEETH_CASES
         rows += bwd_case(B, Sq, H, D, Skv, causal, dtype,
                          by_shape["flash_bwd_dkv"].get(key, 0), teeth)
     launched = {n: sum(r["launches"] for r in rows if r["kernel"] == n)
@@ -1094,25 +1133,39 @@ TRAIN_PROMPT = "a photograph of an astronaut riding a horse"
 RESUME_TOL = 1e-3
 
 
-class _TrainProbe:
-    """Wraps the trainer's step, its separate encode (cache_latents) and
-    its validation render, for the duration of a ``with`` block: each data
-    step (its encode included) records its wall, loss, grad norm and
-    launches by kernel and call shape, each validation render its launches;
-    the first step keeps a copy of the initial factors, the last its
-    arguments (for a profiled step after the run)."""
+def _clone_tree(tree):
+    """A copy of a nested dict of tensors."""
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
-    def __init__(self):
+
+class _TrainProbe:
+    """Wraps a trainer's step, its separate encode (cache_latents) and its
+    validation render (``module``: the trainer's module; ``encode``: the
+    name of its encode factory; ``trainer``: the class whose
+    ``_log_validation`` is wrapped, or None), for the duration of a
+    ``with`` block: each data step (its encode included) records its wall,
+    loss, grad norm and launches by kernel and call shape (over
+    ``counters``, by default ``_train_counters()``), each validation render
+    its launches; the first step keeps a copy of the initial trainable
+    tree, the last its arguments (for a profiled step after the run);
+    ``after_step(trainable)`` runs after each step."""
+
+    def __init__(self, module="stablediffusion_tpu_torch.train.trainer",
+                 encode="make_encode_fn", trainer="SDLoRATrainer", counters=None,
+                 after_step=None):
         self.steps, self.validations = [], []
         self.initial, self.last_call = None, None
         self._encode = None
+        self._names = (module, encode, trainer)
+        self.counters = counters or _train_counters()
+        self.after_step = after_step
 
     def _snap(self):
-        return {n: (c.count, dict(c.by_shape)) for n, c in _train_counters().items()}
+        return {n: (c.count, dict(c.by_shape)) for n, c in self.counters.items()}
 
     def _delta(self, snap):
         out = {}
-        for n, c in _train_counters().items():
+        for n, c in self.counters.items():
             count, shapes = snap[n]
             by = {k: v - shapes.get(k, 0) for k, v in c.by_shape.items()
                   if v != shapes.get(k, 0)}
@@ -1120,13 +1173,16 @@ class _TrainProbe:
         return out
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        import stablediffusion_tpu_torch.train.trainer as trainer_mod
-
-        self._mod = trainer_mod
-        self._orig = (trainer_mod.make_train_step, trainer_mod.make_encode_fn,
-                      trainer_mod.SDLoRATrainer._log_validation)
+        module, encode_name, trainer_name = self._names
+        mod = importlib.import_module(module)
+        trainer_cls = getattr(mod, trainer_name) if trainer_name else None
+        self._mod, self._trainer_cls = mod, trainer_cls
+        self._orig = (mod.make_train_step, getattr(mod, encode_name),
+                      trainer_cls._log_validation if trainer_cls else None)
         probe = self
 
         def make_encode_fn(statics):
@@ -1143,13 +1199,12 @@ class _TrainProbe:
 
             return timed
 
-        def make_train_step(statics, scheduler, optimizer):
-            step = probe._orig[0](statics, scheduler, optimizer)
+        def make_train_step(statics, scheduler, optimizer, **kw):
+            step = probe._orig[0](statics, scheduler, optimizer, **kw)
 
             def timed(trainable, opt_state, frozen, batch, generator, draws=None):
                 if probe.initial is None:
-                    probe.initial = {c: {p: {k: v.clone() for k, v in f.items()}
-                                         for p, f in t.items()} for c, t in trainable.items()}
+                    probe.initial = _clone_tree(trainable)
                 snap, encode_s = probe._encode or (probe._snap(), 0.0)
                 probe._encode = None
                 torch.cuda.synchronize()
@@ -1161,6 +1216,8 @@ class _TrainProbe:
                                     "encode_s": encode_s, "loss": loss, "grad_norm": gnorm,
                                     "launches": probe._delta(snap)})
                 probe.last_call = (step, trainable, opt_state, frozen, batch, generator)
+                if probe.after_step is not None:
+                    probe.after_step(out[0])
                 return out
 
             return timed
@@ -1170,14 +1227,18 @@ class _TrainProbe:
             probe._orig[2](trainer, lora, epoch, step)
             probe.validations.append(probe._delta(snap))
 
-        trainer_mod.make_train_step = make_train_step
-        trainer_mod.make_encode_fn = make_encode_fn
-        trainer_mod.SDLoRATrainer._log_validation = log_validation
+        mod.make_train_step = make_train_step
+        setattr(mod, encode_name, make_encode_fn)
+        if trainer_cls is not None:
+            trainer_cls._log_validation = log_validation
         return self
 
     def __exit__(self, *exc):
-        m = self._mod
-        m.make_train_step, m.make_encode_fn, m.SDLoRATrainer._log_validation = self._orig
+        m, (_, encode_name, _) = self._mod, self._names
+        m.make_train_step = self._orig[0]
+        setattr(m, encode_name, self._orig[1])
+        if self._trainer_cls is not None:
+            self._trainer_cls._log_validation = self._orig[2]
 
 
 def _step_launches(delta):
@@ -1369,8 +1430,9 @@ def phase_train_kernels_at(by_shape, path, checked):
         if ("flash_bwd_dkv", *qs, skv, causal, dname) in checked:
             continue
         checked.update(((k, *qs, skv, causal, dname) for k in ("flash_bwd_dkv", "flash_bwd_dq")))
+        teeth = (*qs, skv, dname) in BWD_TEETH_CASES
         rows += [dict(r, path=path) for r in
-                 bwd_case(*qs, skv, causal, getattr(torch, dname), n, False)]
+                 bwd_case(*qs, skv, causal, getattr(torch, dname), n, teeth)]
     print(json.dumps({"path_kernel_rows": path, "columns": [
         "kernel", "shape", "skv", "dtype", "causal", "launches", "kernel_ms", "fwd_lse_ms",
         "bound_ms", "plain_ms", "library_ms", "worst_over_limit"],
@@ -1521,13 +1583,22 @@ def _ask(port, counters, card, label, body, expect):
     return reply, row
 
 
+BURST_WINDOW_MS = 2000.0  # the batcher's fixed window while a burst arrives
+
+
 def _burst(server, port, counters, card, bodies, want_one):
     """Send `bodies` at once from threads; the batcher must merge them, each
-    merged call launching `want_one`.  Returns the replies (status, reply,
-    wall) and the printed row."""
+    merged call launching `want_one`.  The burst runs under the batcher's
+    fixed window of BURST_WINDOW_MS (``adaptive=False``, its deterministic
+    mode): the adaptive window's grace floor of a few ms dispatches the
+    first request alone whenever the host is slower than that to hand the
+    batcher the second.  A gather still ends as soon as it holds the
+    worker's max_batch.  Returns the replies (status, reply, wall) and the
+    printed row."""
     import threading
 
-    merged_before = server.batcher.merged_calls
+    batcher = server.batcher
+    merged_before = batcher.merged_calls
     before = {n: c.count for n, c in counters.items()}
     replies = [None] * len(bodies)
 
@@ -1535,12 +1606,17 @@ def _burst(server, port, counters, card, bodies, want_one):
         replies[i] = _post(port, {"id": f"burst-{i}", "input": bodies[i]})
 
     threads = [threading.Thread(target=go, args=(i,)) for i in range(len(bodies))]
-    t = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(timeout=900)
-    burst_s = time.perf_counter() - t
+    window = batcher.adaptive, batcher.window_ms
+    batcher.adaptive, batcher.window_ms = False, BURST_WINDOW_MS
+    try:
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        burst_s = time.perf_counter() - t
+    finally:
+        batcher.adaptive, batcher.window_ms = window
     got = {n: c.count - before[n] for n, c in counters.items()}
     groups = server.batcher.merged_calls - merged_before
     sizes = sorted(r[1].get("batched", 0) for r in replies if r is not None)
@@ -2852,6 +2928,563 @@ def phase_sd3(smi, checked):
     return rows, {"sd3": launches, "sd3_serve": serve_launches}
 
 
+# -- the rest of training: SD3 LoRA, full fine-tuning, textual inversion,
+# DreamBooth ------------------------------------------------------------------
+
+SD3_TRAIN_STEPS = 4  # a checkpoint at step 2, then a resume for 2 more
+# remat against none on the card: the same kernels and GEMMs on the same
+# inputs, each gradient relative to its largest element (the CPU tests'
+# limit)
+REMAT_TOL = 1e-6
+# each joint block one remat region: "full" and "offload" hold the blocks'
+# inputs and one block's activations, "dots" its 2-D products too; the
+# step's peak over what it holds before, as a share of no remat's
+REMAT_PEAK_SHARE = 0.5
+# the EMA's move from the initial weights against its fp64 recomputation's
+# (e d + p (1 - d) from each step's weights), the L2 norm of the gap over
+# that of the move, the whole UNet at once (lr 1e-4, decay 0.9, 3 steps:
+# moves of ~5e-5 against the in-place fp32 lerp's rounding of an ulp or
+# two a step); an EMA left unchanged reads 1, one update short about 0.5.
+# Per tensor the reading is larger where a tensor's moves come near the
+# fp32 spacing of its weights: reported, not held
+EMA_TOL = 1e-2
+FULL_BATCH = 8
+FULL_STEPS = 3
+TI_TOKEN = "<chip-ti>"
+
+
+def _max_rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _fwd_counts_are_bf16(probe, label):
+    """Every forward with lse a step launched ran in bf16: a trainer that
+    fell onto the fp32 scalar kernels at the UNet's shapes is a fault."""
+    bad = sorted({key for s in probe.steps for key in s["launches"]["flash_fwd"][1]
+                  if key[4] and key[2] != "bfloat16"})
+    if bad:
+        raise AssertionError(f"{label}: forwards with lse outside bf16: {bad}")
+
+
+def phase_train_sd3(smi):
+    """Phase 31: ``SD3LoRATrainer`` on SD3-medium with T5-XXL at 1024², batch
+    1, rank 16 on both streams' attention projections, 4 steps with a
+    checkpoint at step 2, then a resume from it for 2 more (equal to the
+    straight run), a profiled step, one step's loss and gradients under
+    each remat policy against none, and ``cache_latents`` for 2 steps
+    (equal to the straight run's checkpoint-2).  Exact launches per step."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import ATTENTION_MASKED_LAUNCHES
+    from stablediffusion_tpu_torch.schedulers.flow_match import FlowMatchEulerScheduler
+    from stablediffusion_tpu_torch.train import checkpoint as ckpt
+    from stablediffusion_tpu_torch.train.optim import tree_leaves
+    from stablediffusion_tpu_torch.train.sd3_train import (
+        SD3LoRATrainer,
+        SD3TrainingArgs,
+        SD3TrainStatics,
+        make_sd3_encode_fn,
+        sd3_lora_loss_fn,
+    )
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_sd3_")
+    model = random_full_model("sd3", device="cuda", seed=21, with_t5=True)
+    data = write_image_folder(os.path.join(root, "data"), 4, SD3_RES, seed=5,
+                              caption=TRAIN_PROMPT)
+    tf = model.transformer_config
+    n_joint = tf.num_layers + len(tf.dual_attention_layers)
+    clip = (model.text_encoder_config.num_hidden_layers
+            + model.text_encoder_2_config.num_hidden_layers)
+    t5 = model.text_encoder_3_config.num_layers
+    # the towers and T5 encode under no grad; every joint attention is under
+    # grad (the LoRA-fused q/k/v) and gets its backward
+    want = {"flash_fwd": {"with_lse": n_joint, "causal_no_lse": clip, "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": n_joint, "flash_bwd_dkv": n_joint,
+            "attention_masked": t5}
+    counters = {**_train_counters(), "attention_masked": ATTENTION_MASKED_LAUNCHES}
+
+    def args(out, **kw):
+        base = dict(train_batch_size=1, rank=16, learning_rate=1e-4, lr_scheduler="constant",
+                    lr_warmup_steps=0, max_train_steps=SD3_TRAIN_STEPS, checkpointing_steps=2,
+                    log_every=1, resolution=SD3_RES, output_dir=os.path.join(root, out))
+        return SD3TrainingArgs(**{**base, **kw})
+
+    def run(label, a):
+        with _TrainProbe("stablediffusion_tpu_torch.train.sd3_train", "make_sd3_encode_fn",
+                         None, counters) as probe:
+            trainer = SD3LoRATrainer(model, a, data)
+            lora = trainer.train()
+        _check_steps(label, probe, want)
+        _fwd_counts_are_bf16(probe, label)
+        return trainer, lora, probe
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, straight, probe = run("train_sd3_step", args("straight"))
+    straight_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    os.makedirs(os.path.join(root, "resumed"))
+    shutil.copytree(os.path.join(root, "straight", "checkpoint-2"),
+                    os.path.join(root, "resumed", "checkpoint-2"))
+    trainer, resumed, _ = run("train_sd3_resumed_step",
+                              args("resumed", resume_from_checkpoint="latest"))
+    if [s for s, _ in trainer.history] != [3, 4]:
+        raise AssertionError(f"resumed history {trainer.history}")
+    resume_exact = all(torch.equal(a, b) for (_, a), (_, b) in
+                       zip(tree_leaves(straight), tree_leaves(resumed)))
+    # every factor moved but the last block's text-query `up`: that block
+    # keeps only its image stream, so its add_q_proj feeds nothing (zero
+    # gradient, zero start, decay of zero)
+    still = sorted(f"{p}.{k}" for p, f in straight["transformer"].items()
+                   for k, t in f.items()
+                   if torch.equal(t, probe.initial["transformer"][p][k]))
+    exempt = [f"transformer_blocks.{tf.num_layers - 1}.attn.add_q_proj.up"]
+    walls = [s["wall_s"] for s in probe.steps[1:]]
+    summary = {
+        "train_sd3": "SD3LoRATrainer SD3-medium + T5-XXL 1024x1024, batch 1, LoRA r16 on both "
+                     "streams' attention projections, logit-normal timesteps, AdamW constant "
+                     "1e-4, bf16 MM-DiT and towers, fp32 VAE encode, no remat",
+        "card": smi, "step_wall_s": [s["wall_s"] for s in probe.steps],
+        "timed_steps_images_per_s": len(walls) / sum(walls), "train_call_s": straight_s,
+        "peak_memory_gib": peak, "launches_per_step": want, "resumed_equal_bitwise": resume_exact,
+        "unmoved_factors": still, "exempt": exempt,
+        "lora_params": sum(t.numel() for f in straight["transformer"].values()
+                           for t in f.values())}
+    print(json.dumps(summary), flush=True)
+    if not resume_exact:
+        raise AssertionError("the resumed SD3 run differs from the straight run")
+    if still != exempt:
+        raise AssertionError(f"unmoved factors {still} != the exempt {exempt}")
+    step, *call = probe.last_call
+    _profile("one SD3-medium + T5-XXL LoRA train step, 1024x1024, batch 1",
+             lambda: step(*call)[2]["loss"].item())
+    del call, step
+
+    # one step's loss and gradients under each remat policy against no
+    # remat, on the same batch and draws, the latents and embeddings
+    # encoded apart (cache_latents), so that the peak is the MM-DiT's and
+    # not the fp32 1024² encode's
+    frozen = probe.last_call[3]
+    statics = SD3TrainStatics(
+        transformer_config=tf, vae_config=model.vae_config,
+        text_config=model.text_encoder_config, text_config_2=model.text_encoder_2_config,
+        text_config_3=model.text_encoder_3_config, scheduler_config=model.scheduler_config,
+        compute_dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(33)
+    h = SD3_RES // model.vae_scale_factor
+    shape = (1, model.vae_config.latent_channels, h, h)
+    draws = {"latent_eps": torch.randn(shape, generator=g, device="cuda"),
+             "noise": torch.randn(shape, generator=g, device="cuda"),
+             "density": torch.randn((1,), generator=g, device="cuda")}
+    sched = FlowMatchEulerScheduler(model.scheduler_config)
+    batch = make_sd3_encode_fn(statics)(frozen, probe.last_call[4], None, draws)
+    joint_only = {n: 0 for n in want}
+    policies, ref = {}, None
+    for policy in ("none", "none", "full", "dots", "offload"):  # the first warms up
+        lora = _clone_tree(straight)
+        leaves = [t.requires_grad_(True) for _, t in tree_leaves(lora)]
+        st = dataclasses.replace(statics, remat_policy=policy)
+        snap = {n: (c.count, dict(c.by_shape)) for n, c in counters.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        loss = sd3_lora_loss_fn(lora, frozen, batch, None, st, sched, draws)
+        grads = [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {n: c.count - snap[n][0] for n, c in counters.items()}
+        fwd = counters["flash_fwd"]
+        now, prev = _fwd_split(fwd.count, fwd.by_shape), _fwd_split(*snap["flash_fwd"])
+        got["flash_fwd"] = {k: now[k] - prev[k] for k in now}
+        expect = dict(joint_only, flash_bwd_dq=n_joint, flash_bwd_dkv=n_joint,
+                      flash_fwd={"with_lse": n_joint * (1 if policy == "none" else 2),
+                                 "causal_no_lse": 0, "other": 0})
+        if got != expect:
+            raise AssertionError(f"remat {policy}: launches {got} != expected {expect}")
+        if ref is None:
+            ref = grads
+            continue
+        worst = max(_max_rel(a, b) for a, b in zip(grads, ref))
+        top = torch.cuda.max_memory_allocated()
+        policies[policy] = {"wall_s": wall, "peak_memory_gib": top / 2**30,
+                            "step_peak_over_held_gib": (top - base) / 2**30,
+                            "loss": grads[0].item(), "worst_rel_err_vs_none": worst,
+                            "bitwise": all(torch.equal(a, b) for a, b in zip(grads, ref)),
+                            "launches": got}
+        if policy == "none":
+            ref = grads
+        elif not worst <= REMAT_TOL:
+            raise AssertionError(f"remat {policy}: {worst} from no remat")
+        del lora, leaves, loss, grads
+    print(json.dumps({"train_sd3_remat": "one step's loss and LoRA gradients per remat "
+                      "policy, the same encoded batch and draws (the MM-DiT alone), each "
+                      "joint block one region", "card": smi, "tol": REMAT_TOL,
+                      "peak_share": REMAT_PEAK_SHARE, "policies": policies}), flush=True)
+    none_peak = policies["none"]["step_peak_over_held_gib"]
+    for policy in ("full", "offload"):
+        if not policies[policy]["step_peak_over_held_gib"] < REMAT_PEAK_SHARE * none_peak:
+            raise AssertionError(f"remat {policy} holds {policies[policy]} against none's "
+                                 f"{none_peak} GiB")
+    del ref
+
+    # cache_latents: the encode apart, under no grad; the same draws in the
+    # same order, so its 2 steps give the straight run's checkpoint-2
+    _, cached, _ = run("train_sd3_cache_latents_step",
+                       args("cached", cache_latents=True, max_train_steps=2,
+                            checkpointing_steps=None))
+    at2 = ckpt.load_checkpoint(os.path.join(root, "straight", "checkpoint-2"),
+                               {"lora": straight})["lora"]
+    cache_worst = max(_max_rel(a, b) for (_, a), (_, b) in
+                      zip(tree_leaves(cached), tree_leaves(at2)))
+    print(json.dumps({"train_sd3_cache_latents": "2 steps with the encode apart against "
+                      "the straight run's checkpoint-2", "worst_rel_err": cache_worst,
+                      "bitwise": cache_worst == 0.0}), flush=True)
+    if not cache_worst == 0.0:
+        raise AssertionError(f"cache_latents {cache_worst} from the fused steps")
+    del model, straight, resumed, cached, at2, probe, frozen, batch
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, summary
+
+
+def phase_full_finetune(smi):
+    """Phase 32: full fine-tuning of the full-width SD1.5 UNet at 512², batch
+    8, Min-SNR 5, with an EMA (decay 0.9) for 3 steps: the EMA's move
+    against its fp64 recomputation's from each step's weights, with two
+    controls read through the same check (the EMA left unchanged, and one
+    update short); the saved folder reloaded in fp32 through
+    ``load_sd_model`` (every UNet tensor equal to the fp32 EMA and apart
+    from the initial weights) and rendering one finite image; then 2 steps
+    with the 8-bit Adam.  Exact launches per step, every forward with lse
+    in bf16, peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.loader import load_sd_model
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_full_")
+    model = random_full_model("sd15", device="cuda", seed=9)
+    model.vae.float()  # as load_sd_model holds it
+    data = write_image_folder(os.path.join(root, "data"), FULL_BATCH, 512, seed=6,
+                              caption=TRAIN_PROMPT)
+    n_tf = _n_tf(model.unet)
+    want = {"flash_fwd": {"with_lse": 2 * n_tf,
+                          "causal_no_lse": model.text_encoder_config.num_hidden_layers,
+                          "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": 2 * n_tf, "flash_bwd_dkv": 2 * n_tf}
+    decay = 0.9
+
+    def args(out, **kw):
+        base = dict(train_batch_size=FULL_BATCH, full_finetune=True, train_text_encoder=False,
+                    snr_gamma=5.0, learning_rate=1e-4, lr_scheduler="constant",
+                    lr_warmup_steps=0, max_train_steps=FULL_STEPS, log_every=1, report_to=None,
+                    resolution=512, output_dir=os.path.join(root, out))
+        return SDTrainingArgs(**{**base, **kw})
+
+    ref, short = {}, {}
+
+    def fp64_ema(trainable):  # e d + p (1 - d), in fp64, from each step's weights
+        if len(probe.steps) == FULL_STEPS:  # the control one update short
+            short.update({n: e.float() for n, e in ref.items()})
+        for n, p in trainable.items():
+            ref[n] = ref[n] * decay + p.double() * (1.0 - decay)
+
+    def move_err(ema, init):
+        """(||(ema - init) - (ref - init)|| / ||ref - init|| over the whole
+        UNet, the worst tensor's max |gap| / max |move| with its name, max
+        move and max |weight|)."""
+        gap2 = move2 = 0.0
+        worst = (0.0, None, 0.0, 0.0)
+        for n, r in ref.items():
+            move = r - init[n].double()
+            gap = (ema[n].double() - init[n].double()) - move
+            gap2 += gap.square().sum().item()
+            move2 += move.square().sum().item()
+            top, g = move.abs().max().item(), gap.abs().max().item()
+            rel = g / top if top > 0 else (0.0 if g == 0 else float("inf"))
+            if rel > worst[0]:
+                worst = (rel, n, top, r.abs().max().item())
+        return (gap2 / move2) ** 0.5, worst
+
+    counters = _train_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    probe = _TrainProbe(after_step=fp64_ema)
+    t = time.perf_counter()
+    with probe:
+        ref.update({n: p.detach().double() for n, p in model.unet.named_parameters()})
+        ema = SDLoRATrainer(model, args("ema", use_ema=True, ema_decay=decay), data).train()
+    train_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_steps("train_full_step", probe, want)
+    _fwd_counts_are_bf16(probe, "full fine-tuning")
+    init = probe.initial
+    ema_err, ema_worst = move_err(ema, init)
+    controls = {"unchanged": move_err(init, init)[0],
+                "one_update_short": move_err(short, init)[0]}
+    raw = probe.last_call[1]  # the masters after the last step
+    still = sorted(n for n in raw if torch.equal(raw[n], init[n]))
+    ema_still = sorted(n for n in ema if torch.equal(ema[n], init[n]))
+    del ref, short
+    out = os.path.join(root, "ema")
+    loaded = dict(load_sd_model(out, model_type="sd15", device="cuda",
+                                dtype=torch.float32).unet.named_parameters())
+    same = sorted(loaded) == sorted(ema) and all(
+        loaded[n].dtype == torch.float32 and torch.equal(loaded[n], ema[n]) for n in ema)
+    saved_still = sorted(n for n in loaded if torch.equal(loaded[n], init[n]))
+    del loaded
+    # the render holds the folder as a user loads it (bf16 on the card)
+    reloaded = load_sd_model(out, model_type="sd15", device="cuda")
+    im = StableDiffusionUnifiedPipeline(device="cuda")(
+        reloaded, prompt=TRAIN_PROMPT, seed=0, num_inference_steps=4).images
+    summary = {
+        "train_full": "SDLoRATrainer full_finetune SD1.5 512x512, batch 8, the whole UNet as "
+                      "fp32 masters cast to bf16 at each use, Min-SNR 5, AdamW constant 1e-4, "
+                      "EMA 0.9, fp32 VAE encode, no remat",
+        "card": smi, "step_wall_s": [s["wall_s"] for s in probe.steps],
+        "train_call_s": train_s, "peak_memory_gib": peak, "launches_per_step": want,
+        "ema_move_rel_err": ema_err, "ema_tol": EMA_TOL, "ema_controls": controls,
+        "ema_worst_tensor": dict(zip(("max_gap_over_max_move", "name", "max_move",
+                                      "max_abs_weight"), ema_worst)),
+        "unet_tensors": len(ema), "unmoved_masters": still, "unmoved_in_the_ema": ema_still,
+        "reloaded_equal_fp32_ema": same, "unmoved_in_the_saved_folder": saved_still,
+        "folder_gb": _folder_bytes(out) / 1e9, "image_finite": bool(np.isfinite(im).all()),
+        "unet_params": sum(t.numel() for t in ema.values())}
+    print(json.dumps(summary), flush=True)
+    if not (ema_err <= EMA_TOL < min(controls.values()) and not still and not ema_still
+            and same and not saved_still and np.isfinite(im).all()
+            and im.shape == (1, 512, 512, 3)):
+        raise AssertionError(f"full fine-tuning: {summary}")
+    del reloaded, ema, probe, init, raw
+    torch.cuda.empty_cache()
+
+    model8 = random_full_model("sd15", device="cuda", seed=9)
+    model8.vae.float()
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = _TrainProbe()
+    with probe:
+        trained = SDLoRATrainer(model8, args("adam8", use_8bit_adam=True, max_train_steps=2),
+                                data).train()
+    _check_steps("train_full_8bit_step", probe, want)
+    _fwd_counts_are_bf16(probe, "full fine-tuning, 8-bit Adam")
+    still = sorted(n for n in trained if torch.equal(trained[n], probe.initial[n]))
+    row = {"train_full_8bit": "the same with the 8-bit Adam, 2 steps", "card": smi,
+           "step_wall_s": [s["wall_s"] for s in probe.steps],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "unmoved_masters": still}
+    print(json.dumps(row), flush=True)
+    if still:
+        raise AssertionError(f"8-bit full fine-tuning left {still} unmoved")
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    del model8, trained, probe
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, summary
+
+
+def phase_ti_sdxl(smi):
+    """Phase 33: textual inversion on the full-width SDXL model at 1024²,
+    batch 2, two vectors in both towers (seeded from "x"), 3 steps: every
+    other row of both tables unchanged bit for bit, the trained rows in
+    the live tables; then ``learned_embeds.safetensors`` loads into a fresh
+    model through the handler's model block, and a 4-step request with the
+    trigger returns a finite image.  Exact launches per step and for the
+    request."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile
+    from stablediffusion_tpu_torch.serve.handler import Handler, decode_image_b64
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_ti_")
+    model = random_full_model("sdxl", device="cuda", seed=11)
+    data = write_image_folder(os.path.join(root, "data"), 4, SDXL_RES, seed=7,
+                              caption=TRAIN_PROMPT)
+    towers = ("text_encoder", "text_encoder_2")
+    table = lambda m, c: getattr(m, c).text_model.embeddings.token_embedding.weight  # noqa: E731
+    orig = {c: table(model, c).detach().clone() for c in towers}
+    n_tf = _n_tf(model.unet)
+    l1 = model.text_encoder_config.num_hidden_layers
+    l2 = model.text_encoder_2_config.num_hidden_layers
+    # the spliced tables are under grad, so every tower layer is; the
+    # pooled embedding (bigG's) enters the UNet's time embedding, so every
+    # UNet attention is too; SDXL reads CLIP-L's penultimate states, so its
+    # last layer's attention gets no backward
+    want = {"flash_fwd": {"with_lse": 2 * n_tf + l1 + l2, "causal_no_lse": 0, "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": 2 * n_tf + l1 - 1 + l2,
+            "flash_bwd_dkv": 2 * n_tf + l1 - 1 + l2}
+    args = SDTrainingArgs(
+        train_batch_size=2, textual_inversion=TI_TOKEN, ti_initializer_token="x",
+        ti_num_vectors=2, train_text_encoder=False, learning_rate=5e-3,
+        lr_scheduler="constant", lr_warmup_steps=0, max_train_steps=3, log_every=1,
+        report_to=None, resolution=SDXL_RES, output_dir=os.path.join(root, "out"))
+    counters = _train_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with _TrainProbe() as probe:
+        rows = SDLoRATrainer(model, args, data).train()
+    train_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_steps("train_ti_sdxl_step", probe, want)
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    kept, written = {}, {}
+    for c, key in zip(towers, ("embeddings", "embeddings_2")):
+        now, n = table(model, c), orig[c].shape[0]
+        kept[c] = bool(torch.equal(now[:n], orig[c]))
+        written[c] = bool(torch.equal(now[n:], rows[key].to(now.dtype)))
+    moved = {k: _max_rel(v, probe.initial[k]) for k, v in rows.items()}
+    step_walls = [s["wall_s"] for s in probe.steps]
+    path = os.path.join(args.output_dir, "learned_embeds.safetensors")
+    with SafetensorsFile(path) as f:
+        saved = {k: f.torch_tensor(k).clone() for k in f.keys()}
+    rows = {k: v.cpu() for k, v in rows.items()}
+    del model, probe, orig
+    torch.cuda.empty_cache()
+
+    fresh = random_full_model("sdxl", device="cuda", seed=11)
+    handler = Handler(model=fresh)
+    for c in counters.values():
+        c.reset()
+    steps = 4
+    t = time.perf_counter()
+    resp = handler({"prompt": f"a photo of {TI_TOKEN}", "seed": 0, "height": SDXL_RES,
+                    "width": SDXL_RES, "num_inference_steps": steps, "guidance_scale": 7.5,
+                    "model": {"textual_inversion": [{"path": path, "token": TI_TOKEN}]}},
+                   "ti")
+    wall = time.perf_counter() - t
+    if "error" in resp:
+        raise AssertionError(f"the trained embedding's request failed: {resp}")
+    im = decode_image_b64(resp["images"][0])
+    got = {n: counters[n].count for n in ("flash_fwd", "flash_stream")}
+    want_req = _want(fresh, steps, 1)
+    loaded = {c: table(fresh, c)[-2:].detach().cpu() for c in towers}
+    row = {
+        "train_ti_sdxl": "SDLoRATrainer textual inversion, SDXL 1024x1024, batch 2, 2 vectors "
+                         "in both towers, AdamW constant 5e-3, bf16 UNet, fp32 towers and VAE "
+                         "encode, no remat",
+        "card": smi, "step_wall_s": step_walls, "train_call_s": train_s, "peak_memory_gib": peak,
+        "launches_per_step": want, "other_rows_unchanged": kept, "rows_in_tables": written,
+        "rows_moved_rel": moved, "file_keys": sorted(saved),
+        "request_wall_s": wall, "request_launches": got, "expected_request_launches": want_req,
+        "image_shape": list(im.shape)}
+    print(json.dumps(row), flush=True)
+    file_ok = (sorted(saved) == ["clip_g", "clip_l"]
+               and torch.equal(saved["clip_l"], rows["embeddings"])
+               and torch.equal(saved["clip_g"], rows["embeddings_2"])
+               and torch.equal(loaded["text_encoder"], rows["embeddings"])
+               and torch.equal(loaded["text_encoder_2"], rows["embeddings_2"]))
+    if not (all(kept.values()) and all(written.values()) and file_ok and got == want_req
+            and im.shape == (SDXL_RES, SDXL_RES, 3) and np.isfinite(im).all()
+            and moved["embeddings"] > 0):
+        raise AssertionError(f"textual inversion on SDXL: {row}, file {file_ok}")
+    del fresh, handler
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, row
+
+
+def phase_dreambooth(smi):
+    """Phase 34: DreamBooth with prior preservation on the full-width SD1.5
+    model at 512²: the port's pipeline renders the 2 missing class images on
+    the card (one 25-step CFG call of 2 images), then 2 LoRA steps on
+    [instance | class] batches.  Exact launches for the render and each
+    step."""
+    import shutil
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    import stablediffusion_tpu_torch.train.trainer as trainer_mod
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_db_")
+    model = random_full_model("sd15", device="cuda", seed=12)
+    model.vae.float()
+    inst = write_image_folder(os.path.join(root, "instance"), 2, 512, seed=8)
+    cls = os.path.join(root, "class")
+    n_tf = _n_tf(model.unet)
+    want = {"flash_fwd": {"with_lse": 2 * n_tf,
+                          "causal_no_lse": model.text_encoder_config.num_hidden_layers,
+                          "other": 0},
+            "flash_stream": 1, "flash_bwd_dq": 2 * n_tf, "flash_bwd_dkv": 2 * n_tf}
+    args = SDTrainingArgs(
+        train_batch_size=1, rank=16, train_text_encoder=False, learning_rate=1e-4,
+        lr_scheduler="constant", lr_warmup_steps=0, max_train_steps=2, log_every=1,
+        report_to=None, resolution=512, instance_prompt="a photo of sks dog",
+        with_prior_preservation=True, class_data_dir=cls, class_prompt="a photo of dog",
+        num_class_images=2, sample_batch_size=2, output_dir=os.path.join(root, "out"))
+    counters = _train_counters()
+    for c in counters.values():
+        c.reset()
+    render = {}
+    orig = trainer_mod.SDLoRATrainer._ensure_class_images
+
+    def counted(trainer):
+        snap = {n: c.count for n, c in counters.items()}
+        t = time.perf_counter()
+        orig(trainer)
+        torch.cuda.synchronize()
+        render.update(wall_s=time.perf_counter() - t,
+                      launches={n: c.count - snap[n] for n, c in counters.items()})
+
+    trainer_mod.SDLoRATrainer._ensure_class_images = counted
+    try:
+        with _TrainProbe() as probe:
+            trainer = SDLoRATrainer(model, args, inst)
+            trainer.train()
+    finally:
+        trainer_mod.SDLoRATrainer._ensure_class_images = orig
+    _check_steps("train_dreambooth_step", probe, want)
+    want_render = dict(_want(model, 25, 1), flash_bwd_dq=0, flash_bwd_dkv=0)
+    files = sorted(os.listdir(cls))
+    sizes = [Image.open(os.path.join(cls, f)).size for f in files]
+    row = {"train_dreambooth": "SD1.5 512x512 DreamBooth, prior preservation: 2 class images "
+                               "rendered, then LoRA r16 on [instance | class] batches",
+           "card": smi, "render": render, "expected_render_launches": want_render,
+           "class_files": files, "step_wall_s": [s["wall_s"] for s in probe.steps],
+           "history": trainer.history}
+    print(json.dumps(row), flush=True)
+    if render.get("launches") != want_render or files != ["class-0.jpg", "class-1.jpg"] \
+            or sizes != [(512, 512)] * 2:
+        raise AssertionError(f"DreamBooth class render: {row}")
+    totals = {n: c.count for n, c in counters.items()}
+    by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+    del model, trainer, probe
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals, by_shape, row
+
+
 def main() -> int:
     import torch
 
@@ -2930,6 +3563,18 @@ def main() -> int:
 
     sd3_rows, sd3_launches = phase_sd3(smi, checked)
     rows += sd3_rows
+
+    # the rest of training; the kernels at every shape these paths launched
+    # that no earlier phase held
+    held = {(r["kernel"], *r["shape"], r["skv"], r["causal"], r["dtype"]) for r in rows}
+    more_training = {}
+    for path, phase in (("train_sd3", phase_train_sd3), ("train_full", phase_full_finetune),
+                        ("train_ti_sdxl", phase_ti_sdxl),
+                        ("train_dreambooth", phase_dreambooth)):
+        path_launches, path_by_shape, _ = phase(smi)
+        more_training[path] = path_launches
+        rows += phase_train_kernels_at(path_by_shape, path, held)
+        torch.cuda.empty_cache()
     # the masked route (T5's position bias) is no kernel: its count by path
     print(json.dumps({"attention_masked_launches_by_path": {
         p: n.get("attention_masked", 0) for p, n in sd3_launches.items()},
@@ -2962,6 +3607,12 @@ def main() -> int:
         "flash_bwd_dkv": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
         "flash_bwd_dq": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
     }
+    joint = dict(path="train_sd3", shape=[1, 4250, 24, 64], skv=4250, dtype="bfloat16")
+    train_sd3_case = {
+        "flash_fwd": joint, "flash_bwd_dkv": joint, "flash_bwd_dq": joint,
+        "flash_stream": dict(path="sdxl", shape=[1, 16384, 1, 512], skv=16384,
+                             dtype="float32"),
+    }
     lib_flash = "stablediffusion_tpu/ops/attention.py:165"
     meta = {
         "flash_fwd": ("stablediffusion_tpu_torch/csrc/flash_fwd.cu", lib_flash),
@@ -2988,7 +3639,8 @@ def main() -> int:
                    "train_variants": variants_launches[name],
                    **{p: n.get(name, 0) for p, n in sdxl_launches.items()},
                    "single_file_constructor": single_launches.get(name, 0),
-                   **{p: n.get(name, 0) for p, n in sd3_launches.items()}}
+                   **{p: n.get(name, 0) for p, n in sd3_launches.items()},
+                   **{p: n[name] for p, n in more_training.items()}}
         sdxl = None
         if name in sdxl_case:
             r = next(r for r in rows if r["kernel"] == name and r.get("path") == "sdxl"
@@ -3011,6 +3663,14 @@ def main() -> int:
         train_sdxl = {k: tr[k] for k in ("shape", "skv", "dtype", "launches", "max_abs_err",
                                          "worst_over_limit", "kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms")}
+        # the SD3 trainer's joint stream (the stream: its 1024² encode,
+        # held at that shape by the SDXL phase)
+        r = next(r for r in rows if r["kernel"] == name
+                 and all(r.get(k) == v for k, v in train_sd3_case[name].items()))
+        train_sd3 = {k: r[k] for k in ("shape", "skv", "dtype", "max_abs_err",
+                                       "worst_over_limit", "kernel_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+        train_sd3["launches"] = more_training["train_sd3"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -3028,6 +3688,7 @@ def main() -> int:
             "sdxl_case": sdxl,
             "train_sdxl_case": train_sdxl,
             "sd3_case": sd3,
+            "train_sd3_case": train_sd3,
         })
     print(f"chip_smoke total command time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -309,6 +309,18 @@ class SDModel:
         pristine = self._pristine.get(comp, {})
         return {**pristine, **fuse(module, comp_adapters, scaled, base=pristine)}
 
+    def install_unet(self, weights: Dict[str, torch.Tensor]) -> None:
+        """Make `weights` ({parameter name: tensor}, every UNet parameter)
+        the UNet's own, in their dtype, and the base that adapters fuse
+        from: full fine-tuning installs its fp32 masters (or their EMA), as
+        the JAX trainer installs its tree."""
+        params = dict(self.unet.named_parameters())
+        if sorted(weights) != sorted(params):
+            raise ValueError("install_unet needs every UNet parameter, and only those")
+        for n, t in weights.items():
+            params[n].data = t.detach()
+        self._pristine.pop("unet", None)
+
     def delete_adapters(self) -> None:
         """Drop every adapter and restore the original weights bit for bit."""
         modules = self._lora_modules()

@@ -33,9 +33,11 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
 
 Not ported here; each answers on the error channel and names its ROADMAP §1
 item: the "inference_wandb" mode (item 21), the model block's "quantize"
-(item 16), a serving mesh (item 20), SD3 LoRAs (item 18) and SD3 training
-(item 19); in the "train" mode, the trainer's options that
-``train/trainer.check_args`` refuses (items 19 and 20).  The models have no
+(item 16), a serving mesh (item 20) and SD3 LoRAs (item 18); in the
+"train" mode, the trainer's options that ``train/trainer.check_args``
+refuses (item 20).  The "train" mode trains SD1.5 and SDXL models, as the
+JAX handler's does: an SD3 model is refused, with a pointer to
+``train/sd3_train.SD3LoRATrainer``.  The models have no
 ``load_ip_adapter``, and an SD3 model no ``load_textual_inversion``, so
 those keys answer "not supported", as they do for JAX model types without
 them.
@@ -343,14 +345,21 @@ class Handler:
         return {"grid": results, "time_sec": round(time.time() - t0, 3)}
 
     def train_mode(self, request_input: Dict[str, Any]) -> Dict:
-        """In-process LoRA training (``handler.py:510-530``): the request's
+        """In-process training (``handler.py:510-530``): the request's
         "train" block holds ``data_dir`` and any ``SDTrainingArgs`` fields;
-        the answer holds the logged (step, loss) pairs and the saved LoRA
-        file's path."""
+        the answer holds the logged (step, loss) pairs and the saved
+        adapter's path, or, under ``full_finetune``, the saved folder's.
+        Under textual inversion the JAX handler also answers a
+        ``lora_path`` naming no file, and so does this one."""
         from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
 
         if self.model.model_type == "sd3":
-            raise _later("training an SD3 model (sd3_train.py)", 19)
+            # JAX hands any model to SDLoRATrainer, which cannot train an
+            # MM-DiT; no route of the JAX handler trains SD3
+            raise ValueError(
+                "the train mode trains SD1.5/SDXL models (SDLoRATrainer), as the JAX "
+                "handler's does; train an SD3 model with "
+                "train/sd3_train.SD3LoRATrainer")
         cfg = dict(request_input.get("train") or {})
         data_dir = cfg.pop("data_dir", None)
         if not data_dir:
@@ -358,8 +367,12 @@ class Handler:
         args = SDTrainingArgs(**cfg)
         trainer = SDLoRATrainer(self.model, args, data_dir)
         trainer.train()
-        return {"history": trainer.history,
-                "lora_path": f"{args.output_dir}/pytorch_lora_weights.safetensors"}
+        out: Dict[str, Any] = {"history": trainer.history}
+        if args.full_finetune:
+            out["model_path"] = args.output_dir
+        else:
+            out["lora_path"] = f"{args.output_dir}/pytorch_lora_weights.safetensors"
+        return out
 
 
 # the JAX handler's other modes -> the ROADMAP §1 item that brings them

@@ -1,17 +1,23 @@
-"""Standalone LoRA training CLI: the train_text_to_image_lora(_sdxl) analog.
+"""Standalone training CLI: the train_text_to_image(_lora)(_sdxl) analog.
 
 Port of ``stablediffusion_tpu/train/cli.py`` (:24-378) with the same flags
 and defaults: a diffusers-layout folder loaded by ``io/loader.load_sd_model``
 (on ``--device``, the card by default), a folder of images with captions (or
-a ``datasets`` dataset), ``train/trainer.SDLoRATrainer``, then, with a
-``--validation_prompt``, the validation render of the saved adapter into
-``{output_dir}/validation/{i}.png`` (:337-365).
+a ``datasets`` dataset), ``train/trainer.SDLoRATrainer`` (LoRA,
+``--full_finetune`` with ``--use_ema``, ``--train_textual_inversion``,
+DreamBooth's ``--instance_prompt`` and ``--with_prior_preservation``), the
+model card (``train/model_card.save_model_card``, :315-330) and, with
+``--push_to_hub``, its upload (skipped with a warning where it cannot be
+made), then, with a ``--validation_prompt``, the validation render into
+``{output_dir}/validation/{i}.png`` (:337-365): of the saved adapter, or,
+after full fine-tuning or textual inversion, of the trained model itself
+(the JAX CLI loads a LoRA file there that those modes do not write).
 
 Not ported yet, and refused naming their ROADMAP §1 item: a device mesh or
 distributed launch (``--local_rank``, ``--shard_opt_state``,
-``--shard_params``: item 20), ``--push_to_hub`` and the model card (item
-19; there is no network), and the trainer options that
-``trainer.check_args`` refuses.
+``--shard_params``: item 20).  ControlNet training, which has a CLI of its
+own in the JAX package (``controlnet_cli.py``), comes with item 19 after
+item 15's ControlNet model.
 
 Usage:
     python -m stablediffusion_tpu_torch.train.cli --pretrained_model_name_or_path
@@ -72,8 +78,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gradient_checkpointing", action="store_true")
     p.add_argument("--remat_policy", type=str, default="",
                    choices=["", "none", "full", "dots", "offload"],
-                   help="UNet backward remat policy (dots and offload are not "
-                        "ported yet: ROADMAP item 19)")
+                   help="UNet backward remat policy, each resnet and transformer "
+                        "block one region (full recomputes it, dots keeps its 2-D "
+                        "matrix products, offload keeps them in pinned host memory)")
     # encode VAE latents + text embeds apart from the gradient step
     # (diffusers --cache_latents)
     p.add_argument("--cache_latents", action="store_true")
@@ -168,8 +175,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _check_unported(args: argparse.Namespace) -> None:
     later = {"--local_rank": (args.local_rank != -1, 20),
              "--shard_opt_state": (args.shard_opt_state, 20),
-             "--shard_params": (args.shard_params, 20),
-             "--push_to_hub": (args.push_to_hub, 19)}
+             "--shard_params": (args.shard_params, 20)}
     for flag, (value, item) in later.items():
         if value:
             raise NotImplementedError(
@@ -195,6 +201,7 @@ def main(argv=None):
     from stablediffusion_tpu_torch.lora.formats import load_lora_file
     from stablediffusion_tpu_torch.models.vae import AutoencoderKL
     from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.train.model_card import push_to_hub, save_model_card
     from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
     from stablediffusion_tpu_torch.utils.images import to_uint8
 
@@ -301,14 +308,31 @@ def main(argv=None):
     trainer = SDLoRATrainer(model, targs, args.train_data_dir, dataset=dataset)
     trainer.train()
 
+    save_model_card(
+        args.output_dir,
+        base_model=args.pretrained_model_name_or_path,
+        prompt=args.validation_prompt,
+        train_info={
+            "rank": args.rank,
+            "steps": trainer.history[-1][0] if trainer.history else 0,
+            "resolution": args.resolution,
+            "learning_rate": lr,
+            "snr_gamma": args.snr_gamma,
+        },
+    )
+    if args.push_to_hub:
+        repo = args.hub_model_id or os.path.basename(os.path.abspath(args.output_dir))
+        push_to_hub(args.output_dir, repo, token=args.hub_token)
+
     if args.validation_prompt:
-        model.load_lora_weights(
-            "trained",
-            # the model's paths resolve kohya's underscore-flattened names
-            load_lora_file(f"{args.output_dir}/pytorch_lora_weights.safetensors",
-                           model.lora_module_paths()),
-        )
-        model.set_adapters({"trained": 1.0})
+        if not (args.full_finetune or args.train_textual_inversion):
+            model.load_lora_weights(
+                "trained",
+                # the model's paths resolve kohya's underscore-flattened names
+                load_lora_file(f"{args.output_dir}/pytorch_lora_weights.safetensors",
+                               model.lora_module_paths()),
+            )
+            model.set_adapters({"trained": 1.0})
         out = StableDiffusionUnifiedPipeline(device=device)(
             model,
             prompt=args.validation_prompt,

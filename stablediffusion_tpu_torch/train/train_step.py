@@ -1,52 +1,78 @@
-"""The LoRA train step, SD1.5 and SDXL, with text-encoder LoRA.
+"""The train steps, SD1.5 and SDXL: LoRA (with text-encoder LoRA), the whole
+UNet, and textual inversion.
 
-Port of the LoRA path of ``stablediffusion_tpu/train/train_step.py``
-(``compute_snr``, ``min_snr_weight``, ``TrainStatics``,
-``encode_prompt_train``, ``_resolve_remat``, ``_prepare_diffusion``,
-``make_encode_fn``, ``_prediction_loss``, ``loss_fn``, ``make_train_step``):
-VAE encode -> noise and random timesteps -> add_noise -> text encode (SDXL:
-both towers' penultimate states and bigG's projected pooled) -> SDXL
-micro-conditioning -> UNet forward with LoRA-fused weights -> epsilon or
-velocity MSE with optional Min-SNR weighting -> gradients to the LoRA
-factors -> the optimizer of ``train/optim.py``.
+Port of ``stablediffusion_tpu/train/train_step.py`` (``compute_snr``,
+``min_snr_weight``, ``TrainStatics``, ``encode_prompt_train``,
+``_resolve_remat``, ``_prepare_diffusion``, ``make_encode_fn``,
+``_prediction_loss``, ``loss_fn``, ``full_finetune_loss_fn``,
+``ti_loss_fn``, ``make_train_step``): VAE encode -> noise and random
+timesteps -> add_noise -> text encode (SDXL: both towers' penultimate
+states and bigG's projected pooled) -> SDXL micro-conditioning -> UNet
+forward -> epsilon or velocity MSE with optional Min-SNR weighting and the
+DreamBooth prior-loss split -> gradients to the trainable tree -> the
+optimizer of ``train/optim.py``.  The trainable tree is the LoRA factors
+(``loss_fn``), the whole UNet as fp32 masters (``full_finetune_loss_fn``)
+or the placeholder token's embedding rows (``ti_loss_fn``).
 
 Where the JAX step is one jitted function, this one runs eagerly:
 
   * The VAE encode runs under ``torch.no_grad()``, so the VAE's mid-block
     attention takes the forward-only flash_stream kernel on the card.  The
-    text encode does too, unless ``train_text_encoder``: then each tower
-    with a LoRA runs through ``torch.func.functional_call`` with its fused
-    weights, under grad, and its causal attention differentiates through
-    the backward kernels (``ops/attention.FlashAttnFn``, fp32).
-  * The UNet runs through ``functional_call`` with the fused weights of
-    ``lora/core.apply_lora_for_training``, in the compute dtype (bf16 on
-    the card); the loss is fp32.
-  * A factor that no path of the loss reaches gets a zero gradient, as
-    ``jax.grad`` gives it: SDXL reads CLIP-L's penultimate states only, so
-    the last CLIP-L layer's factors never move, and its attention's
+    text encode does too, unless a tower is trained (text-encoder LoRA, or
+    the spliced rows of textual inversion): then the tower runs through
+    ``torch.func.functional_call`` with its fused weights or spliced table,
+    under grad, and its causal attention differentiates through the
+    backward kernels (``ops/attention.FlashAttnFn``).
+  * The UNet runs through ``functional_call`` with the trainable weights
+    (LoRA-fused, or the fp32 masters, which ``ops/basic`` casts to the
+    activations' dtype at each use as JAX's ``ops/basic.py`` does), in the
+    compute dtype (bf16 on the card); the loss is fp32.
+  * A trainable leaf that no path of the loss reaches gets a zero gradient,
+    as ``jax.grad`` gives it: SDXL reads CLIP-L's penultimate states only,
+    so the last CLIP-L layer's factors never move, and its attention's
     backward never runs.
   * The random draws (the latent epsilon, the noise, the timesteps, the
     offset noise) come from a ``torch.Generator``, or are injected through
     ``draws=``: ``jax.random`` cannot be reproduced in torch, so the parity
     tests hand both sides the same numbers.
-  * Remat "full" (``remat_policy="full"``, or JAX's legacy
-    ``gradient_checkpointing`` flag with ``remat_policy=""``) wraps the
-    UNet forward in ``torch.utils.checkpoint`` (JAX ``jax.checkpoint``).
+  * Remat (``remat_policy``, or JAX's legacy ``gradient_checkpointing``
+    flag with ``remat_policy=""``) makes each resnet and transformer block
+    of the UNet or MM-DiT (:data:`REMAT_UNITS`) one
+    ``torch.utils.checkpoint`` region (non-reentrant), where JAX wraps the
+    whole forward in one ``jax.checkpoint`` and XLA schedules the
+    recompute: eager torch recomputes a region whole before its first
+    backward op, so only regions smaller than the model bound what the
+    backward holds.  "full" recomputes each region (``jax.checkpoint``);
+    "dots" keeps the outputs of its 2-D matrix products (``aten.mm`` /
+    ``aten.addmm``: JAX's ``dots_with_no_batch_dims_saveable``) through
+    selective checkpointing and recomputes the rest; "offload" keeps the
+    same products in pinned host memory (JAX's
+    ``offload_dot_with_no_batch_dims("device", "pinned_host")``) through a
+    pair of dispatch modes of its own, since selective checkpointing holds
+    its cache on the device.  The ops outside the blocks (the stem, the
+    resamplers, the norms and projections around the transformer blocks,
+    the head) are kept as without remat.  Every policy recomputes the
+    attention forwards in the backward, so under remat each step launches
+    its forwards with lse twice.
 
 Layouts: the batch keeps the JAX package's public NHWC (``pixel_values``
 [B, H, W, 3] in [-1, 1], ``latents`` [B, h, w, 4]); the draws are NCHW, the
-layout the step computes in.  Textual-inversion training, ControlNet and
-the "dots" / "offload" remat policies raise, naming their ROADMAP item.
+layout the step computes in.  ControlNet training raises, naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping, Optional
 
 import torch
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from stablediffusion_tpu_torch.core.config import (
     CLIPTextConfig,
@@ -55,16 +81,16 @@ from stablediffusion_tpu_torch.core.config import (
     VAEConfig,
 )
 from stablediffusion_tpu_torch.lora.core import apply_lora_for_training
+from stablediffusion_tpu_torch.models.layers import ResnetBlock2D
+from stablediffusion_tpu_torch.models.mmdit import JointTransformerBlock
+from stablediffusion_tpu_torch.models.unet import BasicTransformerBlock
 from stablediffusion_tpu_torch.models.vae import sample_latent
 from stablediffusion_tpu_torch.schedulers.common import BaseScheduler
 from stablediffusion_tpu_torch.train.optim import global_norm, tree_leaves, unflatten
 
 # what the port does not train yet -> the ROADMAP §1 item that brings it
 _LATER = {
-    "textual-inversion training": "item 19",
     "ControlNet training": "item 19 (after item 15's ControlNet model)",
-    "remat_policy 'dots'": "item 19",
-    "remat_policy 'offload'": "item 19",
 }
 
 
@@ -89,8 +115,8 @@ def min_snr_weight(snr: torch.Tensor, gamma: float, prediction_type: str) -> tor
 @dataclass(frozen=True)
 class TrainStatics:
     """Static settings of the step, with the JAX package's field names and
-    defaults.  ``controlnet_config`` and ``ti_rows`` / ``ti_rows_2`` must
-    keep theirs (their paths raise)."""
+    defaults.  ``controlnet_config`` must keep its default (its path
+    raises)."""
 
     unet_config: UNetConfig
     vae_config: VAEConfig
@@ -108,10 +134,13 @@ class TrainStatics:
     vae_dtype: torch.dtype = torch.float32
     # encode pixels through the VAE in chunks of this many images (0: all)
     vae_microbatch: int = 0
-    # "" (the legacy flag decides) | "none" | "full" (torch.utils.checkpoint
-    # around the UNet forward)
+    # "" (the legacy flag decides) | "none" | "full" | "dots" | "offload":
+    # torch.utils.checkpoint around the UNet forward, see the module's
+    # docstring
     remat_policy: str = ""
     controlnet_config: Optional[UNetConfig] = None
+    # textual inversion: the token-table rows of the placeholder's vectors,
+    # the only trainable rows (ti_rows_2: SDXL's second tower)
     ti_rows: Optional[tuple] = None
     ti_rows_2: Optional[tuple] = None
     # DreamBooth prior preservation: [instance | class] batch halves
@@ -122,23 +151,126 @@ class TrainStatics:
         return self.text_config_2 is not None
 
 
-def check_supported(statics: TrainStatics) -> None:
-    """Raise on settings whose path the port does not have."""
-    if statics.ti_rows is not None or statics.ti_rows_2 is not None:
-        raise later("textual-inversion training")
-    if statics.controlnet_config is not None:
+def check_supported(statics) -> None:
+    """Raise on settings whose path the port does not have (the SD3 step's
+    statics have no ControlNet field)."""
+    if getattr(statics, "controlnet_config", None) is not None:
         raise later("ControlNet training")
     _resolve_remat(statics)
 
 
-def _resolve_remat(statics: TrainStatics) -> str:
-    """"none" or "full", as ``_resolve_remat`` (:122-141) resolves them."""
+REMAT_POLICIES = ("none", "full", "dots", "offload")
+
+
+def _resolve_remat(statics) -> str:
+    """The policy name, as ``_resolve_remat`` (:122-141) resolves it: ""
+    defers to the legacy ``gradient_checkpointing`` flag."""
     policy = statics.remat_policy or ("full" if statics.gradient_checkpointing else "none")
-    if policy in ("dots", "offload"):
-        raise later(f"remat_policy {policy!r}")
-    if policy not in ("none", "full"):
+    if policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {policy!r}")
     return policy
+
+
+def _dot_ops():
+    """The 2-D matrix products, whose outputs "dots" and "offload" keep."""
+    return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class _OffloadDots(TorchDispatchMode):
+    """The forward of an "offload" region: each 2-D product's output is
+    copied, in call order, to pinned host memory (a plain copy for a CPU
+    tensor); nothing else is kept."""
+
+    def __init__(self, store: collections.deque):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _dot_ops():
+            if out.device.type == "cuda":
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+            else:
+                host = out.clone()
+            self.store.append(host)
+        return out
+
+
+class _FetchDots(TorchDispatchMode):
+    """The recompute of an "offload" region: each 2-D product returns the
+    copy its forward kept, brought back to the product's device, instead of
+    running; every other op runs again."""
+
+    def __init__(self, store: collections.deque):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _dot_ops():
+            return self.store.popleft().to(args[0].device, non_blocking=True)
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_contexts():
+    store = collections.deque()
+    return _OffloadDots(store), _FetchDots(store)
+
+
+# the modules each remat region covers, one region per instance: every
+# resnet and transformer block, as diffusers' gradient_checkpointing
+# checkpoints them
+REMAT_UNITS = (ResnetBlock2D, BasicTransformerBlock, JointTransformerBlock)
+
+
+class _Region:
+    """A remat unit's forward while :func:`remat` is active: one checkpoint
+    region that runs the unit with its entries of the substituted weights.
+    They are held here because the recompute runs in the backward, after
+    ``functional_call`` has put the module's own weights back."""
+
+    def __init__(self, unit: torch.nn.Module, weights: Mapping[str, torch.Tensor], kw):
+        self.unit, self.weights, self.kw = unit, weights, kw
+        self.inside = False
+
+    def __call__(self, *args, **kwargs):
+        if self.inside:  # functional_call's own call of the unit
+            return type(self.unit).forward(self.unit, *args, **kwargs)
+        return checkpoint(self._run, *args, use_reentrant=False, **self.kw, **kwargs)
+
+    def _run(self, *args, **kwargs):
+        self.inside = True
+        try:
+            return functional_call(self.unit, self.weights, args, kwargs, strict=False)
+        finally:
+            self.inside = False
+
+
+@contextlib.contextmanager
+def remat(model: torch.nn.Module, weights: Mapping[str, torch.Tensor], policy: str):
+    """Within the block, each of `model`'s :data:`REMAT_UNITS` runs as one
+    checkpoint region under `policy` (one of :data:`REMAT_POLICIES`), so
+    that the backward holds the regions' inputs and one region's
+    activations at a time.  `weights` are those the caller substitutes for
+    the model's through ``functional_call`` ({} for none)."""
+    if policy == "none":
+        yield
+        return
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             list(_dot_ops()))
+    elif policy == "offload":
+        kw["context_fn"] = _offload_contexts
+    units = [(name, m) for name, m in model.named_modules() if isinstance(m, REMAT_UNITS)]
+    for name, unit in units:
+        sub = {k[len(name) + 1:]: v for k, v in weights.items() if k.startswith(name + ".")}
+        unit.forward = _Region(unit, sub, kw)
+    try:
+        yield
+    finally:
+        for _, unit in units:
+            del unit.forward
 
 
 def encode_prompt_train(statics: TrainStatics, text_encoder: Callable,
@@ -319,6 +451,30 @@ def _fused_tower(module, factors) -> Callable:
     return lambda ids: functional_call(module, fused, (ids,), strict=False)
 
 
+TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
+
+
+def _spliced_tower(module, rows_idx, rows: torch.Tensor) -> Callable:
+    """`module` with `rows` in place of its token table's rows `rows_idx`,
+    differentiable in `rows`: a new table (``index_put``, not in place), so
+    the module's own table is never written."""
+    table = getattr(module, "text_model").embeddings.token_embedding.weight
+    idx = torch.as_tensor(rows_idx, device=table.device)
+    spliced = table.index_put((idx,), rows.to(table.dtype))
+    return lambda ids: functional_call(module, {TOKEN_TABLE: spliced}, (ids,), strict=False)
+
+
+def _unet_pred(unet, weights: Mapping[str, torch.Tensor], noisy, timesteps, embeds,
+               added_cond, statics: TrainStatics) -> torch.Tensor:
+    """The UNet's prediction, fp32, with `weights` substituted for its own
+    ({} for none), in the compute dtype, under the remat policy."""
+    dt = statics.compute_dtype
+    with remat(unet, weights, _resolve_remat(statics)):
+        pred = functional_call(unet, weights, (noisy.to(dt), timesteps, embeds.to(dt),
+                                               added_cond), strict=False)
+    return pred.float()
+
+
 def loss_fn(
     lora: Mapping[str, Mapping],
     frozen: Mapping[str, Any],
@@ -344,42 +500,83 @@ def loss_fn(
     )
     unet = frozen["unet"]
     fused = apply_lora_for_training(unet, lora["unet"])
-
-    def unet_fwd(x, t, ctx, added):
-        return functional_call(unet, fused, (x, t, ctx, added), strict=False)
-
-    dt = statics.compute_dtype
-    args = (noisy.to(dt), timesteps, embeds.to(dt), added_cond)
-    if _resolve_remat(statics) == "full":
-        pred = checkpoint(unet_fwd, *args, use_reentrant=False)
-    else:
-        pred = unet_fwd(*args)
-    return _prediction_loss(pred.float(), latents, noise, timesteps, statics, scheduler)
+    pred = _unet_pred(unet, fused, noisy, timesteps, embeds, added_cond, statics)
+    return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
 
 
-def make_train_step(statics: TrainStatics, scheduler: BaseScheduler, optimizer):
+def full_finetune_loss_fn(
+    unet_params: Mapping[str, torch.Tensor],
+    frozen: Mapping[str, Any],
+    batch: Mapping[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    statics: TrainStatics,
+    scheduler: BaseScheduler,
+    draws: Optional[Mapping[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The loss of full fine-tuning (:369-402): as :func:`loss_fn`, with the
+    trainable tree the whole UNet, {parameter name: fp32 master}, in place
+    of every weight of ``frozen["unet"]`` (which only lends its structure);
+    the text towers stay frozen."""
+    check_supported(statics)
+    latents, noise, timesteps, noisy, embeds, added_cond = _prepare_diffusion(
+        frozen, batch, generator, statics, scheduler, draws)
+    pred = _unet_pred(frozen["unet"], unet_params, noisy, timesteps, embeds, added_cond,
+                      statics)
+    return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
+
+
+def ti_loss_fn(
+    ti: Mapping[str, torch.Tensor],
+    frozen: Mapping[str, Any],
+    batch: Mapping[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    statics: TrainStatics,
+    scheduler: BaseScheduler,
+    draws: Optional[Mapping[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The loss of textual-inversion training (:463-517): the trainable
+    tree is the placeholder's embedding rows, {"embeddings": [V, hidden]
+    (and SDXL's "embeddings_2")}, spliced into the frozen towers' token
+    tables at ``statics.ti_rows`` (``ti_rows_2``); the UNet and every other
+    row stay frozen, so the gradients reach those rows only."""
+    check_supported(statics)
+    te = _spliced_tower(frozen["text_encoder"], statics.ti_rows, ti["embeddings"])
+    te2 = None
+    if statics.is_sdxl:
+        te2 = _spliced_tower(frozen["text_encoder_2"], statics.ti_rows_2, ti["embeddings_2"])
+    latents, noise, timesteps, noisy, embeds, added_cond = _prepare_diffusion(
+        frozen, batch, generator, statics, scheduler, draws, te=te, te2=te2)
+    pred = _unet_pred(frozen["unet"], {}, noisy, timesteps, embeds, added_cond, statics)
+    return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
+
+
+def make_train_step(statics, scheduler: BaseScheduler, optimizer, loss=loss_fn):
     """The train step ``step(trainable, opt_state, frozen, batch, generator,
-    draws=None) -> (trainable, opt_state, {"loss", "grad_norm"})``.
-    `trainable` is {"unet": lora[, "text_encoder": lora, "text_encoder_2":
-    lora]}; its factors are updated in place (see ``train/optim.py``) and
-    returned.  ``grad_norm`` is the global norm of the gradients before
-    clipping, as ``optax.global_norm(grads)`` is in the JAX step; both
-    metrics are 0-d fp32 tensors on the device."""
+    draws=None) -> (trainable, opt_state, {"loss", "grad_norm"})``.  `loss`
+    picks the mode, as in JAX: :func:`loss_fn` with `trainable` {"unet":
+    lora[, "text_encoder": lora, "text_encoder_2": lora]},
+    :func:`full_finetune_loss_fn` with the UNet's masters, :func:`ti_loss_fn`
+    with the placeholder's rows (``train/sd3_train.sd3_lora_loss_fn`` with
+    its statics).  The trainable tensors are updated in place (see
+    ``train/optim.py``) and returned.  ``grad_norm`` is the global norm of
+    the gradients before clipping, as ``optax.global_norm(grads)`` is in the
+    JAX step; both metrics are 0-d fp32 tensors on the device."""
     check_supported(statics)
 
     def step(trainable, opt_state, frozen, batch, generator, draws=None):
         leaves = [t for _, t in tree_leaves(trainable)]
         for t in leaves:
             t.requires_grad_(True)
-        loss = loss_fn(trainable, frozen, batch, generator, statics, scheduler, draws)
+        loss_val = loss(trainable, frozen, batch, generator, statics, scheduler, draws)
         # a factor no path reaches (CLIP-L's last layer under SDXL) gets a
         # zero gradient, as jax.grad gives it
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        grads = torch.autograd.grad(loss_val, leaves, allow_unused=True,
+                                    materialize_grads=True)
         for t in leaves:
             t.requires_grad_(False)
         grad_tree = unflatten(trainable, grads)
         trainable, opt_state = optimizer.update(grad_tree, opt_state, trainable)
-        return trainable, opt_state, {"loss": loss.detach(),
+        return trainable, opt_state, {"loss": loss_val.detach(),
                                       "grad_norm": global_norm(list(grads))}
 
     return step

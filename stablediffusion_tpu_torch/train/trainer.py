@@ -1,16 +1,34 @@
-"""SDLoRATrainer: in-process LoRA fine-tuning on a folder of images.
+"""SDLoRATrainer: in-process fine-tuning on a folder of images.
 
-Port of the LoRA path of ``stablediffusion_tpu/train/trainer.py``
-(``SDTrainingArgs`` :43-142, ``SDLoRATrainer.train`` :145-602,
-``_log_validation`` :705-735, ``_prepare_batch`` :737-767): seed -> LoRA
-factors on the UNet's attention projections (and, with
-``train_text_encoder``, on both text towers' q/k/v/out_proj) -> the folder
+Port of ``stablediffusion_tpu/train/trainer.py`` (``SDTrainingArgs``
+:43-142, ``SDLoRATrainer.train`` :170-602, ``_ensure_class_images``
+:604-650, ``_set_ti_rows`` :651, the validation renders :677-735,
+``_prepare_batch`` :737-767): seed -> the trainable tree -> the folder
 dataset with its micro-conditioning collation and optional aspect-ratio
-buckets -> LR schedule and AdamW (8-bit moments, gradient accumulation) ->
-the eager train step of ``train/train_step.py`` (or, with
-``cache_latents``, its separate no-grad encode first) -> logging,
-per-epoch validation renders through the port's pipeline, rotating
-checkpoints -> the LoRA safetensors file (peft or kohya).
+buckets (DreamBooth: [instance | class] batches) -> LR schedule and AdamW
+(8-bit moments, gradient accumulation) -> the eager train step of
+``train/train_step.py`` (or, with ``cache_latents``, its separate no-grad
+encode first) -> logging, per-epoch validation renders through the port's
+pipeline, rotating checkpoints -> the saved result.  The trainable tree is,
+as in JAX:
+
+  * LoRA factors on the UNet's attention projections (and, with
+    ``train_text_encoder``, on both text towers' q/k/v/out_proj), saved as
+    a peft or kohya file;
+  * with ``full_finetune``, the whole UNet as fp32 masters (the towers
+    frozen), optionally with an EMA of them (``use_ema``), installed as the
+    model's UNet in fp32 (``SDModel.install_unet``) and saved as a
+    diffusers folder (``io/loader.save_sd_model``);
+  * with ``textual_inversion``, the placeholder token's embedding rows
+    (SDXL: in both towers), seeded from ``ti_initializer_token``, captions
+    drawn from the paper's templates (``train/ti_templates.py``), saved as
+    ``learned_embeds.safetensors``.
+
+``instance_prompt`` replaces the folder's captions; with
+``with_prior_preservation`` the class images come from ``class_data_dir``,
+rendered there by the model itself where fewer than ``num_class_images``
+exist, and the class half of each batch is weighted by
+``prior_loss_weight``.
 
 Where it differs from the JAX trainer:
 
@@ -20,17 +38,20 @@ Where it differs from the JAX trainer:
     reproduced in torch, so for parity tests the initial factors
     (``initial=``) and each step's draws (``draws=``, a callable of the
     0-based step) can be handed in.  Nothing else uses them.
-  * A checkpoint also holds the generator's state, and a resumed run skips
-    the batches the saved steps consumed, so that it continues the straight
-    run exactly.  The JAX trainer restarts its key and its data stream on
-    resume.  The checkpoint format is the port's (``train/checkpoint.py``),
-    not orbax.
-  * Textual-inversion training, DreamBooth (``instance_prompt``,
-    ``with_prior_preservation``), full finetuning with EMA (ROADMAP §1 item
-    19) and a device mesh or sharded state (item 20) raise.
+  * A checkpoint also holds the generator's state (and the template
+    draw's), and a resumed run skips the batches the saved steps consumed,
+    so that it continues the straight run exactly.  The JAX trainer
+    restarts its key and its data stream on resume.  The checkpoint format
+    is the port's (``train/checkpoint.py``), not orbax.
+  * The EMA is updated in place (``torch._foreach_lerp_``, fp32), where
+    JAX builds a new tree, e·d + p·(1−d); the two round differently in the
+    last bit.
+  * A combination of options the JAX trainer refuses in ``train()`` is
+    refused when the trainer is built, before its log writer opens.
+  * A device mesh or sharded state (ROADMAP §1 item 20) raises.
 
 Like the JAX trainer, tower 2 is tokenized from the dataset's captions
-(``trainer.py:759``).
+(``trainer.py:759``), not from the instance prompt or the template.
 """
 
 from __future__ import annotations
@@ -41,6 +62,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from stablediffusion_tpu_torch.lora.core import (
@@ -52,12 +74,17 @@ from stablediffusion_tpu_torch.lora.formats import save_lora_file
 from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.schedulers import DDPMScheduler
 from stablediffusion_tpu_torch.train import checkpoint as ckpt
-from stablediffusion_tpu_torch.train.dataset import SDLoRADataset
+from stablediffusion_tpu_torch.train.dataset import DreamBoothDataset, SDLoRADataset
 from stablediffusion_tpu_torch.train.optim import make_lr_schedule, make_optimizer
+from stablediffusion_tpu_torch.train.ti_templates import OBJECT_TEMPLATES, STYLE_TEMPLATES
 from stablediffusion_tpu_torch.train.train_step import (
+    TOKEN_TABLE,
     TrainStatics,
+    full_finetune_loss_fn,
+    loss_fn,
     make_encode_fn,
     make_train_step,
+    ti_loss_fn,
 )
 
 logger = logging.getLogger(__name__)
@@ -97,7 +124,7 @@ class SDTrainingArgs:
     max_bucket_ar: float = 2.0
     max_buckets: int = None
     gradient_checkpointing: bool = False
-    # "" | "none" | "full" ("dots" and "offload" raise)
+    # "" | "none" | "full" | "dots" | "offload" (train_step.remat)
     remat_policy: str = ""
     # encode latents and text embeddings apart from the gradient step
     # (needs train_text_encoder=False)
@@ -115,7 +142,8 @@ class SDTrainingArgs:
     report_to: Optional[str] = "tensorboard"
     logging_dir: Optional[str] = None  # default {output_dir}/logs
     debug_loss: bool = False  # the batch loss logged per filename
-    # not ported yet (ROADMAP §1 item 19): full finetuning and EMA
+    # train the whole UNet (fp32 masters, towers frozen) and save a folder;
+    # with use_ema, the EMA of the weights is what is saved
     full_finetune: bool = False
     use_ema: bool = False
     ema_decay: float = 0.9999
@@ -124,12 +152,16 @@ class SDTrainingArgs:
     shard_params: bool = False
     # "peft" (diffusers load_lora_weights) | "kohya" (A1111/kohya-ss)
     lora_format: str = "peft"
-    # not ported yet (ROADMAP §1 item 19): textual-inversion training
+    # textual inversion: the placeholder token, the single token whose row
+    # seeds its vectors, their number, and the caption templates ("object"
+    # | "style"; the folder's captions are ignored)
     textual_inversion: Optional[str] = None
     ti_initializer_token: Optional[str] = None
     ti_num_vectors: int = 1
     ti_templates: str = "object"
-    # not ported yet (ROADMAP §1 item 19): DreamBooth
+    # DreamBooth: the instance prompt replaces the folder's captions; prior
+    # preservation pairs each batch with class images (rendered into
+    # class_data_dir by the model where too few exist)
     instance_prompt: Optional[str] = None
     with_prior_preservation: bool = False
     class_data_dir: Optional[str] = None
@@ -143,11 +175,6 @@ def check_args(args: SDTrainingArgs, mesh=None) -> None:
     """Raise, naming the ROADMAP §1 item, on an option the port does not
     have."""
     later = {
-        "textual_inversion": (args.textual_inversion, 19),
-        "instance_prompt": (args.instance_prompt, 19),
-        "with_prior_preservation": (args.with_prior_preservation, 19),
-        "full_finetune": (args.full_finetune, 19),
-        "use_ema": (args.use_ema, 19),
         "mesh": (mesh is not None, 20),
         "shard_opt_state": (args.shard_opt_state, 20),
         "shard_params": (args.shard_params, 20),
@@ -156,6 +183,52 @@ def check_args(args: SDTrainingArgs, mesh=None) -> None:
         if value:
             raise NotImplementedError(
                 f"{name}: not ported yet, it comes with ROADMAP §1 item {item}")
+
+
+def train_loop(args, dataset, total_steps: int, state: Callable[[], dict],
+               load: Callable[[dict], None], step_once: Callable[[int, Mapping], Mapping],
+               logged: Callable[[int, float, Mapping, float], None],
+               after: Optional[Callable[[int], None]] = None):
+    """The loop of both trainers (this one and ``sd3_train.SD3LoRATrainer``):
+    resume from ``args.resume_from_checkpoint`` (the checkpoint's tree is
+    ``state()``, handed back to ``load``) and skip the batches the saved
+    steps consumed, so that the run continues the straight one exactly;
+    then per step ``step_once(step, batch)`` (0-based, the collated batch)
+    -> metrics, ``logged(step, loss, batch, seconds per step)`` every
+    ``log_every`` steps and at the last, ``after(step)``, and a checkpoint
+    of ``state()`` every ``checkpointing_steps``.  Returns the logged
+    (step, loss) pairs."""
+    start_step = 0
+    if args.resume_from_checkpoint:
+        found = ckpt.resolve_resume(args.resume_from_checkpoint, args.output_dir)
+        if found:
+            start_step, path = found
+            load(ckpt.load_checkpoint(path, state()))
+            logger.info("resumed from %s at step %d", path, start_step)
+    step = start_step
+    t0 = time.time()
+    history = []
+    batch_iter = dataset.batches(args.train_batch_size, epochs=None)
+    try:
+        for _ in range(start_step):  # the batches the saved steps consumed
+            next(batch_iter)
+        for batch in batch_iter:
+            if step >= total_steps:
+                break
+            metrics = step_once(step, batch)
+            step += 1
+            if step % args.log_every == 0 or step == total_steps:
+                loss = float(metrics["loss"])
+                history.append((step, loss))
+                logged(step, loss, batch, (time.time() - t0) / max(step - start_step, 1))
+            if after is not None:
+                after(step)
+            if args.checkpointing_steps and step % args.checkpointing_steps == 0:
+                ckpt.save_checkpoint(args.output_dir, step, state(),
+                                     args.checkpoints_total_limit)
+    finally:
+        batch_iter.close()
+    return history
 
 
 class SDLoRATrainer:
@@ -183,6 +256,7 @@ class SDLoRATrainer:
         self.dataset = dataset
         self.initial = initial
         self.draws = draws
+        self._check_modes()
         self.metrics = None
         if args.report_to == "tensorboard":
             from stablediffusion_tpu_torch.utils.observability import Metrics
@@ -211,25 +285,109 @@ class SDLoRATrainer:
                                             store_alpha=False)
         return trainable
 
-    def train(self) -> Dict[str, Dict[str, dict]]:
+    def _check_modes(self) -> None:
+        """The JAX trainer's refusals of option combinations (:178-209,
+        :264-269, :394-395), made before anything is written."""
+        args = self.args
+        if args.with_prior_preservation:
+            if args.textual_inversion:
+                raise ValueError(
+                    "with_prior_preservation does not combine with textual_inversion (the "
+                    "TI paper trains on concept images only)")
+            if not (args.instance_prompt and args.class_prompt and args.class_data_dir):
+                raise ValueError("with_prior_preservation needs instance_prompt, "
+                                 "class_prompt and class_data_dir")
+            if self.dataset is not None:
+                raise ValueError("with_prior_preservation builds its own paired dataset; "
+                                 "pass data_dir, not dataset=")
+        if args.textual_inversion:
+            if args.full_finetune or args.train_text_encoder:
+                raise ValueError(
+                    "textual_inversion trains ONLY the new embedding rows; set "
+                    "full_finetune=False and train_text_encoder=False")
+            if not args.ti_initializer_token:
+                raise ValueError("textual_inversion needs ti_initializer_token")
+            if args.ti_templates not in ("object", "style"):
+                raise ValueError("ti_templates must be 'object' or 'style'")
+        elif args.full_finetune and args.train_text_encoder:
+            raise ValueError(
+                "full_finetune trains the UNet only (the upstream train_text_to_image never "
+                "trains text towers); set train_text_encoder=False")
+        if args.use_ema and not args.full_finetune:
+            raise ValueError("use_ema is a full_finetune option")
+
+    def _init_ti(self) -> Dict[str, torch.Tensor]:
+        """Textual inversion's setup (:200-256): the placeholder's rows,
+        each a copy of the initializer token's row, appended to the
+        tower(s) with the trigger registered (SDXL: the {clip_l, clip_g}
+        payload); returns the fp32 trainable rows."""
+        args, model = self.args, self.model
+        V = int(args.ti_num_vectors)
+
+        def init_rows(tokenizer, encoder):
+            table = encoder.text_model.embeddings.token_embedding.weight
+            init_ids = np.asarray(tokenizer([args.ti_initializer_token]))[0]
+            if int(init_ids[2]) != tokenizer.eos_token_id:
+                raise ValueError(f"ti_initializer_token {args.ti_initializer_token!r} must "
+                                 "encode to a single token")
+            row = table[int(init_ids[1])].detach().float().cpu().numpy()  # 0 is BOS
+            return table.shape[0], np.tile(row[None, :], (V, 1))
+
+        n1, rows = init_rows(model.tokenizer, model.text_encoder)
+        self._ti_rows = {"text_encoder": tuple(range(n1, n1 + V))}
+        if model.is_sdxl:
+            n2, rows_2 = init_rows(model.tokenizer_2, model.text_encoder_2)
+            model.load_textual_inversion({"clip_l": rows, "clip_g": rows_2},
+                                         token=args.textual_inversion)
+            self._ti_rows["text_encoder_2"] = tuple(range(n2, n2 + V))
+        else:
+            model.load_textual_inversion({args.textual_inversion: rows},
+                                         token=args.textual_inversion)
+        self._ti_templates = (OBJECT_TEMPLATES if args.ti_templates == "object"
+                              else STYLE_TEMPLATES)
+        self._ti_rng = np.random.default_rng(args.seed)
+        trainable = {"embeddings": torch.tensor(rows, device=model.device)}
+        if model.is_sdxl:
+            trainable["embeddings_2"] = torch.tensor(rows_2, device=model.device)
+        return trainable
+
+    def train(self):
+        """Run the training; returns the trainable tree at its end (LoRA
+        factors, the fp32 UNet masters or their EMA, or the TI rows)."""
         args = self.args
         model = self.model
         device = model.device
+        if args.with_prior_preservation:
+            self._ensure_class_images()
         generator = torch.Generator(device=device).manual_seed(args.seed)
         dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
-        lora = self._init_trainable(generator)
+        full = args.full_finetune
+        if args.textual_inversion:
+            trainable, ckpt_key, loss = self._init_ti(), "ti", ti_loss_fn
+        elif full:
+            # fp32 masters over the whole UNet
+            trainable = {n: p.detach().float().clone() for n, p in model.unet.named_parameters()}
+            ckpt_key, loss = "unet", full_finetune_loss_fn
+        else:
+            trainable, ckpt_key, loss = self._init_trainable(generator), "lora", loss_fn
 
-        dataset = self.dataset or SDLoRADataset(
-            self.data_dir,
-            resolution=args.resolution,
-            random_flip=args.random_flip,
-            center_crop=args.center_crop,
-            seed=args.seed,
-            aspect_ratio_bucketing=args.aspect_ratio_bucketing,
-            bucket_step=args.bucket_step,
-            max_bucket_ar=args.max_bucket_ar,
-            max_buckets=args.max_buckets,
-        )
+        if args.with_prior_preservation:
+            dataset = DreamBoothDataset(
+                self.data_dir, args.instance_prompt, args.class_data_dir, args.class_prompt,
+                resolution=args.resolution, random_flip=args.random_flip,
+                center_crop=args.center_crop, seed=args.seed)
+        else:
+            dataset = self.dataset or SDLoRADataset(
+                self.data_dir,
+                resolution=args.resolution,
+                random_flip=args.random_flip,
+                center_crop=args.center_crop,
+                seed=args.seed,
+                aspect_ratio_bucketing=args.aspect_ratio_bucketing,
+                bucket_step=args.bucket_step,
+                max_bucket_ar=args.max_bucket_ar,
+                max_buckets=args.max_buckets,
+            )
         if args.aspect_ratio_bucketing and not getattr(dataset, "buckets", None):
             raise ValueError("aspect_ratio_bucketing needs the folder dataset "
                              "(SDLoRADataset); the provided dataset has no buckets")
@@ -243,7 +401,7 @@ class SDLoRATrainer:
             args.adam_weight_decay, args.max_grad_norm, args.gradient_accumulation_steps,
             use_8bit=args.use_8bit_adam, accum_dtype=args.accum_dtype,
         )
-        opt_state = optimizer.init(lora)
+        opt_state = optimizer.init(trainable)
 
         scheduler = DDPMScheduler(model.scheduler_config)
         statics = TrainStatics(
@@ -259,8 +417,16 @@ class SDLoRATrainer:
             gradient_checkpointing=args.gradient_checkpointing,
             remat_policy=args.remat_policy,
             vae_microbatch=args.vae_microbatch,
+            ti_rows=self._ti_rows["text_encoder"] if args.textual_inversion else None,
+            ti_rows_2=(self._ti_rows["text_encoder_2"]
+                       if args.textual_inversion and model.is_sdxl else None),
+            prior_loss_weight=(float(args.prior_loss_weight)
+                               if args.with_prior_preservation else None),
         )
-        step_fn = make_train_step(statics, scheduler, optimizer)
+        step_fn = make_train_step(statics, scheduler, optimizer, loss=loss)
+        ema = None
+        if args.use_ema:  # starts at the initial weights
+            ema = {n: t.clone() for n, t in trainable.items()}
         encode_fn = None
         if args.cache_latents:
             if args.train_text_encoder:
@@ -271,102 +437,205 @@ class SDLoRATrainer:
         if model.is_sdxl:
             frozen["text_encoder_2"] = model.text_encoder_2
 
-        start_step = 0
-        if args.resume_from_checkpoint:
-            found = ckpt.resolve_resume(args.resume_from_checkpoint, args.output_dir)
-            if found:
-                start_step, path = found
-                template = {"lora": lora, "opt_state": opt_state,
-                            "rng": generator.get_state()}
-                state = ckpt.load_checkpoint(path, template)
-                lora, opt_state = state["lora"], state["opt_state"]
-                generator.set_state(state["rng"].cpu())
-                logger.info("resumed from %s at step %d", path, start_step)
+        run = {ckpt_key: trainable, "opt_state": opt_state}
+        if ema is not None:
+            run["ema"] = ema
 
-        step = start_step
-        t0 = time.time()
-        history = []
-        batch_iter = dataset.batches(args.train_batch_size, epochs=None)
-        try:
-            for _ in range(start_step):  # the batches the saved steps consumed
-                next(batch_iter)
-            for batch in batch_iter:
-                if step >= total_steps:
-                    break
-                tb = self._prepare_batch(batch)
-                draws = self.draws(step) if self.draws is not None else None
-                if encode_fn is not None:
-                    tb = encode_fn(frozen, tb, generator, draws)
-                lora, opt_state, metrics = step_fn(lora, opt_state, frozen, tb, generator,
-                                                   draws=draws)
-                step += 1
-                if step % args.log_every == 0 or step == total_steps:
-                    loss = float(metrics["loss"])
-                    history.append((step, loss))
-                    lr = float(schedule(step))
-                    logger.info("step %d/%d loss %.5f lr %.2e %.2f s/it", step, total_steps,
-                                loss, lr, (time.time() - t0) / max(step - start_step, 1))
-                    if self.metrics is not None:
-                        self.metrics.observe("train/loss", loss, step=step)
-                        self.metrics.observe("train/lr", lr, step=step)
-                        if args.debug_loss:
-                            for fname in batch.get("filenames") or []:
-                                self.metrics.observe(f"loss_for_{fname}", loss, step=step)
-                if (args.validation_prompt
-                        and step % (steps_per_epoch * args.validation_epochs) == 0):
-                    self._log_validation(lora, step // steps_per_epoch, step)
-                if args.checkpointing_steps and step % args.checkpointing_steps == 0:
-                    state = {"lora": lora, "opt_state": opt_state,
-                             "rng": generator.get_state()}
-                    ckpt.save_checkpoint(args.output_dir, step, state,
-                                         args.checkpoints_total_limit)
-        finally:
-            batch_iter.close()
-        self.history = history
-        self.lora = lora
+        def state():
+            st = {**run, "rng": generator.get_state()}
+            if args.textual_inversion:
+                st["ti_rng"] = self._ti_rng.bit_generator.state
+            return st
+
+        def load(st):
+            run.update({k: st[k] for k in run})
+            generator.set_state(st["rng"].cpu())
+            if args.textual_inversion:
+                self._ti_rng.bit_generator.state = st["ti_rng"]
+
+        def step_once(step, batch):
+            tb = self._prepare_batch(batch)
+            draws = self.draws(step) if self.draws is not None else None
+            if encode_fn is not None:
+                tb = encode_fn(frozen, tb, generator, draws)
+            run[ckpt_key], run["opt_state"], metrics = step_fn(
+                run[ckpt_key], run["opt_state"], frozen, tb, generator, draws=draws)
+            # the EMA follows optimizer updates, not data steps: under
+            # accumulation the weights move on every k-th call only
+            if "ema" in run and (step + 1) % args.gradient_accumulation_steps == 0:
+                names = list(run["ema"])
+                torch._foreach_lerp_([run["ema"][n] for n in names],
+                                     [run[ckpt_key][n] for n in names],
+                                     1.0 - float(args.ema_decay))
+            return metrics
+
+        def logged(step, loss_val, batch, s_per_it):
+            lr = float(schedule(step))
+            logger.info("step %d/%d loss %.5f lr %.2e %.2f s/it", step, total_steps, loss_val,
+                        lr, s_per_it)
+            if self.metrics is not None:
+                self.metrics.observe("train/loss", loss_val, step=step)
+                self.metrics.observe("train/lr", lr, step=step)
+                if args.debug_loss:
+                    for fname in batch.get("filenames") or []:
+                        self.metrics.observe(f"loss_for_{fname}", loss_val, step=step)
+
+        def after(step):
+            if (args.validation_prompt
+                    and step % (steps_per_epoch * args.validation_epochs) == 0):
+                epoch = step // steps_per_epoch
+                if args.textual_inversion:
+                    self._set_ti_rows(run[ckpt_key])
+                    self._log_validation_full(None, epoch, step)
+                elif full:
+                    self._log_validation_full(run[ckpt_key], epoch, step)
+                else:
+                    self._log_validation(run[ckpt_key], epoch, step)
+
+        self.history = train_loop(args, dataset, total_steps, state, load, step_once, logged,
+                                  after)
+        trainable, ema = run[ckpt_key], run.get("ema")
+        self.lora = trainable
         if self.metrics is not None:
             self.metrics.flush()
         os.makedirs(args.output_dir, exist_ok=True)
+        if args.textual_inversion:
+            # the rows into the live towers (the trigger is registered) and
+            # the diffusers learned_embeds file load_textual_inversion reads
+            from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
+
+            self._set_ti_rows(trainable)
+            rows = trainable["embeddings"].detach().float().cpu().numpy()
+            payload = {args.textual_inversion: rows}
+            if model.is_sdxl:
+                payload = {"clip_l": rows,
+                           "clip_g": trainable["embeddings_2"].detach().float().cpu().numpy()}
+            save_safetensors(payload, f"{args.output_dir}/learned_embeds.safetensors")
+            return trainable
+        if full:
+            # the trained (or EMA) fp32 weights become the model's UNet,
+            # then the whole diffusers folder (train_text_to_image ships the
+            # EMA)
+            from stablediffusion_tpu_torch.io.loader import save_sd_model
+
+            final = ema if ema is not None else trainable
+            model.install_unet(final)
+            save_sd_model(model, args.output_dir)
+            return final
         save_lora_file(
-            lora,
+            trainable,
             f"{args.output_dir}/pytorch_lora_weights.safetensors",
             metadata={"format": "pt", "rank": str(args.rank)},
             format=args.lora_format,
         )
-        return lora
+        return trainable
+
+    def _write_unet(self, weights: Mapping[str, torch.Tensor]) -> None:
+        """Copy {name: tensor} into the model's UNet, in its dtype."""
+        params = dict(self.model.unet.named_parameters())
+        with torch.no_grad():
+            for n, t in weights.items():
+                params[n].copy_(t)
+
+    def _ensure_class_images(self) -> None:
+        """Top class_data_dir up to num_class_images with the model's own
+        renders of class_prompt, through the port's pipeline on the model's
+        device (the diffusers train_dreambooth pre-generation loop)."""
+        from PIL import Image
+
+        from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+        args = self.args
+        os.makedirs(args.class_data_dir, exist_ok=True)
+        exts = (".jpg", ".jpeg", ".png", ".webp")
+        have = [f for f in os.listdir(args.class_data_dir) if f.lower().endswith(exts)]
+        missing = int(args.num_class_images) - len(have)
+        if missing <= 0:
+            return
+        logger.info("generating %d class images for %r", missing, args.class_prompt)
+        pipe = StableDiffusionUnifiedPipeline(device=self.model.device)
+        done = 0
+        while done < missing:
+            n = min(int(args.sample_batch_size), missing - done)
+            out = pipe(self.model, prompt=args.class_prompt, num_images_per_prompt=n,
+                       num_inference_steps=25, seed=args.seed + 7919 + done)
+            for im in np.asarray(out.images):
+                arr = (np.clip(im, 0.0, 1.0) * 255).astype(np.uint8)
+                Image.fromarray(arr).save(
+                    os.path.join(args.class_data_dir, f"class-{len(have) + done}.jpg"))
+                done += 1
+
+    def _set_ti_rows(self, ti: Mapping[str, torch.Tensor]) -> None:
+        """Write the trained rows into the live towers' tables, so that the
+        registered trigger renders with them."""
+        towers = {"text_encoder": (self.model.text_encoder, "embeddings"),
+                  "text_encoder_2": (self.model.text_encoder_2, "embeddings_2")}
+        with torch.no_grad():
+            for comp, rows_idx in self._ti_rows.items():
+                encoder, key = towers[comp]
+                table = encoder.get_parameter(TOKEN_TABLE)
+                table[torch.as_tensor(rows_idx, device=table.device)] = ti[key].to(table)
+
+    def _log_validation_full(self, unet_weights, epoch: int, step: int) -> None:
+        """The validation render of full fine-tuning and textual inversion
+        (:677-703): `unet_weights` (the masters; None: the model's own)
+        copied into the live UNet for the render, its weights copied back
+        after."""
+        prev = None
+        if unet_weights is not None:
+            prev = {n: p.detach().clone() for n, p in self.model.unet.named_parameters()}
+            self._write_unet(unet_weights)
+        try:
+            self._render_validation(epoch, step)
+        finally:
+            if prev is not None:
+                self._write_unet(prev)
+
+    def _render_validation(self, epoch: int, step: int) -> None:
+        from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+        args, model = self.args, self.model
+        out = StableDiffusionUnifiedPipeline(device=model.device)(
+            model,
+            prompt=args.validation_prompt,
+            num_images_per_prompt=args.num_validation_images,
+            num_inference_steps=args.validation_inference_steps,
+            seed=args.seed,
+        )
+        if self.metrics is not None:
+            self.metrics.images("validation", out.images, step=step)
+        logger.info("epoch %d: rendered %d validation images (%r)", epoch,
+                    args.num_validation_images, args.validation_prompt)
 
     def _log_validation(self, lora, epoch: int, step: int) -> None:
         """Render the validation images at a fixed seed with the current
         factors fused in, log them, and take the adapter out again: the
         model's weights come back bit for bit (``delete_adapters``)."""
-        from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
-
-        args, model = self.args, self.model
+        model = self.model
         model.load_lora_weights("__validation__", lora)
         try:
             model.set_adapters({"__validation__": 1.0})
-            out = StableDiffusionUnifiedPipeline(device=model.device)(
-                model,
-                prompt=args.validation_prompt,
-                num_images_per_prompt=args.num_validation_images,
-                num_inference_steps=args.validation_inference_steps,
-                seed=args.seed,
-            )
-            if self.metrics is not None:
-                self.metrics.images("validation", out.images, step=step)
-            logger.info("epoch %d: rendered %d validation images (%r)", epoch,
-                        args.num_validation_images, args.validation_prompt)
+            self._render_validation(epoch, step)
         finally:
             model.delete_adapters()
 
     def _prepare_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """The collated numpy batch as tensors on the model's device, with
-        the captions tokenized (tower 2 from the dataset's captions)."""
-        model = self.model
+        the captions tokenized: the instance prompt in place of the
+        folder's without prior preservation, a template around the
+        placeholder under textual inversion; tower 2 from the dataset's
+        captions, as in JAX."""
+        args, model = self.args, self.model
         device = model.device
+        captions = batch["captions"]
+        if args.instance_prompt and not args.with_prior_preservation:
+            captions = [args.instance_prompt] * len(captions)
+        if args.textual_inversion:
+            captions = [self._ti_rng.choice(self._ti_templates).format(args.textual_inversion)
+                        for _ in captions]
         tb = {
             "pixel_values": torch.from_numpy(batch["pixel_values"]).to(device),
-            "input_ids": torch.from_numpy(model.tokenizer(batch["captions"])).long().to(device),
+            "input_ids": torch.from_numpy(model.tokenizer(captions)).long().to(device),
         }
         if model.is_sdxl:
             tb["input_ids_2"] = torch.from_numpy(

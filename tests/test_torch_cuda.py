@@ -166,7 +166,12 @@ def _bwd_within_rule(grads, q, k, v, out, do, lse, causal):
      (1, 300, 2, 80, 1101, False), (2, 1101, 2, 40, 77, False),
      (1, 200, 2, 24, 300, True), (2, 64, 8, 160, 77, False),
      (1, 200, 2, 128, 150, False), (1, 100, 2, 96, 130, True),
-     (1, 90, 2, 136, 100, False)],
+     (1, 90, 2, 136, 100, False),
+     # the MM-DiT's joint stream in SD3 training: 4250 = 66 * 64 + 26
+     # (4096 image + 77 CLIP + 77 T5 tokens at 1024^2), 1178 = 1024 + 154
+     # at 512^2, ragged on both sides
+     (1, 4250, 24, 64, 4250, False), (2, 1178, 24, 64, 1178, False),
+     (2, 4250, 24, 64, 4250, False)],
 )
 def test_flash_bwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     """Both backward kernels against their plain version (_bwd_within_rule)
@@ -174,9 +179,11 @@ def test_flash_bwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     40 and 136 (the k16 steps read zero-filled columns up to the next
     multiple of 16, and no column past D is stored), D = 128 and up (dkv's
     two warps per 16 keys), Skv = 77, 50 and 1101 (a ragged last key tile),
-    ragged Sq (100, 130, 1101, 300), causal (CLIP's [8, 77, 12, 64], and
-    tiles cut by the diagonal).  The forward's lse against
-    attention_plain_lse."""
+    ragged Sq (100, 130, 1101, 300), the SD3 joint stream's 4250 and 1178
+    on both sides (the last query tile's rows and the last key tile's keys
+    live in part; the gradients start uninitialised, so a row left
+    unwritten shows), causal (CLIP's [8, 77, 12, 64], and tiles cut by the
+    diagonal).  The forward's lse against attention_plain_lse."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     do = torch.randn_like(q)
     with torch.no_grad():
@@ -187,6 +194,7 @@ def test_flash_bwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     grads = flash_bwd(q, k, v, out, do, lse, causal=causal)
     torch.cuda.synchronize()
     assert (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(g).all() for g in grads)
     _bwd_within_rule(grads, q, k, v, out, do, lse, causal)
 
 
@@ -443,3 +451,74 @@ def test_flash_fwd_ragged_joint_length(cuda, dtype, B, S, H):
     torch.cuda.synchronize()
     assert FLASH_FWD_LAUNCHES.count == before + 1 and torch.isfinite(out).all()
     _within_limit(out, attention_plain, q, k, v, p_rounded=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "offload"])
+def test_remat_policies_on_card(cuda, policy):
+    """A narrow SD1.5-layout UNet (head dims 40 and 80) trained with LoRA in
+    fp32 on the card: each remat policy gives the loss and every factor's
+    gradient of no remat (fp32 with TF32 off: within 1e-6 of each
+    tensor's largest element), with exact launches: no remat launches each
+    UNet attention's forward with lse once, a remat policy twice (the
+    backward recomputes it); one backward pair each either way; CLIP's
+    causal forwards without lse and the VAE's flash_stream once."""
+    import dataclasses
+
+    from stablediffusion_tpu_torch.core.config import SD15_TEXT_ENCODER, SD15_UNET, VAEConfig
+    from stablediffusion_tpu_torch.lora.core import UNET_TARGET_SUFFIXES, init_lora
+    from stablediffusion_tpu_torch.models.unet import BasicTransformerBlock
+    from stablediffusion_tpu_torch.schedulers import DDPMScheduler
+    from stablediffusion_tpu_torch.train.optim import tree_leaves
+    from stablediffusion_tpu_torch.train.train_step import TrainStatics, loss_fn
+    from stablediffusion_tpu_torch.utils.testing import bench_tokenizer, random_model
+
+    ucfg = dataclasses.replace(
+        SD15_UNET, sample_size=16, block_out_channels=(320, 640),
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1)
+    vcfg = VAEConfig(block_out_channels=(64, 192), layers_per_block=1)
+    tcfg = dataclasses.replace(SD15_TEXT_ENCODER, num_hidden_layers=2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = random_model(ucfg, vcfg, tcfg, bench_tokenizer(), device=cuda,
+                             dtype=torch.float32, seed=3)
+        frozen = {"unet": model.unet, "vae": model.vae, "text_encoder": model.text_encoder}
+        n_tf = sum(isinstance(m, BasicTransformerBlock) for m in model.unet.modules())
+        g = torch.Generator(device=cuda).manual_seed(1)
+        batch = {"pixel_values": torch.rand(2, 32, 32, 3, generator=g, device=cuda) * 2 - 1,
+                 "input_ids": torch.randint(0, 49407, (2, 77), generator=g, device=cuda)}
+        draws = {"latent_eps": torch.randn(2, 4, 16, 16, generator=g, device=cuda),
+                 "noise": torch.randn(2, 4, 16, 16, generator=g, device=cuda),
+                 "timesteps": torch.tensor([17, 630], device=cuda)}
+        lora = init_lora(model.unet, 4, UNET_TARGET_SUFFIXES, g, store_alpha=False)
+        for f in lora.values():  # non-zero up: zeros give zero down gradients
+            f["up"].normal_(0, 0.05, generator=g)
+        out, launches = {}, {}
+        for p in ("none", policy):
+            st = TrainStatics(unet_config=ucfg, vae_config=vcfg, text_config=tcfg,
+                              text_config_2=None, scheduler_config=model.scheduler_config,
+                              train_text_encoder=False, snr_gamma=5.0,
+                              compute_dtype=torch.float32, remat_policy=p)
+            trainable = {"unet": {k: {n: t.clone() for n, t in f.items()}
+                                  for k, f in lora.items()}}
+            leaves = [t.requires_grad_(True) for _, t in tree_leaves(trainable)]
+            counters = (FLASH_FWD_LAUNCHES, FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DKV_LAUNCHES,
+                        FLASH_STREAM_LAUNCHES)
+            before = [c.count for c in counters]
+            lse_before = sum(n for key, n in FLASH_FWD_LAUNCHES.by_shape.items() if key[4])
+            loss = loss_fn(trainable, frozen, batch, None, st, DDPMScheduler(), draws=draws)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            lse = sum(n for key, n in FLASH_FWD_LAUNCHES.by_shape.items() if key[4]) - lse_before
+            fwd, dq, dkv, stream = (c.count - b for c, b in zip(counters, before))
+            launches[p] = dict(with_lse=lse, without=fwd - lse, dq=dq, dkv=dkv, stream=stream)
+            out[p] = [loss.detach()] + list(grads)
+        assert launches["none"] == dict(with_lse=2 * n_tf, without=2, dq=2 * n_tf,
+                                        dkv=2 * n_tf, stream=1)
+        assert launches[policy] == dict(launches["none"], with_lse=4 * n_tf)
+        for a, b in zip(out["none"], out[policy]):
+            torch.testing.assert_close(b, a, rtol=0,
+                                       atol=1e-6 * max(1.0, a.abs().max().item()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32

@@ -80,9 +80,11 @@ def test_scheduler_swap_via_model_block(handler):
 # textual inversion were ported (their cases moved to tests of their own)
 @pytest.mark.parametrize("request_input, item", [
     pytest.param({"mode": "inference_wandb"}, "item 21", id="request_input0-item 21"),
-    # the train mode is ported; its textual-inversion option is not
+    # the train mode is ported with its textual-inversion option, which
+    # refuses to train the text towers (their LoRA is on by default), as
+    # in JAX, before it reads the folder
     pytest.param({"mode": "train", "train": {"data_dir": "unused", "textual_inversion": "<x>"}},
-                 "item 19", id="request_input2-item 19"),
+                 "train_text_encoder=False", id="request_input2-item 19"),
     pytest.param({"model": {"quantize": "w8a8"}}, "item 16", id="request_input4-item 16"),
     # SD3 is ported: an SD3 model block naming a folder that is not there
     # answers on the error channel like any other
@@ -177,11 +179,12 @@ def test_http_worker_roundtrip(handler):
         r = conn.getresponse()
         assert r.status == 400
         r.read()
-        # a failing request -> 500 with the error
+        # a failing request -> 500 with the error (full fine-tuning trains
+        # the UNet only, and the towers' LoRA is on by default)
         conn.request("POST", "/", body=json.dumps({"input": {
             **ARGS, "mode": "train", "train": {"data_dir": "unused", "full_finetune": True}}}))
         r = conn.getresponse()
-        assert r.status == 500 and "item 19" in json.loads(r.read())["error"]
+        assert r.status == 500 and "UNet only" in json.loads(r.read())["error"]
     finally:
         server.shutdown()
         server.server_close()
@@ -404,6 +407,43 @@ def test_batcher_key_partition_is_total():
 
     keys = set(batcher._MERGED_KEYS) | set(batcher._NON_BATCHABLE) | set(batcher._bucket_keys())
     assert set(INFERENCE_ARG_KEYS) <= keys
+
+
+def test_chip_smoke_burst_merges_a_late_request(handler):
+    """chip_smoke.py's burst helper runs its burst under the batcher's
+    fixed window, so a second request that reaches the batcher 50 ms after
+    the first (ten times the adaptive window's grace floor) still joins its
+    merged call; the worker's own window settings come back afterwards."""
+    import importlib.util
+    import time
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    server = make_server(handler, "127.0.0.1", 0, max_batch=2, batch_window_ms=200)
+    batcher = server.batcher
+    submit = batcher.submit
+
+    def late_submit(request_input, request_id=""):
+        if request_id == "burst-1":
+            time.sleep(0.05)
+        return submit(request_input, request_id)
+
+    batcher.submit = late_submit
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        bodies = [{**ARGS, "prompt": p, "seed": 20 + i} for i, p in enumerate(["a", "b"])]
+        _, row = chip_smoke._burst(server, server.server_address[1], {}, "cpu", bodies, {})
+        assert row["merged_calls"] == 1 and row["batched_per_reply"] == [2, 2]
+        assert (batcher.adaptive, batcher.window_ms) == (True, 200)
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=30)
 
 
 def test_encode_accepts_float_and_uint8():

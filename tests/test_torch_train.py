@@ -312,13 +312,16 @@ def test_train_steps_match_jax(tiny_sd):
 
 
 def test_unported_training_settings_raise():
+    """ControlNet training is the one setting the step refuses (ROADMAP
+    item 19, after item 15's model); textual inversion's rows and every
+    remat policy build a step; an unknown policy raises."""
     base = _statics(tts, tcfg, torch.float32)
-    for kw, match in ((dict(ti_rows=(1,)), "textual-inversion"),
-                      (dict(controlnet_config=tcfg.tiny_unet_config()), "ControlNet"),
-                      (dict(remat_policy="dots"), "dots"),
-                      (dict(remat_policy="offload"), "offload")):
-        with pytest.raises(NotImplementedError, match=match):
-            tts.make_train_step(dataclasses.replace(base, **kw), DDPMScheduler(), None)
+    with pytest.raises(NotImplementedError, match="ControlNet.*item 19"):
+        tts.make_train_step(dataclasses.replace(base, controlnet_config=tcfg.tiny_unet_config()),
+                            DDPMScheduler(), None)
+    for kw in (dict(ti_rows=(1,)), dict(remat_policy="dots"), dict(remat_policy="offload")):
+        assert callable(tts.make_train_step(dataclasses.replace(base, **kw), DDPMScheduler(),
+                                            None))
     with pytest.raises(ValueError, match="remat_policy"):
         tts.check_supported(dataclasses.replace(base, remat_policy="sometimes"))
 
@@ -359,3 +362,85 @@ def test_remat_full_gives_the_same_gradients(tiny_sd):
         out.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("policy", ["dots", "offload"])
+def test_remat_policies_give_the_same_gradients(tiny_sd, policy):
+    """"dots" (the 2-D products kept) and "offload" (kept in host memory)
+    give the loss and the gradients of no remat within 1e-6."""
+    frozen, lora, batch, port = tiny_sd
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    draws = _draws(jax.random.key(3), frozen, batch, jcfg.tiny_vae_config(), 0.0)
+    out = []
+    for p in ("none", policy):
+        tst = _statics(tts, tcfg, torch.float32, remat_policy=p)
+        trainable = {"unet": lora_from_jax(lora)}
+        leaves = [t.requires_grad_(True) for _, t in toptim.tree_leaves(trainable)]
+        loss = tts.loss_fn(trainable, port, tbatch, None, tst, DDPMScheduler(), draws=draws)
+        out.append([loss.detach()] + list(torch.autograd.grad(loss, leaves)))
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-6 * max(1.0, a.abs().max().item()))
+
+
+def test_remat_policies_keep_what_they_say(tiny_sd):
+    """What each policy keeps, seen from the backward: "full" runs the
+    forward's 2-D products (aten.mm / addmm) again, "dots" and "offload"
+    do not (they kept them), and every policy reruns the convolutions,
+    which none keeps; no remat reruns nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    frozen, lora, batch, port = tiny_sd
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    draws = _draws(jax.random.key(3), frozen, batch, jcfg.tiny_vae_config(), 0.0)
+    aten = torch.ops.aten
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"dot": 0, "conv": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.mm.default, aten.addmm.default):
+                self.n["dot"] += 1
+            elif func is aten.convolution.default:
+                self.n["conv"] += 1
+            return func(*args, **(kwargs or {}))
+
+    seen = {}
+    for p in ("none", "full", "dots", "offload"):
+        tst = _statics(tts, tcfg, torch.float32, remat_policy=p)
+        trainable = {"unet": lora_from_jax(lora)}
+        leaves = [t.requires_grad_(True) for _, t in toptim.tree_leaves(trainable)]
+        loss = tts.loss_fn(trainable, port, tbatch, None, tst, DDPMScheduler(), draws=draws)
+        with Count() as count:
+            torch.autograd.grad(loss, leaves)
+        seen[p] = count.n
+    assert seen["dots"]["dot"] == seen["offload"]["dot"] == seen["none"]["dot"]
+    assert seen["full"]["dot"] > seen["none"]["dot"]
+    for p in ("full", "dots", "offload"):
+        assert seen[p]["conv"] > seen["none"]["conv"], (p, seen)
+
+
+def test_remat_regions_are_the_blocks(tiny_sd, monkeypatch):
+    """Under a remat policy each resnet and transformer block of the UNet
+    is one checkpoint region, entered once in the forward, and nothing else
+    is; the blocks' own forwards are back once the loss is computed."""
+    frozen, lora, batch, port = tiny_sd
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    draws = _draws(jax.random.key(3), frozen, batch, jcfg.tiny_vae_config(), 0.0)
+    regions = []
+    real = tts.checkpoint
+
+    def counted(fn, *args, **kwargs):
+        regions.append(fn.__self__.unit)
+        return real(fn, *args, **kwargs)
+
+    monkeypatch.setattr(tts, "checkpoint", counted)
+    tst = _statics(tts, tcfg, torch.float32, remat_policy="full")
+    trainable = {"unet": lora_from_jax(lora)}
+    leaves = [t.requires_grad_(True) for _, t in toptim.tree_leaves(trainable)]
+    loss = tts.loss_fn(trainable, port, tbatch, None, tst, DDPMScheduler(), draws=draws)
+    units = [m for m in port["unet"].modules() if isinstance(m, tts.REMAT_UNITS)]
+    assert len(units) > 1 and sorted(map(id, regions)) == sorted(map(id, units))
+    assert not any("forward" in vars(m) for m in port["unet"].modules())
+    assert all(torch.isfinite(g).all() for g in torch.autograd.grad(loss, leaves))

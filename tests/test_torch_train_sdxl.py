@@ -216,8 +216,9 @@ def test_sdxl_encode_fn_matches_fused_prepare(setup):
 
 def test_remat_flags_resolve_as_jax(setup):
     """The legacy gradient_checkpointing flag means "full" under
-    remat_policy "", as _resolve_remat (:122-141) resolves it; the gradients
-    are those of no remat."""
+    remat_policy "", as _resolve_remat (:122-141) resolves it, and a named
+    policy wins over it; the gradients of "full", "dots" and "offload" are
+    those of no remat."""
     tm, _, frozen_t, lora, batch = setup
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     draws = _draws(jax.random.key(4), tm)
@@ -234,10 +235,19 @@ def test_remat_flags_resolve_as_jax(setup):
                                        materialize_grads=True))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
-    _, tst = _statics(tm, True, "epsilon")
+    # "dots" and "offload" resolve as named and keep the gradients too
     for policy in ("dots", "offload"):
-        with pytest.raises(NotImplementedError, match=f"{policy}.*item 19"):
-            tts.check_supported(dataclasses.replace(tst, remat_policy=policy))
+        _, tst = _statics(tm, True, "epsilon")
+        tst = dataclasses.replace(tst, remat_policy=policy, gradient_checkpointing=True)
+        assert tts._resolve_remat(tst) == policy
+        trainable = {c: lora_from_jax(t) for c, t in lora.items()}
+        leaves = [t.requires_grad_(True) for _, t in toptim.tree_leaves(trainable)]
+        loss = tts.loss_fn(trainable, frozen_t, tbatch, None, tst,
+                           DDPMScheduler(tst.scheduler_config), draws=draws)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        for a, b in zip(out[0], grads):
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-7)
+    _, tst = _statics(tm, True, "epsilon")
     assert tts._resolve_remat(dataclasses.replace(tst, remat_policy="none",
                                                   gradient_checkpointing=True)) == "none"
 

@@ -12,7 +12,10 @@ load in the JAX package with tensors equal.  The port alone: a run resumed
 from a checkpoint (8-bit moments, bf16 accumulation stopped half way) ends
 where the straight run ends, bit for bit; ``cache_latents`` gives the fused
 path's factors exactly; ``cli.main`` and the handler's train mode write the
-file; the options not ported raise and name their ROADMAP item.
+file; the CLI writes the model card (JAX's, on the port's modules) and
+pushes through a stand-in ``huggingface_hub``; the options ported with
+ROADMAP item 19 each train a step, and those not ported raise and name
+their item.
 """
 
 import dataclasses
@@ -282,15 +285,10 @@ def test_cli_and_handler_train_mode(data_dir, tmp_path):
     assert os.path.exists(resp["lora_path"])
 
 
+# the ids are those the cases had while item 19's options were refused too
 @pytest.mark.parametrize("kw, item", [
-    (dict(textual_inversion="<x>"), "item 19"),
-    (dict(instance_prompt="a photo of sks dog"), "item 19"),
-    (dict(with_prior_preservation=True), "item 19"),
-    (dict(full_finetune=True), "item 19"),
-    (dict(use_ema=True), "item 19"),
-    (dict(shard_opt_state=True), "item 20"),
-    (dict(shard_params=True), "item 20"),
-    (dict(remat_policy="dots"), "item 19"),
+    pytest.param(dict(shard_opt_state=True), "item 20", id="kw5-item 20"),
+    pytest.param(dict(shard_params=True), "item 20", id="kw6-item 20"),
 ])
 def test_unported_options_raise(data_dir, tmp_path, kw, item):
     name = next(iter(kw))
@@ -298,9 +296,31 @@ def test_unported_options_raise(data_dir, tmp_path, kw, item):
         _port_run(tiny_port_model(), data_dir, tmp_path, **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(textual_inversion="<x>", ti_initializer_token="cat", train_text_encoder=False),
+    dict(instance_prompt="a photo of sks dog"),
+    dict(with_prior_preservation=True, instance_prompt="a photo of sks dog",
+         class_prompt="a photo of dog"),
+    dict(full_finetune=True, train_text_encoder=False),
+    dict(full_finetune=True, use_ema=True, train_text_encoder=False),
+    dict(remat_policy="dots"),
+    dict(remat_policy="offload"),
+], ids=["textual_inversion", "instance_prompt", "with_prior_preservation", "full_finetune",
+        "use_ema", "dots", "offload"])
+def test_item19_options_train(data_dir, tmp_path, kw):
+    """The options the trainer refused until ROADMAP item 19's port each
+    train a step now."""
+    if kw.get("with_prior_preservation"):
+        kw = dict(kw, class_data_dir=data_dir)  # the folder's images as the class set
+    trainer, _ = _port_run(tiny_port_model(), data_dir, tmp_path, max_train_steps=1, **kw)
+    assert [s for s, _ in trainer.history] == [1] and np.isfinite(trainer.history[0][1])
+
+
+# the ids are those the cases had while --push_to_hub and the TI flag were
+# refused too
 @pytest.mark.parametrize("flags, item", [
-    (["--push_to_hub"], "item 19"), (["--local_rank", "0"], "item 20"),
-    (["--shard_params"], "item 20"), (["--train_textual_inversion", "<x>"], "item 19"),
+    pytest.param(["--local_rank", "0"], "item 20", id="flags1-item 20"),
+    pytest.param(["--shard_params"], "item 20", id="flags2-item 20"),
 ])
 def test_cli_refuses_unported_flags(data_dir, tmp_path, flags, item):
     folder = str(tmp_path / "model")
@@ -308,6 +328,97 @@ def test_cli_refuses_unported_flags(data_dir, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--pretrained_model_name_or_path", folder, "--train_data_dir", data_dir,
                   "--device", "cpu", "--max_train_steps", "1", *flags])
+
+
+class _FakeHub:
+    """A huggingface_hub stand-in that records the calls (no network)."""
+
+    def __init__(self, fail=False):
+        self.calls, self.fail = [], fail
+
+    def create_repo(self, repo_id, exist_ok=False, token=None):
+        self.calls.append(("create_repo", repo_id, exist_ok, token))
+        if self.fail:
+            raise ConnectionError("no network")
+        return type("Repo", (), {"repo_id": f"user/{repo_id}"})()
+
+    def upload_folder(self, **kw):
+        self.calls.append(("upload_folder", kw))
+
+
+def test_cli_writes_the_model_card_and_pushes(data_dir, tmp_path, monkeypatch):
+    """After training the CLI writes README.md (the JAX CLI's card fields)
+    and, with --push_to_hub, creates the repository and uploads the folder
+    through huggingface_hub; a failing hub logs "hub upload skipped"."""
+    import sys
+    import types
+
+    folder = str(tmp_path / "model")
+    save_sd_model(tiny_port_model(seed=5), folder)
+    hub = _FakeHub()
+    monkeypatch.setitem(sys.modules, "huggingface_hub", types.SimpleNamespace(
+        create_repo=hub.create_repo, upload_folder=hub.upload_folder))
+    out = tmp_path / "out"
+    cli.main(["--pretrained_model_name_or_path", folder, "--model_type", "sd15",
+              "--train_data_dir", data_dir, "--device", "cpu", "--resolution", str(RES),
+              "--train_batch_size", "2", "--max_train_steps", "2", "--rank", "2",
+              "--mixed_precision", "no", "--report_to", "none", "--checkpointing_steps", "0",
+              "--output_dir", str(out), "--push_to_hub", "--hub_model_id", "my-lora",
+              "--hub_token", "t0k"])
+    card = (out / "README.md").read_text()
+    assert f"base_model: {folder}" in card and "- **steps**: 2" in card
+    assert "- **rank**: 2" in card and "- **resolution**: 32" in card
+    assert hub.calls[0] == ("create_repo", "my-lora", True, "t0k")
+    assert hub.calls[1][1] == dict(repo_id="user/my-lora", folder_path=str(out),
+                                   commit_message="LoRA trained with stablediffusion-tpu",
+                                   ignore_patterns=["checkpoint-*", "logs*"], token="t0k")
+    from stablediffusion_tpu_torch.train.model_card import push_to_hub
+
+    failing = _FakeHub(fail=True)
+    monkeypatch.setitem(sys.modules, "huggingface_hub", types.SimpleNamespace(
+        create_repo=failing.create_repo, upload_folder=failing.upload_folder))
+    assert push_to_hub(str(out), "x") is None and len(failing.calls) == 1
+
+
+def test_model_card_matches_jax(tmp_path):
+    """save_model_card writes JAX's card (front matter, images, training
+    block), its usage snippet on the port's modules and a "cuda" tag in
+    place of "tpu"; the sample images are the same files."""
+    from stablediffusion_tpu.train.model_card import save_model_card as jax_card
+    from stablediffusion_tpu_torch.train.model_card import save_model_card
+
+    images = np.random.default_rng(0).uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    info = {"rank": 4, "steps": 10, "snr_gamma": None}
+    cards = {}
+    for name, fn in (("jax", jax_card), ("port", save_model_card)):
+        path = fn(str(tmp_path / name), "base/model", prompt="a cat", images=images,
+                  train_info=info, repo_name="repo")
+        cards[name] = open(path).read()
+        assert sorted(os.listdir(tmp_path / name)) == ["README.md", "image_0.png", "image_1.png"]
+    for i in range(2):
+        assert (tmp_path / "jax" / f"image_{i}.png").read_bytes() == \
+            (tmp_path / "port" / f"image_{i}.png").read_bytes()
+    jlines, tlines = cards["jax"].splitlines(), cards["port"].splitlines()
+    front = lambda lines: lines[:lines.index("---", 1) + 1]  # noqa: E731
+    assert set(front(jlines)) ^ set(front(tlines)) == {"- tpu", "- cuda"}
+    tail = lambda lines: lines[lines.index("## Training"):]  # noqa: E731
+    assert tail(tlines) == tail(jlines)
+    assert "from stablediffusion_tpu_torch.io.loader import load_sd_model" in cards["port"]
+    assert "![img_1](./image_1.png)" in cards["port"]
+
+
+def test_handler_full_finetune_answers_model_path(data_dir, tmp_path):
+    """Under full_finetune the train mode answers the saved folder's path,
+    as the JAX handler does (handler.py:523-526)."""
+    handler = Handler(model=tiny_port_model(seed=5))
+    out = str(tmp_path / "ff")
+    resp = handler({"mode": "train", "train": {
+        "data_dir": data_dir, "output_dir": out, "resolution": RES, "train_batch_size": 2,
+        "max_train_steps": 1, "full_finetune": True, "train_text_encoder": False,
+        "mixed_precision": "no", "report_to": None, "lr_warmup_steps": 0, "log_every": 1}})
+    assert "error" not in resp, resp
+    assert resp["model_path"] == out and "lora_path" not in resp
+    assert os.path.exists(os.path.join(out, "unet")) and resp["history"][0][0] == 1
 
 
 def test_mesh_refused():
