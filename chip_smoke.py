@@ -206,6 +206,38 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    launched that no earlier phase held (the forward with lse and the
    backward pair at [1,4250,24,64], with wrong variants as teeth).
 
+35. int8 serving (run after phase 34): the full-width SD1.5 model quantized
+   "w8", "w8a8" and "w8a8:2048" answers one 512² request each with phase
+   2's launches and exactly the int8 products its int8 layers plan (each
+   once a UNet forward; ``ops/quant.INT8_LINEAR_CALLS`` /
+   ``INT8_CONV_CALLS``), its PSNR against the bf16 image printed; one UNet
+   forward per mode on the card (bf16) against the CPU (fp32) on the same
+   int8 modules, within UNET_SLACK ("w8") or INT8_A8_SLACK ("w8a8") times
+   the bf16 UNet's own distance; SDXL 1024² under "w8a8:2048" likewise
+   (``add_embedding`` and every GEGLU projection int8, full "w8a8" padding
+   add_embedding's 2 rows for the int8 GEMM, counted); the denoise step's
+   device and event ms in bf16 and each mode at SD1.5 batch 1 and 8 and
+   SDXL batch 1 (``ops/quant.AUTO_QUANT_*`` come from these rows),
+   ``torch._int_mm`` against bf16 at the main linear shapes, the UNets'
+   resident bytes.
+36. int8 checkpoints: the SDXL model written by ``save_sd_model(quantize=
+   "w8a8:2048")`` and loaded back ``quant_frozen``, its UNet's tensors, a
+   forward and the 1024² image equal bit for bit to the in-memory model's,
+   its allocated bytes at most INT8_FOLDER_SHARE of the bf16 UNet's, LoRA
+   fusion refused; the SD1.5 model's fp folder through ``python -m
+   stablediffusion_tpu_torch.io.quantize_cli --mode w8a8`` (on the CPU),
+   its UNet equal to the card's own "w8a8" quantization.
+37. SD3 LoRA serving: phase 31's trained file through the handler's model
+   block on the same base: phase 26's launches (760, 48 masked, 1), every
+   fused weight within a bf16 ulp of the CPU's fp32 base + B·A, a request
+   under ``quantize: "w8a8"`` with exact launches and int8 products, then
+   ``quantize: null`` and ``loras: []`` restoring every MM-DiT and CLIP
+   weight bit for bit (T5 never written).
+38. The front doors: the worker over phase 36's int8 SD1.5 folder answers
+   GET /ui with ``serve/webapp.index_html()``, a ``build_ui_request``
+   payload by POST with phase 2's launches and the planned int8 products,
+   and ``serve/worker.trigger_fn`` the same job with the same image.
+
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, when CUDA is not available.
@@ -3152,6 +3184,10 @@ def phase_train_sd3(smi):
     if not cache_worst == 0.0:
         raise AssertionError(f"cache_latents {cache_worst} from the fused steps")
     del model, straight, resumed, cached, at2, probe, frozen, batch
+    # the trained file outlives the phase: phase 37 serves it
+    summary["lora_file"] = shutil.copy(
+        os.path.join(root, "straight", "pytorch_lora_weights.safetensors"),
+        tempfile.mkdtemp(prefix="chip_smoke_sd3_lora_file_"))
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return totals, by_shape, summary
@@ -3485,6 +3521,607 @@ def phase_dreambooth(smi):
     return totals, by_shape, row
 
 
+# -- the rest of serving: int8 quantization and checkpoints, SD3 LoRA
+# adapters, the web UI and the queue entry -----------------------------------
+
+INT8_MODES = ("w8", "w8a8", "w8a8:2048")
+# one full-width UNet forward through the int8 modules, card (bf16, the
+# kernels) against the CPU (fp32, the plain attention) on the same int8
+# modules and inputs, held against the same two paths without quantization:
+# "w8" dequantizes its weights to bf16 on the card, as a bf16 UNet holds
+# them, so it may lie as far from the CPU as the bf16 UNet does, with
+# UNET_SLACK's margin; "w8a8" quantizes bf16 activations on the card and
+# fp32 ones on the CPU, and a code that one rounding puts on the other side
+# of a midpoint moves by a whole step, so its limit is INT8_A8_SLACK times
+# the bf16 UNet's distance
+INT8_A8_SLACK = 4.0
+# the int8 SDXL folder's UNet against the bf16 UNet, in allocated bytes
+INT8_FOLDER_SHARE = 0.55
+INT8_SD15_REQUEST = dict(prompt="a photograph of an astronaut riding a horse", seed=0)
+# the quantized UNet forward's inputs: 32x32 latents keep the CPU's fp32
+# forward of the full-width UNet to seconds
+INT8_REF_HW = 32
+# denoise steps timed per configuration (one warm-up first)
+INT8_TIMING_REPS = 3
+
+
+def _int8_calls():
+    """The int8 products counted so far, by kind and mode."""
+    from stablediffusion_tpu_torch.ops.quant import INT8_CONV_CALLS, INT8_LINEAR_CALLS
+
+    return {"int8_linear": dict(INT8_LINEAR_CALLS.by_mode),
+            "int8_conv2d": dict(INT8_CONV_CALLS.by_mode)}
+
+
+def _reset_int8():
+    from stablediffusion_tpu_torch.ops.quant import INT8_CONV_CALLS, INT8_LINEAR_CALLS
+
+    INT8_LINEAR_CALLS.reset()
+    INT8_CONV_CALLS.reset()
+
+
+def _int8_plan(tower, n_evals):
+    """The int8 products of `n_evals` forwards of `tower`: each int8 layer
+    runs once a forward."""
+    from stablediffusion_tpu_torch.ops.quant import QUANT_MODES, Int8Conv2d, Int8Linear
+
+    plan = {k: {m: 0 for m in QUANT_MODES} for k in ("int8_linear", "int8_conv2d")}
+    for m in tower.modules():
+        if isinstance(m, Int8Linear):
+            plan["int8_linear"][m.mode] += n_evals
+        elif isinstance(m, Int8Conv2d):
+            plan["int8_conv2d"][m.mode] += n_evals
+    return plan
+
+
+def _tensor_bytes(module) -> int:
+    import itertools
+
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(module.parameters(), module.buffers()))
+
+
+def _fp_copy_bytes(model) -> int:
+    """Bytes of the floating-point modules a quantized tower keeps for
+    re-quantization (``AdapterHolder._fp_modules``)."""
+    return sum(_tensor_bytes(m) for m in model._fp_modules.values())
+
+
+def _psnr(img, ref) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(img, np.float64) - np.asarray(ref, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+def _unet_inputs(model, B, hw, device, dtype, seed=5):
+    """(x, t, ctx, added) of one UNet call at batch B on hw x hw latents."""
+    import torch
+
+    cfg = model.unet.config
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, cfg.in_channels, hw, hw, generator=g)
+    ctx = torch.randn(B, 77, cfg.cross_attention_dim, generator=g)
+    added = None
+    if cfg.addition_embed_type == "text_time":
+        pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        res = float(hw * model.vae_scale_factor)
+        added = {"text_embeds": torch.randn(B, pooled, generator=g).to(device, dtype),
+                 "time_ids": torch.tensor([[res, res, 0, 0, res, res]] * B, device=device)}
+    return (x.to(device, dtype), torch.tensor(500, device=device), ctx.to(device, dtype),
+            added)
+
+
+def _unet_card_vs_cpu(model):
+    """One forward of the model's UNet at B=1 on INT8_REF_HW latents: the
+    card in its dtype against a CPU fp32 copy of the same modules (int8
+    codes and scales kept, the rest fp32) on the same inputs.  Returns
+    (rel err, the CPU output)."""
+    import torch
+
+    dtype = next(model.unet.parameters()).dtype
+    with torch.inference_mode():
+        card = model.unet(*_unet_inputs(model, 1, INT8_REF_HW, "cuda", dtype)).float().cpu()
+        cpu_unet = copy.deepcopy(model.unet).cpu().float()
+        ref = cpu_unet(*_unet_inputs(model, 1, INT8_REF_HW, "cpu", torch.float32))
+    return _rel_err(card, ref), ref
+
+
+def _all_kernels_ms(fn, reps):
+    """Device time of one call of `fn`: every CUDA kernel event of `reps`
+    calls under torch.profiler, summed, over `reps`.  A profiling run that
+    kept no kernel time is repeated; after three, the calls are timed with CUDA
+    events, and a ``device_ms_fallback`` line says so (as ``_device_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    ms = _time_ms(fn, reps)
+    print(json.dumps({"device_ms_fallback": "all kernels", "event_ms": ms,
+                      "why": "torch.profiler kept no kernel event in 3 runs"}), flush=True)
+    return ms
+
+
+def _time_step(model, batch, label, card):
+    """One denoise step's UNet call at `batch` prompts under CFG (2 x batch
+    rows) on the model's native latents: device ms (profiler kernels) and
+    event ms; the int8 products of one call; printed and returned."""
+    import torch
+
+    hw = model.unet.config.sample_size
+    dtype = next(model.unet.parameters()).dtype
+    args = _unet_inputs(model, 2 * batch, hw, "cuda", dtype, seed=6)
+    with torch.inference_mode():
+        fn = lambda: model.unet(*args)  # noqa: E731
+        fn()
+        _reset_int8()
+        fn()
+        calls = _int8_calls()
+        from stablediffusion_tpu_torch.ops.quant import INT8_LINEAR_CALLS
+
+        padded = INT8_LINEAR_CALLS.padded
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        device_ms = _all_kernels_ms(fn, INT8_TIMING_REPS)
+        event_ms = _time_ms(fn, INT8_TIMING_REPS)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    row = {"int8_step": label, "model": model.model_type, "batch": batch,
+           "unet_rows": 2 * batch, "latents": hw, "mode": model.quant_mode or "bf16",
+           "device_ms": device_ms, "event_ms": event_ms, "int8_calls": calls,
+           "padded_rows_calls": padded, "unet_bytes": _tensor_bytes(model.unet),
+           "fp_copy_bytes": _fp_copy_bytes(model), "peak_over_held_gib": peak,
+           "card": card}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _int_mm_vs_bf16(card):
+    """``torch._int_mm`` against a bf16 ``torch.matmul`` at the main linear
+    shapes, and the whole ``int8_linear`` (w8a8, w8) against the bf16
+    linear, device ms from the profiler."""
+    import torch
+    import torch.nn.functional as F
+
+    from stablediffusion_tpu_torch.ops.quant import int8_linear, quantized_layer
+
+    rows = []
+    for label, M, K, N in (("sdxl ff.net.0.proj", 8192, 1280, 10240),
+                           ("sd15 attn 320->320", 8192, 320, 320)):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        a8 = torch.randint(-127, 128, (M, K), device="cuda", dtype=torch.int8, generator=g)
+        b8 = torch.randint(-127, 128, (N, K), device="cuda", dtype=torch.int8, generator=g).t()
+        x = torch.randn(M, K, device="cuda", dtype=torch.bfloat16, generator=g)
+        lin = torch.nn.Linear(K, N, device="cuda", dtype=torch.bfloat16)
+        wt = lin.weight.t()
+        q8, qw = quantized_layer(lin, "w8a8"), quantized_layer(lin, "w8")
+        ops = 2.0 * M * K * N
+        r = {"int_mm_vs_bf16": label, "M": M, "K": K, "N": N,
+             "int_mm_ms": _all_kernels_ms(lambda: torch._int_mm(a8, b8), 20),
+             "bf16_matmul_ms": _all_kernels_ms(lambda: torch.matmul(x, wt), 20),
+             "int8_linear_w8a8_ms": _all_kernels_ms(lambda: int8_linear(q8, x), 20),
+             "int8_linear_w8_ms": _all_kernels_ms(lambda: int8_linear(qw, x), 20),
+             "bf16_linear_ms": _all_kernels_ms(lambda: F.linear(x, lin.weight, lin.bias), 20),
+             "card": card}
+        r["int_mm_tops"] = ops / r["int_mm_ms"] / 1e9
+        r["bf16_tflops"] = ops / r["bf16_matmul_ms"] / 1e9
+        print(json.dumps(r), flush=True)
+        rows.append(r)
+    return rows
+
+
+def phase_int8(smi):
+    """Phase 35: int8 serving.  The full-width SD1.5 model quantized as
+    "w8", "w8a8" and "w8a8:2048" answers one 512² request each (20 DDIM
+    steps, CFG 7.5) with phase 2's launches exactly and the int8 products
+    its quantized modules plan; one UNet forward per mode on the card
+    against the CPU's fp32 forward of the same int8 modules; each image
+    against the bf16 one.  SDXL at 1024² under "w8a8:2048" the same (its
+    ``add_embedding`` and GEGLU projections through the int8 dispatch).
+    The denoise step timed in each mode and in bf16 at SD1.5 batch 1 and 8
+    and SDXL batch 1, ``torch._int_mm`` against bf16 at the main linear
+    shapes, the UNet's resident bytes.  Returns (launches by path, rows,
+    the SDXL model quantized "w8a8:2048", its 1024² image, the bf16 SDXL
+    UNet's bytes, the SD1.5 model unquantized)."""
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.ops.quant import INT8_LINEAR_CALLS, Int8Linear
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import random_full_model
+
+    counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+    pipe = StableDiffusionUnifiedPipeline(device="cuda")
+    launches, steps_rows = {}, []
+
+    def request(model, label, res, want, ref_img=None):
+        n_evals = 20
+        plan = _int8_plan(model.unet, n_evals)
+        for c in counters.values():
+            c.reset()
+        _reset_int8()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe(model, height=res, width=res, num_inference_steps=n_evals,
+                   guidance_scale=7.5, **INT8_SD15_REQUEST)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {n: c.count for n, c in counters.items()}
+        calls = _int8_calls()
+        im = out.images
+        row = {"int8_request": label, "mode": model.quant_mode or "bf16", "wall_s": wall,
+               "launches": got, "expected_launches": want, "int8_calls": calls,
+               "expected_int8_calls": plan, "padded_rows_calls": INT8_LINEAR_CALLS.padded,
+               "held_gib": held / 2**30,
+               "peak_over_held_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+               "unet_bytes": _tensor_bytes(model.unet), "fp_copy_bytes": _fp_copy_bytes(model),
+               "card": smi}
+        if ref_img is not None:
+            row.update(max_abs_vs_bf16=float(np.abs(im - ref_img).max()),
+                       mean_abs_vs_bf16=float(np.abs(im - ref_img).mean()),
+                       psnr_vs_bf16_db=_psnr(im, ref_img))
+        print(json.dumps(row), flush=True)
+        if im.shape != (1, res, res, 3) or not np.isfinite(im).all():
+            raise AssertionError(f"{label}: bad output {im.shape}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != expected {want}")
+        if calls != plan:
+            raise AssertionError(f"{label}: int8 products {calls} != planned {plan}")
+        launches[label] = got
+        return im
+
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        print(json.dumps({"phase_int8_at_s": time.perf_counter() - t_phase, "done": what}),
+              flush=True)
+
+    # SD1.5 512²
+    model = random_full_model("sd15", device="cuda", seed=0)
+    want = _want(model, 20, 1)
+    bf16_img = request(model, "int8_sd15_bf16", 512, want)
+    mark("sd15 bf16 request")
+    e_fp, ref_fp = _unet_card_vs_cpu(model)
+    mark("sd15 bf16 card vs cpu")
+    sd15_bf16_bytes = _tensor_bytes(model.unet)
+    steps_rows += [_time_step(model, b, "sd15_bf16", smi) for b in (1, 8)]
+    for mode in INT8_MODES:
+        model.quantize(mode)
+        label = f"int8_sd15_{mode}"
+        request(model, label, 512, want, bf16_img)
+        e_q, ref_q = _unet_card_vs_cpu(model)
+        e_quant = _rel_err(ref_q, ref_fp)
+        limit = (UNET_SLACK if mode == "w8" else INT8_A8_SLACK) * e_fp
+        print(json.dumps({"int8_unet_card_vs_cpu": mode, "model": "sd15",
+                          "latents": INT8_REF_HW, "card_int8_vs_cpu_int8": e_q,
+                          "card_bf16_vs_cpu_fp32_unquantized": e_fp,
+                          "cpu_int8_vs_cpu_fp32 (quantization)": e_quant, "limit": limit,
+                          "card": smi}), flush=True)
+        if not e_q <= limit:
+            raise AssertionError(f"{mode}: the card's int8 UNet lies {e_q} from the CPU's, "
+                                 f"limit {limit}")
+        steps_rows += [_time_step(model, b, f"sd15_{mode}", smi) for b in (1, 8)]
+        mark(f"sd15 {mode}")
+    model.quantize(None)
+    if _tensor_bytes(model.unet) != sd15_bf16_bytes:
+        raise AssertionError("quantize(None) left the UNet's bytes changed")
+
+    # SDXL 1024²
+    xl = random_full_model("sdxl", device="cuda", seed=0)
+    want_xl = _want(xl, 20, 1)
+    xl_bytes = _tensor_bytes(xl.unet)
+    xl_bf16_img = request(xl, "int8_sdxl_bf16", SDXL_RES, want_xl)
+    steps_rows.append(_time_step(xl, 1, "sdxl_bf16", smi))
+    for mode in ("w8", "w8a8", "w8a8:2048"):
+        xl.quantize(mode)
+        row = _time_step(xl, 1, f"sdxl_{mode}", smi)
+        steps_rows.append(row)
+        # full w8a8 quantizes add_embedding's two linears, whose rows are
+        # the batch's: padded for the int8 GEMM, each call counted
+        want_padded = 2 if mode == "w8a8" else 0
+        if row["padded_rows_calls"] != want_padded:
+            raise AssertionError(f"sdxl {mode}: {row['padded_rows_calls']} padded calls, "
+                                 f"expected {want_padded}")
+    layers = dict(xl.unet.named_modules())
+    geglu = [p for p in layers if p.endswith("ff.net.0.proj")]
+    for p in ["add_embedding.linear_1", "add_embedding.linear_2", *geglu]:
+        if not isinstance(layers[p], Int8Linear):
+            raise AssertionError(f"sdxl w8a8:2048: {p} is not int8")
+    if {layers[p].mode for p in geglu} != {"w8a8"}:
+        raise AssertionError("sdxl w8a8:2048: a GEGLU projection is not w8a8")
+    mark("sdxl timing")
+    xl_img = request(xl, "int8_sdxl_w8a8:2048", SDXL_RES, want_xl, xl_bf16_img)
+    mark("sdxl w8a8:2048 request")
+    mm_rows = _int_mm_vs_bf16(smi)
+    print(json.dumps({"int8_resident_bytes": {"sd15_bf16_unet": sd15_bf16_bytes,
+                                              "sdxl_bf16_unet": xl_bytes},
+                      "card": smi}), flush=True)
+    return launches, steps_rows + mm_rows, xl, xl_img, xl_bytes, model
+
+
+def phase_int8_checkpoints(smi, xl, xl_img, xl_bf16_bytes, sd15):
+    """Phase 36: int8 checkpoints.  The SDXL model quantized "w8a8:2048"
+    written by ``save_sd_model(quantize=)`` and loaded back: ``quant_frozen``,
+    every UNet tensor and a UNet forward equal bit for bit, the 1024²
+    request's image equal to the in-memory model's, the UNet's allocated
+    bytes at most INT8_FOLDER_SHARE of the bf16 UNet's, LoRA fusion
+    refused.  Then the SD1.5 model's fp folder through
+    ``python -m stablediffusion_tpu_torch.io.quantize_cli`` (on the CPU):
+    its UNet equal to the in-memory "w8a8" quantization on the card.
+    Returns (the folder root, the int8 SD1.5 folder's name)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.io.loader import load_sd_model, save_sd_model
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    folder = os.path.join(root, "sdxl_int8")
+    t = time.perf_counter()
+    save_sd_model(xl, folder, quantize="w8a8:2048")
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = load_sd_model(folder)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    if not (loaded.quant_frozen and loaded.quant_mode == "w8a8:2048"):
+        raise AssertionError(f"int8 folder loaded as {loaded.quant_mode} "
+                             f"frozen={loaded.quant_frozen}")
+    a, b = xl.unet.state_dict(), loaded.unet.state_dict()
+    if a.keys() != b.keys() or not all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                       for k in a):
+        raise AssertionError("the int8 folder's UNet differs from the quantized model's")
+    args = _unet_inputs(xl, 2, xl.unet.config.sample_size, "cuda", torch.bfloat16)
+    with torch.inference_mode():
+        same_forward = torch.equal(xl.unet(*args), loaded.unet(*args))
+    # the synthetic vocabulary's bigG pad (id 0) is not "!", which is what
+    # the tokenizer folder records a pad as, so the loaded model takes the
+    # in-memory model's tokenizers for the image's comparison
+    loaded.tokenizer, loaded.tokenizer_2 = xl.tokenizer, xl.tokenizer_2
+    out = StableDiffusionUnifiedPipeline(device="cuda")(
+        loaded, height=SDXL_RES, width=SDXL_RES, num_inference_steps=20, guidance_scale=7.5,
+        **INT8_SD15_REQUEST).images
+    loaded_bytes = _tensor_bytes(loaded.unet)
+    share = loaded_bytes / xl_bf16_bytes
+    try:
+        loaded.load_loras({"style": 1.0}, lora_dir=root)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    row = {"int8_folder": "sdxl w8a8:2048", "bytes_on_disk": _folder_bytes(folder),
+           "unet_bytes_on_disk": _folder_bytes(os.path.join(folder, "unet")),
+           "save_s": save_s, "load_s": load_s, "unet_allocated_bytes": loaded_bytes,
+           "bf16_unet_bytes": xl_bf16_bytes, "share": share, "limit": INT8_FOLDER_SHARE,
+           "forward_bit_equal": same_forward,
+           "image_bit_equal": bool(np.array_equal(out, xl_img)),
+           "image_max_abs_diff": float(np.abs(out - xl_img).max()),
+           "lora_fusion_refused": refused, "card": smi}
+    print(json.dumps(row), flush=True)
+    if not (same_forward and row["image_bit_equal"]):
+        raise AssertionError("the loaded int8 SDXL model renders otherwise than the in-memory one")
+    if share > INT8_FOLDER_SHARE:
+        raise AssertionError(f"int8 SDXL UNet holds {share:.3f} of the bf16 UNet's bytes")
+    if not refused or "requires fp weights" not in refused:
+        raise AssertionError(f"LoRA fusion on a frozen int8 model: {refused}")
+    del loaded, xl
+    torch.cuda.empty_cache()
+
+    # the quantize CLI, on the CPU, over the SD1.5 model's fp folder
+    src, dst = os.path.join(root, "sd15_fp"), os.path.join(root, "sd15_int8")
+    save_sd_model(sd15, src)
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "stablediffusion_tpu_torch.io.quantize_cli", src, dst,
+         "--mode", "w8a8"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t
+    if cli.returncode != 0:
+        raise AssertionError(f"quantize_cli exited {cli.returncode}: {cli.stderr[-2000:]}")
+    loaded = load_sd_model(dst)
+    sd15.quantize("w8a8")
+    a, b = sd15.unet.state_dict(), loaded.unet.state_dict()
+    equal = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    print(json.dumps({"quantize_cli": "python -m stablediffusion_tpu_torch.io.quantize_cli "
+                      "sd15_fp sd15_int8 --mode w8a8 (CPU)", "stdout": cli.stdout.strip(),
+                      "wall_s": cli_s, "bytes_src": _folder_bytes(src),
+                      "bytes_dst": _folder_bytes(dst), "frozen": loaded.quant_frozen,
+                      "unet_equal_to_card_quantization": equal, "card": smi}), flush=True)
+    if not (equal and loaded.quant_frozen and loaded.quant_mode == "w8a8"):
+        raise AssertionError("the quantize CLI's SD1.5 folder differs from the card's w8a8")
+    sd15.quantize(None)
+    del loaded
+    torch.cuda.empty_cache()
+    return root, "int8"
+
+
+def phase_front_doors(smi, root, name, sd15):
+    """Phase 38: the worker over the CLI's int8 SD1.5 folder (its own
+    ``--model_name`` load, max_batch 4): GET /ui answers ``index_html()``,
+    a ``build_ui_request`` payload POSTed answers a 512² image with phase
+    2's launches and the folder's planned int8 products, and
+    ``trigger_fn`` answers the same job with the same image.  Returns the
+    launches by path."""
+    import http.client
+    import shutil
+    import threading
+
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.serve import worker
+    from stablediffusion_tpu_torch.serve.webapp import build_ui_request, index_html
+
+    server = worker.build(worker.parse_args([
+        "--host", "127.0.0.1", "--port", "0", "--model_dir", root, "--model_type", "sd15",
+        "--model_name", name, "--max_batch", "4"]))
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    launches = {}
+    try:
+        port = server.server_address[1]
+        model = server.handler.model
+        if not (model.quant_frozen and model.quant_mode == "w8a8"):
+            raise AssertionError("the worker did not load the int8 folder frozen")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/ui")
+        resp = conn.getresponse()
+        page = resp.read().decode()
+        conn.close()
+        ui_ok = resp.status == 200 and page == index_html()
+        print(json.dumps({"front_door": "GET /ui", "status": resp.status,
+                          "bytes": len(page), "equals_index_html": ui_ok}), flush=True)
+        if not ui_ok:
+            raise AssertionError(f"GET /ui answered {resp.status}")
+        counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+        want = _want(model, 20, 1)
+        plan = _int8_plan(model.unet, 20)
+        body = build_ui_request("txt2img", INT8_SD15_REQUEST["prompt"], steps=20, cfg=7.5,
+                                seed=11, width=512, height=512, scheduler="DDIM")
+        _reset_int8()
+        reply, _ = _ask(port, counters, smi, "front_door_ui_payload", body, want)
+        if _int8_calls() != plan:
+            raise AssertionError(f"UI payload: int8 products {_int8_calls()} != {plan}")
+        launches["front_door_ui"] = want
+        before = {n: c.count for n, c in counters.items()}
+        _reset_int8()
+        t = time.perf_counter()
+        queued = worker.trigger_fn({"id": "queue", "input": body})
+        wall = time.perf_counter() - t
+        got = {n: c.count - before[n] for n, c in counters.items()}
+        same = queued.get("images") == reply["images"] and queued.get("seed") == 11
+        print(json.dumps({"front_door": "trigger_fn", "wall_s": wall, "launches": got,
+                          "expected_launches": want, "int8_calls": _int8_calls(),
+                          "same_images_as_post": same, "card": smi}), flush=True)
+        if "error" in queued or got != want or _int8_calls() != plan or not same:
+            raise AssertionError(f"trigger_fn: {queued.get('error')} launches {got}")
+        launches["front_door_trigger_fn"] = got
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sd3_lora(smi, lora_file):
+    """Phase 37: SD3 LoRA serving.  Phase 31's trained file (on the same
+    base, seed 21) through the handler's model block ``{"loras":
+    {"trained": 1.0}}``: one 1024² request with phase 26's launches; every
+    fused weight within one bf16 ulp of the CPU's fp32 base + B·A (and the
+    fp32 tolerance of ``tests/test_torch_lora.py``); then a request under ``quantize: "w8a8"`` with exact
+    launches and int8 products; then ``quantize: null`` and ``loras: []``
+    give every MM-DiT and CLIP weight back bit for bit, T5 never written.
+    Returns the launches by path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.lora.core import delta_w
+    from stablediffusion_tpu_torch.serve.handler import Handler, decode_image_b64
+    from stablediffusion_tpu_torch.utils.testing import random_full_model
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sd3_lora_")
+    shutil.copy(lora_file, os.path.join(root, "sd3_trained.safetensors"))
+    model = random_full_model("sd3", device="cuda", seed=21, with_t5=True)
+    comps = ("transformer", "text_encoder", "text_encoder_2")
+    before = {c: {k: v.clone() for k, v in getattr(model, c).state_dict().items()}
+              for c in comps}
+    t5_versions = {k: p._version for k, p in model.text_encoder_3.named_parameters()}
+    handler = Handler(model=model, lora_dir=root)
+    counters = _sd3_counters()
+    want = _want_sd3(model, SD3_STEPS, 1)
+    req = dict(SD3_REQUESTS[0], height=SD3_RES, width=SD3_RES, num_inference_steps=SD3_STEPS,
+               guidance_scale=SD3_CFG)
+    launches = {}
+
+    def ask(label, block, plan=None):
+        for c in counters.values():
+            c.reset()
+        _reset_int8()
+        t = time.perf_counter()
+        reply = handler({**req, "model": block}, label)
+        wall = time.perf_counter() - t
+        got = {n: c.count for n, c in counters.items()}
+        row = {"sd3_lora_request": label, "block": block, "wall_s": wall, "launches": got,
+               "expected_launches": want, "int8_calls": _int8_calls(),
+               "expected_int8_calls": plan, "card": smi}
+        print(json.dumps(row), flush=True)
+        if "error" in reply:
+            raise AssertionError(f"{label}: {reply['error']}\n{reply.get('traceback')}")
+        px = decode_image_b64(reply["images"][0])
+        if px.shape != (SD3_RES, SD3_RES, 3) or not np.isfinite(px).all():
+            raise AssertionError(f"{label}: image {px.shape}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != expected {want}")
+        if plan is not None and _int8_calls() != plan:
+            raise AssertionError(f"{label}: int8 products {_int8_calls()} != {plan}")
+        launches[label] = got
+
+    ask("sd3_lora", {"loras": {"trained": 1.0}})
+    if model.get_list_adapters() != {"trained": 1.0}:
+        raise AssertionError(f"sd3 adapters {model.get_list_adapters()}")
+    adapter = model._adapter_store["trained"]
+    worst, n_fused = 0.0, 0
+    for comp, tree in adapter.items():
+        module = getattr(model, comp)
+        for path, f in tree.items():
+            key = f"{path}.weight"
+            base = model._pristine[comp][key].float().cpu()
+            want_w = base + delta_w({k: v.cpu() for k, v in f.items()}).t()
+            got_w = module.get_submodule(path).weight.float().cpu()
+            # the fp32 sum rounded once to bf16 (the card's B.A may put it on
+            # the other side of a midpoint: one bf16 ulp), plus the fp32
+            # tolerance of tests/test_torch_lora.py
+            lim = torch.finfo(torch.bfloat16).eps * want_w.abs() + 1e-6 * want_w.abs().max()
+            worst = max(worst, ((got_w - want_w).abs() / lim.clamp_min(1e-30)).max().item())
+            n_fused += 1
+    print(json.dumps({"sd3_lora_fused": n_fused, "components": sorted(adapter),
+                      "worst_over_limit": worst,
+                      "limit": "one bf16 ulp of base + B.A (fp32) + 1e-6 of its max"}),
+          flush=True)
+    if not (n_fused and worst <= 1.0):
+        raise AssertionError(f"sd3 fused weights {worst} over the limit ({n_fused} fused)")
+    # quantized over the fused weights; the request naming the same mode
+    # again quantizes nothing more
+    handler.maybe_reload_model({"quantize": "w8a8"})
+    ask("sd3_lora_w8a8", {"quantize": "w8a8"}, _int8_plan(model.transformer, SD3_STEPS))
+    handler.maybe_reload_model({"quantize": None, "loras": []})
+    restored = all(torch.equal(before[c][k], v)
+                   for c in comps for k, v in getattr(model, c).state_dict().items())
+    t5_untouched = t5_versions == {k: p._version
+                                   for k, p in model.text_encoder_3.named_parameters()}
+    print(json.dumps({"sd3_lora_delete": "quantize null + loras []",
+                      "weights_bit_equal": restored, "t5_never_written": t5_untouched,
+                      "adapters": model.get_list_adapters()}), flush=True)
+    if not (restored and t5_untouched and model.get_list_adapters() == {}):
+        raise AssertionError("sd3 delete_adapters did not restore the weights")
+    del model, handler, before
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3567,14 +4204,26 @@ def main() -> int:
     # the rest of training; the kernels at every shape these paths launched
     # that no earlier phase held
     held = {(r["kernel"], *r["shape"], r["skv"], r["causal"], r["dtype"]) for r in rows}
-    more_training = {}
+    more_training, summaries = {}, {}
     for path, phase in (("train_sd3", phase_train_sd3), ("train_full", phase_full_finetune),
                         ("train_ti_sdxl", phase_ti_sdxl),
                         ("train_dreambooth", phase_dreambooth)):
-        path_launches, path_by_shape, _ = phase(smi)
+        path_launches, path_by_shape, summaries[path] = phase(smi)
         more_training[path] = path_launches
         rows += phase_train_kernels_at(path_by_shape, path, held)
         torch.cuda.empty_cache()
+
+    # the rest of serving: int8 modes, int8 folders and the quantize CLI,
+    # SD3 LoRA adapters, the web UI and the queue entry
+    int8_launches, _, xl, xl_img, xl_bytes, sd15 = phase_int8(smi)
+    int8_root, int8_name = phase_int8_checkpoints(smi, xl, xl_img, xl_bytes, sd15)
+    del xl
+    torch.cuda.empty_cache()
+    serving_rest = {**int8_launches,
+                    **phase_sd3_lora(smi, summaries["train_sd3"]["lora_file"]),
+                    **phase_front_doors(smi, int8_root, int8_name, sd15)}
+    del sd15
+    torch.cuda.empty_cache()
     # the masked route (T5's position bias) is no kernel: its count by path
     print(json.dumps({"attention_masked_launches_by_path": {
         p: n.get("attention_masked", 0) for p, n in sd3_launches.items()},
@@ -3640,7 +4289,8 @@ def main() -> int:
                    **{p: n.get(name, 0) for p, n in sdxl_launches.items()},
                    "single_file_constructor": single_launches.get(name, 0),
                    **{p: n.get(name, 0) for p, n in sd3_launches.items()},
-                   **{p: n[name] for p, n in more_training.items()}}
+                   **{p: n[name] for p, n in more_training.items()},
+                   **{p: n.get(name, 0) for p, n in serving_rest.items()}}
         sdxl = None
         if name in sdxl_case:
             r = next(r for r in rows if r["kernel"] == name and r.get("path") == "sdxl"

@@ -11,6 +11,12 @@ the MM-DiT (its HWIO patch kernel ``pos_embed.proj.weight``, and
 keeps its layout) and T5 (the ``shared`` and ``relative_attention_bias``
 tables).
 
+An int8 layer of a quantized tree (JAX ``ops/quant.quantize_params``)
+carries ``weight_int8`` in the HWIO or (in, out) layout with a ``w8_scale``
+or ``w8a8_scale`` of shape [..., out]; both take the weight's permutation, to
+the port's [out, ...] layout (``ops/quant.py``).  :func:`to_jax_layout` is
+the inverse, for the int8 folders written in JAX's canonical layout.
+
 A tree is nested dicts of numpy arrays (``jax.device_get`` of a param tree
 gives one), so this module imports nothing of JAX.  Loading is strict: a key
 the module lacks, or a module parameter the tree lacks, raises.  LoRA trees
@@ -46,22 +52,50 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
+# the tensors laid out as weights: fp and int8 kernels, and the int8 scales
+# (keepdims over the contracted axes, so they permute as their kernel)
+_KERNEL_SUFFIXES = (".weight", ".weight_int8", ".w8_scale", ".w8a8_scale")
+
+
+def _to_torch_perm(key: str, ndim: int):
+    """The permutation from JAX's layout to torch's of tensor `key`, or None
+    when it keeps its layout."""
+    if not key.endswith(_KERNEL_SUFFIXES):
+        return None
+    if ndim == 4:
+        return (3, 2, 0, 1)  # HWIO -> OIHW
+    if ndim == 2 and _EMBEDDING_TABLE_RE.search(key) is None:
+        return (1, 0)
+    return None
+
+
+def to_torch_layout(key: str, arr):
     """HWIO -> OIHW for conv kernels, (in, out) -> (out, in) for linear
-    kernels; embedding tables and every non-weight unchanged."""
-    if not key.endswith(".weight"):
+    kernels, int8 kernels and their scales alike; embedding tables and
+    every other tensor unchanged.  Takes a numpy array or a tensor."""
+    perm = _to_torch_perm(key, arr.ndim)
+    if perm is None:
         return arr
-    if arr.ndim == 4:
-        return np.transpose(arr, (3, 2, 0, 1))
-    if arr.ndim == 2 and _EMBEDDING_TABLE_RE.search(key) is None:
-        return np.transpose(arr)
-    return arr
+    return arr.permute(perm) if isinstance(arr, torch.Tensor) else np.transpose(arr, perm)
+
+
+def to_jax_layout(key: str, arr):
+    """The inverse of :func:`to_torch_layout`: torch's layout -> JAX's."""
+    perm = _to_torch_perm(key, arr.ndim)
+    if perm is None:
+        return arr
+    inv = tuple(int(i) for i in np.argsort(perm))
+    return arr.permute(inv) if isinstance(arr, torch.Tensor) else np.transpose(arr, inv)
 
 
 def load_from_jax(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a JAX-layout param tree into `module` (in place, keeping each
-    parameter's device and dtype).  Any key mismatch raises."""
+    parameter's device and dtype); where the tree holds an int8 layer, its
+    int8 form is swapped into `module` first.  Any key mismatch raises."""
+    from stablediffusion_tpu_torch.ops.quant import swap_in_int8_layers
+
     flat = flatten(tree)
+    swap_in_int8_layers(module, flat)
     state = module.state_dict()
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))

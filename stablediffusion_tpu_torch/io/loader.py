@@ -3,11 +3,13 @@
 Port of ``stablediffusion_tpu/io/loader.py``:
 ``resolve_checkpoint`` (:42, local folders only), ``_find_weights`` (:169,
 the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
-``_resolve_scheduler_name`` (:252), ``load_sd_model`` (:275; an SDXL folder
-adds ``text_encoder_2/`` and ``tokenizer_2/``, whose pad token comes from
-its special_tokens_map), ``load_sd3_model`` (:360; ``text_encoder_3/`` and
-``tokenizer_3/`` optional), ``save_sd_model`` (:497) and ``save_sd3_model``
-(:560), floating point only, and the config writers (:649-680).  The SDXL
+``_resolve_scheduler_name`` (:252), ``_read_quant_mode`` (:266),
+``load_sd_model`` (:275; an SDXL folder adds ``text_encoder_2/`` and
+``tokenizer_2/``, whose pad token comes from its special_tokens_map),
+``load_sd3_model`` (:360; ``text_encoder_3/`` and ``tokenizer_3/``
+optional), ``save_sd_model`` (:497) and ``save_sd3_model`` (:560) with their
+``quantize=`` (``_check_fp_save`` :471, ``_quantized_tree`` :481), and the
+config writers (:649-680).  The SDXL
 refiner's folder is read by :func:`load_unet` (``SDModel.load_refiner``).
 A1111/LDM single files load through :func:`load_sd_single_file` (:75-161, with ``io/convert_cli.
 load_single_file`` :16-27), which converts them in memory with the port's
@@ -19,9 +21,16 @@ are what diffusers files hold, so a component loads by a strict copy into
 its ``state_dict``: no transposes, ``position_ids`` dropped, and every
 missing, unexpected or misshapen key raises.  Components are built on the
 meta device and filled straight from the safetensors mmap on their device.
-Not ported here (it raises and names its ROADMAP §1 item): int8-on-disk
-folders and ``quantize=`` (item 16).  SD3 single files are refused, as in
-JAX: SD3 loads from diffusers folders.
+
+An int8 folder (``quantize=``) holds its denoise tower in JAX's canonical
+layout, every tensor (HWIO and (in, out) kernels, int8 codes and their fp32
+scales under JAX's names), stamped ``sdtpu_layout: canonical`` and
+``sdtpu_quant``, and model_index.json records the mode as ``_sdtpu_quant``;
+``io/from_jax`` maps the layouts both ways, so such folders cross-load
+between the two packages.  The tower loads into int8 layers swapped into
+the meta-built module before it is allocated, so no floating-point copy of
+it exists, and the model is ``quant_frozen``.  SD3 single files are
+refused, as in JAX: SD3 loads from diffusers folders.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from stablediffusion_tpu_torch.core.config import (
     default_dtype,
     resolve_device,
 )
+from stablediffusion_tpu_torch.io.from_jax import to_jax_layout, to_torch_layout
 from stablediffusion_tpu_torch.io.safetensors_io import SafetensorsFile, save_safetensors
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
@@ -53,6 +63,12 @@ from stablediffusion_tpu_torch.models.t5 import T5Config, T5EncoderModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.ops.quant import (
+    quantize_plan,
+    quantized_layer,
+    resolve_quant_mode,
+    swap_in_int8_layers,
+)
 from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 from stablediffusion_tpu_torch.tokenizer.sentencepiece_unigram import (
@@ -66,10 +82,6 @@ DEFAULT_CHECKPOINTS = {
 REGISTRY_PREFIX = "OnMoon"
 
 logger = logging.getLogger(__name__)
-
-_LATER = {
-    "int8": "int8 checkpoints and quantize= come with ROADMAP §1 item 16",
-}
 
 
 def resolve_checkpoint(
@@ -125,25 +137,29 @@ def _find_weights(folder: str, variant: Optional[str] = "fp16"):
 def load_component_state(folder: str, module: nn.Module,
                          variant: Optional[str] = "fp16") -> nn.Module:
     """Copy a component folder's tensors into `module`'s state dict, each
-    cast to the dtype of the parameter or buffer it fills, on its device.
-    Strict: a missing, unexpected or misshapen key raises."""
+    cast to the dtype of the parameter or buffer it fills (int8 codes and
+    their fp32 scales keep theirs), on its device; a file in JAX's
+    canonical layout is laid out as torch's first.  Strict: a missing,
+    unexpected or misshapen key raises."""
     targets = module.state_dict(keep_vars=True)
     seen = set()
     files = [SafetensorsFile(p) for p in _find_weights(folder, variant)]
     try:
         for f in files:
-            if f.metadata.get("sdtpu_quant") or f.metadata.get("sdtpu_layout"):
-                raise NotImplementedError(f"{folder}: {_LATER['int8']}")
+            canonical = f.metadata.get("sdtpu_layout") == "canonical"
             for name in f.keys():
                 if name.endswith("position_ids"):
                     continue
                 if name not in targets:
                     raise KeyError(f"{folder}: unexpected tensor {name!r}")
-                if f.shape(name) != tuple(targets[name].shape):
-                    raise ValueError(f"{folder}: {name} has shape {f.shape(name)}, "
+                t = f.torch_tensor(name)
+                if canonical:
+                    t = to_torch_layout(name, t)
+                if tuple(t.shape) != tuple(targets[name].shape):
+                    raise ValueError(f"{folder}: {name} has shape {tuple(t.shape)}, "
                                      f"the module {tuple(targets[name].shape)}")
                 with torch.no_grad():
-                    targets[name].copy_(f.torch_tensor(name))
+                    targets[name].copy_(t)
                 seen.add(name)
     finally:
         for f in files:
@@ -154,10 +170,33 @@ def load_component_state(folder: str, module: nn.Module,
     return module
 
 
-def _empty_module(cls, config, device: torch.device, dtype: torch.dtype) -> nn.Module:
+def _component_keys(folder: str, variant: Optional[str] = "fp16") -> set:
+    """The tensor names of a component folder (its files' headers only)."""
+    keys = set()
+    for p in _find_weights(folder, variant):
+        with SafetensorsFile(p) as f:
+            keys.update(f.keys())
+    return keys
+
+
+def _empty_module(cls, config, device: torch.device, dtype: torch.dtype,
+                  state_keys=()) -> nn.Module:
+    """An uninitialised `cls(config)` on `device` in `dtype`; where
+    `state_keys` holds ``<path>.weight_int8``, with the int8 layer in place
+    of the floating-point one, which is never allocated."""
     with torch.device("meta"):
-        module = cls(config)
-    return module.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+        module = cls(config).to(dtype)
+    swap_in_int8_layers(module, state_keys)
+    return module.to_empty(device=device).eval().requires_grad_(False)
+
+
+def _load_component(folder: str, cls, config, device: torch.device, dtype: torch.dtype,
+                    variant: Optional[str] = "fp16") -> nn.Module:
+    """A component folder loaded into a new `cls(config)`, int8 layers
+    included (:func:`_empty_module`)."""
+    return load_component_state(
+        folder, _empty_module(cls, config, device, dtype, _component_keys(folder, variant)),
+        variant)
 
 
 # converter --scheduler_type choice -> serving registry name
@@ -185,13 +224,20 @@ def _resolve_scheduler_name(path: str, scheduler_name: Optional[str]) -> str:
     return "DDIM"
 
 
+def _read_quant_mode(path: str) -> Optional[str]:
+    """The int8 mode an int8 folder records in model_index.json, else None."""
+    idx = os.path.join(path, "model_index.json")
+    if os.path.exists(idx):
+        return _read_json(idx).get("_sdtpu_quant")
+    return None
+
+
 def load_unet(path: str, device: torch.device, dtype: torch.dtype):
     """(config, module) of a folder's ``unet/`` on `device` in `dtype`: the
     refiner's loader (``SDModel.load_refiner``)."""
     folder = os.path.join(path, "unet")
     cfg = UNetConfig.from_diffusers_dict(_read_json(os.path.join(folder, "config.json")))
-    return cfg, load_component_state(
-        folder, _empty_module(UNet2DConditionModel, cfg, device, dtype))
+    return cfg, _load_component(folder, UNet2DConditionModel, cfg, device, dtype)
 
 
 def load_sd_model(
@@ -208,7 +254,8 @@ def load_sd_model(
     else "sd15" (an SD2.x folder loads as "sd15", as in JAX).  The UNet is
     held in `dtype` (default: the device's compute dtype), the VAE in fp32
     for SDXL (its decode runs in fp32) and in `dtype` otherwise, the text
-    encoders in fp32, as ``utils/testing.random_full_model`` holds them."""
+    encoders in fp32, as ``utils/testing.random_full_model`` holds them.
+    An int8 folder gives a ``quant_frozen`` model at the recorded mode."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if os.path.isfile(path):
@@ -219,9 +266,6 @@ def load_sd_model(
         raise ValueError(f"{path}: an SD3 folder loads with load_sd3_model")
     if model_type not in ("sd15", "sdxl"):
         raise NotImplementedError(f"model type {model_type!r}: not an SD1.x, SD2.x or SDXL folder")
-    idx = os.path.join(path, "model_index.json")
-    if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
-        raise NotImplementedError(f"{path}: {_LATER['int8']}")
     scheduler_name = _resolve_scheduler_name(path, scheduler_name)
     vae_dtype = torch.float32 if model_type == "sdxl" else dtype
 
@@ -234,8 +278,7 @@ def load_sd_model(
                  if os.path.exists(sched_path) else SchedulerConfig())
 
     def _load(sub, cls, config, dt):
-        return load_component_state(os.path.join(path, sub),
-                                     _empty_module(cls, config, device, dt), variant)
+        return _load_component(os.path.join(path, sub), cls, config, device, dt, variant)
 
     sdxl = {}
     if model_type == "sdxl":
@@ -246,9 +289,12 @@ def load_sd_model(
             text_encoder_2=_load("text_encoder_2", CLIPTextModel, te2_cfg, torch.float32),
             tokenizer_2=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer_2")),
         )
+    qmode = _read_quant_mode(path)
     return SDModel(
         unet_config=unet_cfg,
         unet=_load("unet", UNet2DConditionModel, unet_cfg, dtype),
+        quant_mode=qmode,
+        quant_frozen=qmode is not None,
         vae_config=vae_cfg,
         vae=_load("vae", AutoencoderKL, vae_cfg, vae_dtype),
         text_encoder_config=te_cfg,
@@ -275,22 +321,19 @@ def load_sd3_model(
     `device` (default ``cuda``; raises without a card unless
     ``device="cpu"``).  Every component is held in `dtype` (default: the
     device's compute dtype), as ``utils/testing.random_full_model("sd3")``
-    holds them; the pipeline runs the VAE's encode and decode in fp32."""
+    holds them; the pipeline runs the VAE's encode and decode in fp32.  An
+    int8 folder gives a ``quant_frozen`` model at the recorded mode."""
     device = resolve_device(device)
     dtype = dtype or default_dtype(device)
     if os.path.isfile(path):
         raise ValueError("SD3 single-file checkpoints are not supported; "
                          "provide a diffusers-layout folder")
-    idx = os.path.join(path, "model_index.json")
-    if os.path.exists(idx) and _read_json(idx).get("_sdtpu_quant"):
-        raise NotImplementedError(f"{path}: {_LATER['int8']}")
 
     def cfg(cls, sub):
         return cls.from_diffusers_dict(_read_json(os.path.join(path, sub, "config.json")))
 
     def _load(sub, cls, config):
-        return load_component_state(os.path.join(path, sub),
-                                    _empty_module(cls, config, device, dtype), variant)
+        return _load_component(os.path.join(path, sub), cls, config, device, dtype, variant)
 
     sched_path = os.path.join(path, "scheduler", "scheduler_config.json")
     sched_cfg = (SchedulerConfig.from_diffusers_dict(_read_json(sched_path))
@@ -304,9 +347,12 @@ def load_sd3_model(
                   text_encoder_3=_load("text_encoder_3", T5EncoderModel, t5_cfg),
                   tokenizer_3=SentencePieceUnigramTokenizer.from_pretrained(
                       os.path.join(path, "tokenizer_3")))
+    qmode = _read_quant_mode(path)
     return SD3Model(
         transformer_config=tf_cfg,
         transformer=_load("transformer", SD3Transformer2DModel, tf_cfg),
+        quant_mode=qmode,
+        quant_frozen=qmode is not None,
         vae_config=vae_cfg,
         vae=_load("vae", AutoencoderKL, vae_cfg),
         text_encoder_config=te_cfg,
@@ -450,17 +496,57 @@ def load_sd_single_file(
     return model
 
 
-def _dump_component(path: str, sub: str, module: nn.Module, cfg_dict: dict,
-                    fname: str = "diffusion_pytorch_model",
-                    variant: Optional[str] = None) -> None:
-    """One diffusers component folder: safetensors of the state dict in the
-    module's dtypes, plus config.json."""
+def _dump_component(path: str, sub: str, module: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    cfg_dict: dict, fname: str = "diffusion_pytorch_model",
+                    variant: Optional[str] = None,
+                    quant_mode: Optional[str] = None) -> None:
+    """One diffusers component folder: safetensors of the state dict (a
+    module's, or one given) in its dtypes, plus config.json.  With
+    `quant_mode`, every tensor goes in JAX's canonical layout and the file
+    is stamped ``sdtpu_layout: canonical`` and ``sdtpu_quant``."""
     d = os.path.join(path, sub)
     os.makedirs(d, exist_ok=True)
     suffix = f".{variant}" if variant else ""
-    save_safetensors(module.state_dict(), os.path.join(d, f"{fname}{suffix}.safetensors"))
+    state = module.state_dict() if isinstance(module, nn.Module) else module
+    metadata = None
+    if quant_mode:
+        state = {k: to_jax_layout(k, v).contiguous() for k, v in state.items()}
+        metadata = {"sdtpu_layout": "canonical", "sdtpu_quant": quant_mode}
+    save_safetensors(state, os.path.join(d, f"{fname}{suffix}.safetensors"), metadata=metadata)
     with open(os.path.join(d, "config.json"), "w") as f:
         json.dump(cfg_dict, f, indent=2)
+
+
+def _check_fp_save(model, quantize: Optional[str]) -> None:
+    """A floating-point save of a model quantized in memory would write
+    int8 layers in the torch layout: refuse it."""
+    if quantize is None and model.quant_mode is not None:
+        raise ValueError(
+            f"model is int8-quantized in memory; pass quantize={model.quant_mode!r} to write "
+            "an int8 checkpoint, or model.quantize(None) first for an fp ecosystem checkpoint")
+
+
+def _quantized_tree(model, mode: str) -> Dict[str, torch.Tensor]:
+    """The denoise tower's state dict at int8 `mode`: the model's own when
+    it is quantized so, else quantized afresh from its floating-point
+    weights (the model is left as it is)."""
+    if model.quant_mode not in (None, mode):
+        raise ValueError(
+            f"cannot write a {mode!r} checkpoint from a model quantized as "
+            f"{model.quant_mode!r}; load fp weights or model.quantize(None)")
+    tower = getattr(model, model.TOWER)
+    state = dict(tower.state_dict())
+    if model.quant_mode == mode:
+        return state
+    plan = quantize_plan(tower, mode, min_size=model.quant_min_size,
+                         skip_keys=model._QUANT_SKIP)
+    with torch.no_grad():
+        for path, leaf_mode in plan.items():
+            q = quantized_layer(tower.get_submodule(path), leaf_mode)
+            del state[f"{path}.weight"]
+            state[f"{path}.weight_int8"] = q.weight_int8
+            state[f"{path}.{leaf_mode}_scale"] = q.scale
+    return state
 
 
 def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
@@ -469,12 +555,17 @@ def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
     package's) reads back: per-component safetensors and configs (SDXL's
     second tower too), the tokenizers, the scheduler config, and
     model_index.json naming the pipeline class and the active scheduler.
-    The refiner is not written, as in JAX: it has its own folder."""
-    if quantize:
-        raise NotImplementedError(_LATER["int8"])
+    The refiner is not written, as in JAX: it has its own folder.
+
+    `quantize` ("w8" | "w8a8" | "w8a8:N" | "auto", the batch-1 mode) writes
+    the UNet as an int8 folder (the module docstring), which loads
+    ``quant_frozen``."""
+    quantize = resolve_quant_mode(quantize)
+    _check_fp_save(model, quantize)
     os.makedirs(path, exist_ok=True)
-    _dump_component(path, "unet", model.unet, _unet_cfg_dict(model.unet_config),
-                    variant=variant)
+    _dump_component(path, "unet",
+                    _quantized_tree(model, quantize) if quantize else model.unet,
+                    _unet_cfg_dict(model.unet_config), variant=variant, quant_mode=quantize)
     _dump_component(path, "vae", model.vae, _vae_cfg_dict(model.vae_config), variant=variant)
     _dump_component(path, "text_encoder", model.text_encoder,
                     _clip_cfg_dict(model.text_encoder_config), fname="model", variant=variant)
@@ -492,6 +583,8 @@ def save_sd_model(model: SDModel, path: str, variant: Optional[str] = None,
     index = {"_class_name": ("StableDiffusionXLPipeline" if model.is_sdxl
                              else "StableDiffusionPipeline"),
              "_scheduler_type": model.scheduler_name}
+    if quantize:
+        index["_sdtpu_quant"] = quantize
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump(index, f)
 
@@ -501,14 +594,18 @@ def save_sd3_model(model: SD3Model, path: str, variant: Optional[str] = None,
     """Write a diffusers-layout SD3-family folder that ``load_sd3_model``
     (and the JAX package's) reads back: the transformer, the VAE and the
     text towers (T5 only when the model has one) with their configs and
-    tokenizers, the scheduler config, and model_index.json."""
-    if quantize:
-        raise NotImplementedError(_LATER["int8"])
+    tokenizers, the scheduler config, and model_index.json.  `quantize`
+    writes the MM-DiT as an int8 folder, as ``save_sd_model`` writes the
+    UNet."""
+    quantize = resolve_quant_mode(quantize)
+    _check_fp_save(model, quantize)
     os.makedirs(path, exist_ok=True)
     tf_cfg = dataclasses.asdict(model.transformer_config)
     tf_cfg["dual_attention_layers"] = list(tf_cfg["dual_attention_layers"])
     tf_cfg["_class_name"] = "SD3Transformer2DModel"
-    _dump_component(path, "transformer", model.transformer, tf_cfg, variant=variant)
+    _dump_component(path, "transformer",
+                    _quantized_tree(model, quantize) if quantize else model.transformer,
+                    tf_cfg, variant=variant, quant_mode=quantize)
     _dump_component(path, "vae", model.vae, _vae_cfg_dict(model.vae_config), variant=variant)
     for sub in ("text_encoder", "text_encoder_2"):
         _dump_component(path, sub, getattr(model, sub),
@@ -527,8 +624,11 @@ def save_sd3_model(model: SD3Model, path: str, variant: Optional[str] = None,
     os.makedirs(os.path.join(path, "scheduler"), exist_ok=True)
     with open(os.path.join(path, "scheduler", "scheduler_config.json"), "w") as f:
         json.dump(dataclasses.asdict(model.scheduler_config), f, indent=2)
+    index = {"_class_name": "StableDiffusion3Pipeline"}
+    if quantize:
+        index["_sdtpu_quant"] = quantize
     with open(os.path.join(path, "model_index.json"), "w") as f:
-        json.dump({"_class_name": "StableDiffusion3Pipeline"}, f)
+        json.dump(index, f)
 
 
 def _unet_cfg_dict(c: UNetConfig) -> dict:

@@ -3,7 +3,10 @@
 ``nn.Module``s hold the parameters under the diffusers names; their forwards
 call the plain functions of ``ops/basic.py``, as the JAX package's blocks
 call its ops on param dicts (``stablediffusion_tpu/models/unet.py:48-57``,
-``models/vae.py:37-44``).  Activations are NCHW.
+``models/vae.py:37-44``).  Activations are NCHW.  ``lin`` and ``conv`` are
+the dispatch of JAX's ``ops/basic.py:24-27, :43-46``: a layer that
+``ops/quant.quantize_params`` swapped for its int8 form runs
+``int8_linear`` / ``int8_conv2d``.
 """
 
 from __future__ import annotations
@@ -22,13 +25,18 @@ from stablediffusion_tpu_torch.ops.basic import (
     silu,
     upsample_nearest_2x,
 )
+from stablediffusion_tpu_torch.ops.quant import Int8Conv2d, Int8Linear, int8_conv2d, int8_linear
 
 
-def lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def lin(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(m, Int8Linear):
+        return int8_linear(m, x)
     return linear(x, m.weight, m.bias)
 
 
-def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(m, Int8Conv2d):
+        return int8_conv2d(m, x, stride=m.stride[0], padding=m.padding[0])
     return conv2d(x, m.weight, m.bias, stride=m.stride[0], padding=m.padding[0])
 
 

@@ -27,9 +27,9 @@ import torch
 from torch import nn
 
 from stablediffusion_tpu_torch.core.config import SD3Config
-from stablediffusion_tpu_torch.models.layers import lin
+from stablediffusion_tpu_torch.models.layers import conv, lin
 from stablediffusion_tpu_torch.ops.attention import attention
-from stablediffusion_tpu_torch.ops.basic import conv2d, layer_norm, silu, timestep_embedding
+from stablediffusion_tpu_torch.ops.basic import layer_norm, silu, timestep_embedding
 
 
 def _ln_noaffine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -259,7 +259,7 @@ class SD3Transformer2DModel(nn.Module):
 
         # patchify + positional embedding
         pe = self.pos_embed
-        x = conv2d(hidden_states, pe.proj.weight, pe.proj.bias, stride=p)
+        x = conv(pe.proj, hidden_states)
         x = x.flatten(2).transpose(1, 2)  # [B, h*w, D], row-major patches
         x = x + cropped_pos_embed(pe.pos_embed, h, w, cfg.pos_embed_max_size).to(dtype)
 

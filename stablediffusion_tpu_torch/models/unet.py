@@ -33,7 +33,7 @@ from stablediffusion_tpu_torch.models.layers import (
 )
 from stablediffusion_tpu_torch.ops.attention import attention
 from stablediffusion_tpu_torch.ops.basic import (
-    geglu,
+    gelu,
     silu,
     timestep_embedding,
 )
@@ -66,7 +66,10 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(c, 2 * inner)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return geglu(x, self.proj.weight, self.proj.bias)
+        # ops/basic.geglu's gate over the dispatched projection, which may
+        # be int8 (JAX's geglu calls its linear, ops/basic.py:156-161)
+        h, gate = lin(self.proj, x).chunk(2, dim=-1)
+        return h * gelu(gate)
 
 
 class FeedForward(nn.Module):

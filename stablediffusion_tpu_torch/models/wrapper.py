@@ -9,18 +9,26 @@ one device.  SDXL is told by the presence of the second text tower
 hold a refiner UNet.  The scheduler switches by name over the shared config
 (``set_scheduler``); checkpoints load and save through ``io/loader.py``.
 
-Adapters fuse into the modules in place (``lora/core.write_fused``): the
-first fusion that touches a weight keeps a pristine copy of it on the
-model's device, every later one fuses from those copies, and
-``delete_adapters`` copies them back, so the weights come back bit for bit.
-Textual inversion appends rows to the token-embedding tables, which no
-adapter touches, so re-fusing keeps them.  Quantization, IP-Adapter and
-ControlNet are absent (ROADMAP §1 items 15-16), so the serving handler's
+Adapters and int8 quantization share one lifecycle with ``SD3Model``
+(:class:`AdapterHolder`, JAX ``wrapper.py:396-561`` and ``pipelines/
+sd3.py:98-255``).  Adapters fuse into the modules in place
+(``lora/core.write_fused``): the first fusion that touches a weight keeps a
+pristine copy of it on the model's device, every later one fuses from those
+copies, and ``delete_adapters`` copies them back, so the weights come back
+bit for bit.  ``quantize`` swaps int8 modules into the denoise tower after
+every fusion (``ops/quant.quantize_params``) and keeps the floating-point
+modules they replaced, which hold the fused weights: fusion and
+``quantize(None)`` swap them back first.  A model loaded from an int8
+folder holds no floating-point tower (``quant_frozen``): it refuses fusion
+and re-quantization.  Textual inversion appends rows to the token-embedding
+tables, which no adapter touches, so re-fusing keeps them.  IP-Adapter and
+ControlNet are absent (ROADMAP §1 item 15), so the serving handler's
 ``hasattr`` guards answer "not supported" as they do for the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass, field
@@ -40,14 +48,171 @@ from stablediffusion_tpu_torch.lora.core import fuse, linear_module_paths, resto
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
+from stablediffusion_tpu_torch.ops.quant import (
+    DEFAULT_SKIP_KEYS,
+    quantize_params,
+    resolve_quant_mode,
+    swap_modules,
+    validate_quant_mode,
+)
 from stablediffusion_tpu_torch.schedulers import make_scheduler
 
 # the modules LoRA adapters fuse into, by the component names of LoRA files
 LORA_COMPONENTS = ("unet", "text_encoder", "text_encoder_2")
 
 
+@dataclass(kw_only=True)
+class AdapterHolder:
+    """The LoRA adapter and int8 lifecycle of a model holder.  A subclass
+    names its denoise tower (``TOWER``: the LoRA component and attribute,
+    "unet" or "transformer"), the quantizer's skip list (``_QUANT_SKIP``) and
+    its LoRA modules (``_lora_modules``)."""
+
+    TOWER = "unet"
+    _QUANT_SKIP = DEFAULT_SKIP_KEYS
+
+    # active adapters (name -> scale) and the loaded ones (name ->
+    # {component: {module path: factors on the model's device}})
+    adapters: Dict[str, float] = field(default_factory=dict)
+    # the tower's int8 mode ("w8" | "w8a8" | "w8a8:N" | None); it survives
+    # adapter swaps, which quantize again after fusing
+    quant_mode: Optional[str] = None
+    quant_min_size: int = 65536
+    # loaded from an int8 folder: there is no floating-point tower, so
+    # re-quantization and LoRA fusion raise
+    quant_frozen: bool = False
+    # per-instance state, which dataclasses.replace does not share
+    _adapter_store: Dict[str, Dict[str, dict]] = field(default_factory=dict, init=False,
+                                                       repr=False)
+    # component -> {"<path>.weight": the original of each fused weight}
+    _pristine: Dict[str, Dict[str, torch.Tensor]] = field(default_factory=dict, init=False,
+                                                          repr=False)
+    # the tower's floating-point modules that int8 ones replace, by path
+    _fp_modules: Dict[str, nn.Module] = field(default_factory=dict, init=False, repr=False)
+
+    def _lora_modules(self) -> Dict[str, nn.Module]:
+        raise NotImplementedError
+
+    def _check_not_frozen(self, op: str) -> None:
+        if self.quant_frozen:
+            raise ValueError(
+                f"{op} requires fp weights, but this model was loaded from an int8-quantized "
+                "checkpoint (no fp base on disk); load the original fp checkpoint instead")
+
+    @contextlib.contextmanager
+    def _fp_tower(self):
+        """The tower with its floating-point modules in place inside the
+        block; quantized again after it, from their weights, at the model's
+        mode then."""
+        tower = getattr(self, self.TOWER)
+        if self._fp_modules:
+            swap_modules(tower, self._fp_modules)
+            self._fp_modules = {}
+        try:
+            yield
+        finally:
+            self._maybe_quantize()
+
+    def _maybe_quantize(self) -> None:
+        """Quantize the tower at the model's mode, keeping the
+        floating-point modules that the int8 ones replace."""
+        if self.quant_mode is not None and not self.quant_frozen:
+            self._fp_modules = quantize_params(
+                getattr(self, self.TOWER), self.quant_mode, min_size=self.quant_min_size,
+                skip_keys=self._QUANT_SKIP)
+
+    def quantize(self, mode: Optional[str] = "w8a8", min_size: Optional[int] = None,
+                 expected_batch: int = 1) -> None:
+        """Opt-in int8 quantization of the tower: "w8", "w8a8", "w8a8:N"
+        (int8 GEMMs for layers of at least N output channels, "w8" for the
+        others) or "auto", the mode ``ops/quant.resolve_quant_mode`` picks
+        for `expected_batch` (``quant_mode`` keeps the resolved string).
+        None goes back to the floating-point weights, fused adapters kept.
+        Approximate: the skip list's layers stay floating point."""
+        self._check_not_frozen("quantize()")
+        validate_quant_mode(mode)  # before any state changes
+        mode = resolve_quant_mode(mode, expected_batch)
+        with self._fp_tower():
+            self.quant_mode = mode
+            if min_size is not None:
+                self.quant_min_size = int(min_size)
+
+    def get_list_adapters(self) -> Dict[str, float]:
+        return dict(self.adapters)
+
+    def lora_module_paths(self) -> Dict[str, List[str]]:
+        """Every linear-module path per component: the resolver table for
+        kohya's underscore-flattened LoRA keys (``lora/formats.py``); the
+        tower's int8 linears count by their floating-point modules."""
+        paths = {c: linear_module_paths(m, ("",)) for c, m in self._lora_modules().items()}
+        fp = [p for p, m in self._fp_modules.items() if isinstance(m, nn.Linear)]
+        if fp:
+            paths[self.TOWER] = sorted(set(paths[self.TOWER]) | set(fp))
+        return paths
+
+    def load_lora_weights(self, name: str, adapter: Dict[str, Dict[str, dict]]) -> None:
+        """Register a parsed adapter ({component: {module path: factors}})
+        under `name`, its factors moved to the model's device in fp32."""
+        self._check_not_frozen("LoRA fusion")
+        self._adapter_store[name] = {
+            comp: {path: {k: v.to(self.device, torch.float32) for k, v in f.items()}
+                   for path, f in tree.items()}
+            for comp, tree in adapter.items()}
+
+    def set_adapters(self, weights: Dict[str, float]) -> None:
+        """Fuse the named adapters at the given scales into the modules, in
+        place of any earlier fusion (fused from the pristine copies), then
+        quantize the tower again at the model's mode."""
+        self._check_not_frozen("LoRA fusion")
+        unknown = [n for n in weights if n not in self._adapter_store]
+        if unknown:
+            raise ValueError(f"unknown adapters {unknown}; loaded: "
+                             f"{sorted(self._adapter_store)}")
+        with self._fp_tower():
+            for comp, module in self._lora_modules().items():
+                pristine = self._pristine.setdefault(comp, {})
+                comp_adapters = {n: self._adapter_store[n][comp] for n in weights
+                                 if comp in self._adapter_store[n]}
+                fused = (fuse(module, comp_adapters, weights, base=pristine)
+                         if comp_adapters else {})
+                write_fused(module, fused, pristine)
+        self.adapters = dict(weights)
+
+    def delete_adapters(self) -> None:
+        """Drop every adapter and restore the original weights bit for bit."""
+        if self._pristine:
+            with self._fp_tower():
+                modules = self._lora_modules()
+                for comp, pristine in self._pristine.items():
+                    restore(modules[comp], pristine)
+        self._pristine = {}
+        self._adapter_store = {}
+        self.adapters = {}
+
+    def load_loras(self, loras, lora_dir: Optional[str] = None) -> None:
+        """A name, a list of names or {name: scale}: read each file
+        ``{lora_dir}/{model_type}_{name}.safetensors`` and fuse them all, in
+        place of the adapters fused before.  A frozen int8 model refuses
+        before it reads a file."""
+        from stablediffusion_tpu_torch.lora.formats import load_lora_file
+
+        self._check_not_frozen("LoRA fusion")
+        if isinstance(loras, str):
+            loras = {loras: 1.0}
+        elif isinstance(loras, (list, tuple)):
+            loras = {n: 1.0 for n in loras}
+        self.delete_adapters()
+        model_paths = None
+        for name in loras:
+            path = os.path.join(lora_dir or ".", f"{self.model_type}_{name}.safetensors")
+            if model_paths is None:
+                model_paths = self.lora_module_paths()
+            self.load_lora_weights(name, load_lora_file(path, model_paths))
+        self.set_adapters(dict(loras))
+
+
 @dataclass
-class SDModel:
+class SDModel(AdapterHolder):
     unet_config: UNetConfig
     unet: UNet2DConditionModel
     vae_config: VAEConfig
@@ -66,17 +231,7 @@ class SDModel:
     # the SDXL refiner's UNet, loaded on demand (load_refiner)
     refiner_config: Optional[UNetConfig] = None
     refiner: Optional[UNet2DConditionModel] = None
-    # active adapters (name -> scale) and the loaded ones (name ->
-    # {component: {module path: factors on the model's device}})
-    adapters: Dict[str, float] = field(default_factory=dict)
-
     _scheduler: Optional[Any] = field(default=None, repr=False)
-    # per-instance state, which dataclasses.replace does not share
-    _adapter_store: Dict[str, Dict[str, dict]] = field(default_factory=dict, init=False,
-                                                       repr=False)
-    # component -> {"<path>.weight": the original of each fused weight}
-    _pristine: Dict[str, Dict[str, torch.Tensor]] = field(default_factory=dict, init=False,
-                                                          repr=False)
     # textual inversion: each table's original row count, trigger -> towers
     _ti_state: Optional[Dict[str, Any]] = field(default=None, init=False, repr=False)
 
@@ -261,37 +416,6 @@ class SDModel:
         return {c: m for c, m in (("unet", self.unet), ("text_encoder", self.text_encoder),
                                   ("text_encoder_2", self.text_encoder_2)) if m is not None}
 
-    def get_list_adapters(self) -> Dict[str, float]:
-        return dict(self.adapters)
-
-    def lora_module_paths(self) -> Dict[str, List[str]]:
-        """Every linear-module path per component: the resolver table for
-        kohya's underscore-flattened LoRA keys (``lora/formats.py``)."""
-        return {c: linear_module_paths(m, ("",)) for c, m in self._lora_modules().items()}
-
-    def load_lora_weights(self, name: str, adapter: Dict[str, Dict[str, dict]]) -> None:
-        """Register a parsed adapter ({component: {module path: factors}})
-        under `name`, its factors moved to the model's device in fp32."""
-        self._adapter_store[name] = {
-            comp: {path: {k: v.to(self.device, torch.float32) for k, v in f.items()}
-                   for path, f in tree.items()}
-            for comp, tree in adapter.items()}
-
-    def set_adapters(self, weights: Dict[str, float]) -> None:
-        """Fuse the named adapters at the given scales into the modules, in
-        place of any earlier fusion (fused from the pristine copies)."""
-        unknown = [n for n in weights if n not in self._adapter_store]
-        if unknown:
-            raise ValueError(f"unknown adapters {unknown}; loaded: "
-                             f"{sorted(self._adapter_store)}")
-        for comp, module in self._lora_modules().items():
-            pristine = self._pristine.setdefault(comp, {})
-            comp_adapters = {n: self._adapter_store[n][comp] for n in weights
-                             if comp in self._adapter_store[n]}
-            fused = fuse(module, comp_adapters, weights, base=pristine) if comp_adapters else {}
-            write_fused(module, fused, pristine)
-        self.adapters = dict(weights)
-
     def scaled_tower_weights(self, comp: str,
                              lora_scale: float) -> Optional[Dict[str, torch.Tensor]]:
         """The weights of text tower `comp` ("text_encoder" or
@@ -313,41 +437,16 @@ class SDModel:
         """Make `weights` ({parameter name: tensor}, every UNet parameter)
         the UNet's own, in their dtype, and the base that adapters fuse
         from: full fine-tuning installs its fp32 masters (or their EMA), as
-        the JAX trainer installs its tree."""
-        params = dict(self.unet.named_parameters())
-        if sorted(weights) != sorted(params):
-            raise ValueError("install_unet needs every UNet parameter, and only those")
-        for n, t in weights.items():
-            params[n].data = t.detach()
+        the JAX trainer installs its tree; a quantized UNet is quantized
+        again from them."""
+        self._check_not_frozen("install_unet")
+        with self._fp_tower():
+            params = dict(self.unet.named_parameters())
+            if sorted(weights) != sorted(params):
+                raise ValueError("install_unet needs every UNet parameter, and only those")
+            for n, t in weights.items():
+                params[n].data = t.detach()
         self._pristine.pop("unet", None)
-
-    def delete_adapters(self) -> None:
-        """Drop every adapter and restore the original weights bit for bit."""
-        modules = self._lora_modules()
-        for comp, pristine in self._pristine.items():
-            restore(modules[comp], pristine)
-        self._pristine = {}
-        self._adapter_store = {}
-        self.adapters = {}
-
-    def load_loras(self, loras, lora_dir: Optional[str] = None) -> None:
-        """A name, a list of names or {name: scale}: read each file
-        ``{lora_dir}/{model_type}_{name}.safetensors`` and fuse them all, in
-        place of the adapters fused before."""
-        from stablediffusion_tpu_torch.lora.formats import load_lora_file
-
-        if isinstance(loras, str):
-            loras = {loras: 1.0}
-        elif isinstance(loras, (list, tuple)):
-            loras = {n: 1.0 for n in loras}
-        self.delete_adapters()
-        model_paths = None
-        for name in loras:
-            path = os.path.join(lora_dir or ".", f"{self.model_type}_{name}.safetensors")
-            if model_paths is None:
-                model_paths = self.lora_module_paths()
-            self.load_lora_weights(name, load_lora_file(path, model_paths))
-        self.set_adapters(dict(loras))
 
 
 def _set_table(table: nn.Embedding, weight: torch.Tensor) -> None:

@@ -21,10 +21,11 @@ depends on its own seed only; parity tests inject the JAX draws through
 ``draws=``.  Public layouts are the JAX package's: ``latents`` in and
 ``output_type="latents"`` out are NHWC, images NHWC.
 
-Not ported here; each raises and names its ROADMAP §1 item: prompt
-weighting (item 15), ``quantize`` (item 16), and SD3 LoRA adapters
-(``load_lora_weights``, ``set_adapters``, ``load_loras``, :119-255; item
-18's remainder).
+LoRA adapters go on the MM-DiT and both CLIP towers, never on T5, and int8
+quantization on the MM-DiT (:98-255), through the lifecycle ``SDModel``
+shares (``models/wrapper.AdapterHolder``); LoRA files resolve as
+``{lora_dir}/sd3_{name}.safetensors``.  Not ported here: prompt weighting,
+which raises and names ROADMAP §1 item 15.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from stablediffusion_tpu_torch.core.config import (
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.mmdit import SD3Transformer2DModel
 from stablediffusion_tpu_torch.models.t5 import T5Config, T5EncoderModel
+from stablediffusion_tpu_torch.models.wrapper import AdapterHolder
 from stablediffusion_tpu_torch.models.vae import (
     AutoencoderKL,
     denormalize_latents,
@@ -72,10 +74,17 @@ def _later(what: str, item: int) -> NotImplementedError:
 
 
 @dataclass
-class SD3Model:
+class SD3Model(AdapterHolder):
     """Configs, modules and tokenizers of one SD3-family model, all on one
     device.  ``text_encoder_3`` (T5) and its tokenizer are optional: SD3
     serves without them (the T5-free mode)."""
+
+    TOWER = "transformer"
+    # the AdaLN modulation linears sit under norm* paths, the conditioning
+    # embedders and the patch projection are input boundaries, proj_out (the
+    # pixel head alone: the attention blocks use to_out / to_add_out) the
+    # output boundary
+    _QUANT_SKIP = ("norm", "embedder", "pos_embed", "proj_out")
 
     transformer_config: SD3Config
     transformer: SD3Transformer2DModel
@@ -97,7 +106,6 @@ class SD3Model:
     scheduler_name: str = "FlowMatchEuler"
     path: Optional[str] = None
     model_type: str = "sd3"
-    adapters: Dict[str, float] = field(default_factory=dict)
 
     _scheduler: Optional[Any] = field(default=None, repr=False)
 
@@ -133,25 +141,9 @@ class SD3Model:
         self._scheduler = make_scheduler(name, self.scheduler_config)
         self.scheduler_name = name
 
-    # -- adapters: none can be loaded yet, so clearing them is a no-op ------
-    def get_list_adapters(self) -> Dict[str, float]:
-        return dict(self.adapters)
-
-    def delete_adapters(self) -> None:
-        self.adapters = {}
-
-    def load_lora_weights(self, name: str, adapter: dict) -> None:
-        raise _later("SD3 LoRA adapters", 18)
-
-    def set_adapters(self, weights: Dict[str, float]) -> None:
-        raise _later("SD3 LoRA adapters", 18)
-
-    def load_loras(self, loras, lora_dir: Optional[str] = None) -> None:
-        raise _later("SD3 LoRA adapters", 18)
-
-    def quantize(self, mode: Optional[str] = "w8a8", min_size: Optional[int] = None,
-                 expected_batch: int = 1) -> None:
-        raise _later("int8 quantization", 16)
+    def _lora_modules(self) -> Dict[str, torch.nn.Module]:
+        return {"transformer": self.transformer, "text_encoder": self.text_encoder,
+                "text_encoder_2": self.text_encoder_2}
 
 
 class StableDiffusion3Pipeline:

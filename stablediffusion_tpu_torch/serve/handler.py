@@ -7,7 +7,7 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
     restores the adapters' own scales after; the third trains a LoRA on the
     loaded model through ``train/trainer.SDLoRATrainer``);
   * an optional model block {type, name, scheduler, prediction_type, loras,
-    textual_inversion}:
+    textual_inversion, quantize}:
     - ``name`` hot-reloads the model from the diffusers folder
       ``{type}_{name}`` under the model dir (type "sd15", "sdxl" or "sd3";
       with no type and no model loaded, "sdxl", as in JAX), or from the
@@ -16,9 +16,14 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
       as in JAX);
     - ``loras`` ({name: scale} or names) fuses
       ``{lora_dir}/{type}_{name}.safetensors`` (the lora dir defaults to
-      the model dir); an empty value clears them;
+      the model dir; an SD3 model's go on its MM-DiT and CLIP towers); an
+      empty value clears them;
     - ``textual_inversion`` is declarative: the list is the state (.pt
       files load with ``weights_only=True`` only);
+    - ``quantize`` ("auto" | "w8" | "w8a8" | "w8a8:N" | null) is
+      declarative too: "auto" resolves against ``expected_batch`` (the
+      worker sets it to its batcher's max_batch), and a request that names
+      the model's mode again does not quantize again;
   * SDXL requests take ``prompt_2`` / ``negative_prompt_2``, and
     ``use_refiner`` through ``params`` (without a loaded refiner it answers
     on the error channel, as the JAX pipeline raises);
@@ -32,9 +37,8 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * every failure answers on the error channel ({"error", "traceback"}).
 
 Not ported here; each answers on the error channel and names its ROADMAP §1
-item: the "inference_wandb" mode (item 21), the model block's "quantize"
-(item 16), a serving mesh (item 20) and SD3 LoRAs (item 18); in the
-"train" mode, the trainer's options that ``train/trainer.check_args``
+item: the "inference_wandb" mode (item 21) and a serving mesh (item 20); in
+the "train" mode, the trainer's options that ``train/trainer.check_args``
 refuses (item 20).  The "train" mode trains SD1.5 and SDXL models, as the
 JAX handler's does: an SD3 model is refused, with a pointer to
 ``train/sd3_train.SD3LoRATrainer``.  The models have no
@@ -66,6 +70,7 @@ from stablediffusion_tpu_torch.io.loader import (
     resolve_checkpoint,
 )
 from stablediffusion_tpu_torch.models.wrapper import SDModel
+from stablediffusion_tpu_torch.ops.quant import resolve_quant_mode
 from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model, StableDiffusion3Pipeline
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 
@@ -168,6 +173,9 @@ class Handler:
         self.model_generation = 0
         # BUCKET_ENDPOINT_URL-gated image sink: URLs in place of base64
         self.uploader = uploader if uploader is not None else make_uploader()
+        # the merge batch that quantize="auto" resolves against: the
+        # worker sets its batcher's max_batch; alone, the batch-1 mode
+        self.expected_batch = 1
 
     # -- model hot-swap --------------------------------------------------------
     def maybe_reload_model(self, model_cfg: Dict[str, Any]) -> None:
@@ -224,8 +232,12 @@ class Handler:
         if model_cfg.get("ip_adapter") and not hasattr(self.model, "load_ip_adapter"):
             raise ValueError(f"ip_adapter is not supported for model type "
                              f"{self.model.model_type!r} (ROADMAP §1 item 15)")
-        if model_cfg.get("quantize"):
-            raise _later("quantize", 16)
+        if "quantize" in model_cfg:
+            # resolved here, so that a client sending "auto" with every
+            # request compares concrete modes and quantizes once
+            q = resolve_quant_mode(model_cfg["quantize"] or None, self.expected_batch)
+            if q != self.model.quant_mode:
+                self.model.quantize(q)  # validates before it changes state
 
     # -- entry ----------------------------------------------------------------
     def __call__(self, request_input: Dict[str, Any], request_id: str = "") -> Dict:

@@ -1,25 +1,30 @@
-"""HTTP serving worker.
+"""Serving worker: an HTTP server and a job-queue entry.
 
 Port of ``stablediffusion_tpu/serve/worker.py``: a threaded HTTP server that
 takes the job schema {id, input: {...}} by POST /, answers health checks on
-GET /, and merges concurrent txt2img requests through the micro-batcher
-(``--max_batch`` > 1)::
+GET /, serves the web UI (``serve/webapp.index_html``) on GET /ui, and
+merges concurrent txt2img requests through the micro-batcher
+(``--max_batch`` > 1); and ``trigger_fn``, the job-queue entry with the same
+schema, which ``main`` registers with ``runpod.serverless.start`` when the
+``runpod`` package imports (it serves HTTP otherwise)::
 
     python -m stablediffusion_tpu_torch.serve.worker \\
         --model_dir D --model_name N [--model_type sdxl|sd15|sd3] [--lora_dir L] \\
-        [--warmup]
+        [--quantize auto|w8|w8a8|w8a8:N] [--warmup] [--device cpu]
 
 loads the diffusers folder ``D/{model_type}_N`` (``--model_type`` "sdxl"
 unless given, as in JAX; "sd3" serves an SD3-family folder, with or without
 T5), or the A1111 single file ``D/N`` when N ends in .safetensors or .ckpt
 (SD1.x and SDXL), onto the card and serves it on ``--port`` (8000).
 Requests' ``loras`` are read from ``L/{model_type}_{name}.safetensors``
-(``--lora_dir``, default the model dir).  The server, its handler and its
-batcher are one object (``make_server``), so a program can run one in a
-thread and shut it down.
-``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) and ``--quantize`` (item
-16) raise; the web UI (item 17) and the serverless-queue entry are not
-ported.
+(``--lora_dir``, default the model dir).  ``--quantize`` quantizes the
+loaded model after ``expected_batch`` is set from ``--max_batch``, so
+"auto" resolves for the batcher's merge batch.  The server, its handler and
+its batcher are one object (``make_server``), so a program can run one in a
+thread and shut it down; ``trigger_fn`` goes through the server that
+``make_server`` made last while it is open (its batcher, or the lock its serial
+requests share), else through ``get_handler()`` under that lock.
+``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) raise.
 """
 
 from __future__ import annotations
@@ -36,6 +41,30 @@ from stablediffusion_tpu_torch.serve.handler import Handler
 
 logger = logging.getLogger(__name__)
 
+# the model slot has a single writer: serial requests of the server and
+# trigger_fn take this lock
+_LOCK = threading.Lock()
+HANDLER: Optional[Handler] = None
+SERVER: Optional["Server"] = None
+
+
+def get_handler(**kw) -> Handler:
+    """The worker's handler: the one ``make_server`` registered last, else a
+    new one."""
+    global HANDLER
+    if HANDLER is None:
+        HANDLER = Handler(**kw)
+    return HANDLER
+
+
+def trigger_fn(request: Dict[str, Any]) -> Dict[str, Any]:
+    """Job-queue entry: {id, input: {mode?, model?, params?, prompt...}}."""
+    if SERVER is not None:
+        return SERVER.trigger(request)
+    handler = get_handler()
+    with _LOCK:
+        return handler(request.get("input") or {}, request.get("id", ""))
+
 
 class Server(ThreadingHTTPServer):
     """The HTTP server with its handler and, when max_batch > 1, its
@@ -49,7 +78,7 @@ class Server(ThreadingHTTPServer):
         super().__init__(addr, _HTTPHandler)
         self.handler = handler
         self.batcher = batcher
-        self._lock = threading.Lock()
+        self._lock = _LOCK
 
     def trigger(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Job entry: {id, input: {mode?, model?, params?, prompt...}}."""
@@ -59,9 +88,12 @@ class Server(ThreadingHTTPServer):
             return self.handler(request.get("input") or {}, request.get("id", ""))
 
     def server_close(self):
+        global SERVER
         super().server_close()
         if self.batcher is not None:
             self.batcher.close()
+        if SERVER is self:
+            SERVER = None
 
 
 class _HTTPHandler(BaseHTTPRequestHandler):
@@ -75,10 +107,20 @@ class _HTTPHandler(BaseHTTPRequestHandler):
         result = self.server.trigger(request)
         self._reply(200 if "error" not in result else 500, result)
 
-    def do_GET(self):  # noqa: N802 — health check
-        if self.path.rstrip("/"):
-            self._reply(404, {"error": f"no page {self.path!r}: the web UI is not "
-                                       "ported yet (ROADMAP §1 item 17)"})
+    def do_GET(self):  # noqa: N802 — health check and the web UI
+        path = self.path.rstrip("/")
+        if path == "/ui":
+            from stablediffusion_tpu_torch.serve.webapp import index_html
+
+            body = index_html().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        if path:
+            self._reply(404, {"error": f"no page {self.path!r}"})
             return
         self._reply(200, {"status": "ok", "model": getattr(
             self.server.handler.model, "model_type", None)})
@@ -98,16 +140,23 @@ class _HTTPHandler(BaseHTTPRequestHandler):
 def make_server(handler: Handler, host: str = "0.0.0.0", port: int = 8000,
                 max_batch: int = 8, batch_window_ms: float = 25.0) -> Server:
     """A server bound to (host, port); port 0 picks a free one
-    (``server.server_address``).  max_batch=1 serves strictly serially."""
+    (``server.server_address``).  max_batch=1 serves strictly serially.
+    The server and its handler become the ones ``trigger_fn`` and
+    ``get_handler`` use."""
+    global HANDLER, SERVER
     batcher = (Batcher(handler, max_batch=max_batch, window_ms=batch_window_ms)
                if max_batch > 1 else None)
-    return Server((host, port), handler, batcher)
+    HANDLER, SERVER = handler, Server((host, port), handler, batcher)
+    return SERVER
 
 
 def serve_http(port: int = 8000, max_batch: int = 8, batch_window_ms: float = 25.0,
                host: str = "0.0.0.0", **handler_kw) -> None:
-    """Serve until interrupted."""
-    server = make_server(Handler(**handler_kw), host, port, max_batch, batch_window_ms)
+    """Serve until interrupted ("auto" quantization resolves for
+    `max_batch`)."""
+    handler = Handler(**handler_kw)
+    handler.expected_batch = max(1, int(max_batch))
+    server = make_server(handler, host, port, max_batch, batch_window_ms)
     logger.info("serving on %s:%d (max_batch=%d)", host, server.server_address[1], max_batch)
     try:
         server.serve_forever()
@@ -130,7 +179,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--batch_window_ms", type=float, default=25.0)
     p.add_argument("--mesh_dp", type=int, default=0)
     p.add_argument("--mesh_tp", type=int, default=1)
-    p.add_argument("--quantize", default=None)
+    p.add_argument("--quantize", default=None,
+                   help="int8 mode applied to the preloaded model before --warmup (auto | "
+                        "w8 | w8a8 | w8a8:N); 'auto' picks by --max_batch "
+                        "(ops/quant.resolve_quant_mode); requests can still change it")
+    p.add_argument("--device", default=None,
+                   help="the device the handler loads models onto (default: cuda)")
     p.add_argument("--warmup", action="store_true",
                    help="run each batch size the batcher forms (powers of two "
                         "up to --max_batch) once before serving")
@@ -138,17 +192,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace) -> Server:
-    """The server that ``main`` runs: the handler, the preloaded model,
-    the warmup, the batcher."""
+    """The server that ``main`` runs: the handler, the preloaded model, its
+    quantization, the warmup, the batcher."""
     if args.mesh_dp or args.mesh_tp > 1:
         raise NotImplementedError("--mesh_dp/--mesh_tp: not ported yet, they come with "
                                   "ROADMAP §1 item 20")
-    if args.quantize:
-        raise NotImplementedError("--quantize: not ported yet, it comes with ROADMAP §1 "
-                                  "item 16")
-    handler = Handler(model_dir=args.model_dir, lora_dir=args.lora_dir)
+    handler = Handler(model_dir=args.model_dir, lora_dir=args.lora_dir, device=args.device)
+    # before --quantize, so that "auto" resolves for the merge batch
+    handler.expected_batch = max(1, int(args.max_batch))
     if args.model_name:
         handler.maybe_reload_model({"type": args.model_type, "name": args.model_name})
+    if args.quantize:
+        if handler.model is None:
+            logger.warning("--quantize ignored: no model preloaded")
+        else:
+            handler.maybe_reload_model({"quantize": args.quantize})
     if args.warmup:
         if handler.model is None:
             logger.warning("--warmup ignored: no model preloaded")
@@ -164,9 +222,14 @@ def build(args: argparse.Namespace) -> Server:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     server = build(parse_args(argv))
-    logger.info("serving on %s:%d", *server.server_address[:2])
     try:
-        server.serve_forever()
+        try:
+            import runpod  # the serverless job queue, when installed
+        except ImportError:
+            logger.info("serving on %s:%d", *server.server_address[:2])
+            server.serve_forever()
+        else:
+            runpod.serverless.start({"handler": trigger_fn})
     finally:
         server.server_close()
 

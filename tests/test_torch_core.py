@@ -64,7 +64,8 @@ def test_import_pulls_in_no_jax():
                 "io.loader", "io.safetensors_io", "serve.handler", "serve.worker",
                 "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms",
                 "lora.formats", "io.a1111", "models.t5", "models.mmdit", "pipelines.sd3",
-                "tokenizer.sentencepiece_unigram"):
+                "tokenizer.sentencepiece_unigram", "ops.quant", "io.quantize_cli",
+                "serve.webapp"):
         assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

@@ -522,3 +522,62 @@ def test_remat_policies_on_card(cuda, policy):
                                        atol=1e-6 * max(1.0, a.abs().max().item()))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _int8_layer(kind, mode, cin, cout, k=3, stride=1, padding=1, seed=0):
+    from stablediffusion_tpu_torch.ops.quant import quantized_layer
+
+    torch.manual_seed(seed)
+    m = (torch.nn.Linear(cin, cout) if kind == "linear"
+         else torch.nn.Conv2d(cin, cout, k, stride=stride, padding=padding))
+    return quantized_layer(m, mode)
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+@pytest.mark.parametrize("rows", [2, 154])
+def test_int8_linear_on_card_matches_cpu(cuda, mode, rows):
+    """fp32 on both devices: w8a8's codes and int32 sums are exact, so the
+    card equals the CPU bit for bit; rows below the int8 GEMM's minimum are
+    zero-padded and counted."""
+    from stablediffusion_tpu_torch.ops.quant import INT8_LINEAR_CALLS, int8_linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = _int8_layer("linear", mode, 320, 640)
+    x = torch.randn(rows, 320, generator=torch.Generator().manual_seed(1))
+    ref = int8_linear(m, x)
+    INT8_LINEAR_CALLS.reset()
+    out = int8_linear(m.to(cuda), x.to(cuda))
+    assert INT8_LINEAR_CALLS.by_mode[mode] == 1
+    assert INT8_LINEAR_CALLS.padded == int(mode == "w8a8" and rows < 17)
+    if mode == "w8a8":
+        assert torch.equal(out.cpu(), ref)
+    else:
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+@pytest.mark.parametrize("k, stride, padding", [(3, 1, 1), (3, 2, 1), (1, 1, 0)])
+def test_int8_conv2d_on_card_matches_cpu(cuda, mode, k, stride, padding):
+    from stablediffusion_tpu_torch.ops.quant import INT8_CONV_CALLS, int8_conv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    m = _int8_layer("conv", mode, 64, 128, k, stride, padding)
+    x = torch.randn(2, 64, 16, 16, generator=torch.Generator().manual_seed(2))
+    ref = int8_conv2d(m, x, stride, padding)
+    INT8_CONV_CALLS.reset()
+    out = int8_conv2d(m.to(cuda), x.to(cuda), stride, padding)
+    assert INT8_CONV_CALLS.by_mode[mode] == 1
+    if mode == "w8a8":
+        assert torch.equal(out.cpu(), ref)
+    else:
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_int8_gemm_refusal_raises_on_card(cuda):
+    """An inner size the card's int8 GEMM refuses (not a multiple of 8)
+    raises; nothing falls back to a floating-point product."""
+    from stablediffusion_tpu_torch.ops.quant import int8_linear
+
+    m = _int8_layer("linear", "w8a8", 12, 64).to(cuda)
+    with pytest.raises(RuntimeError):
+        int8_linear(m, torch.randn(32, 12, device=cuda))

@@ -149,8 +149,13 @@ def test_strict_keys_and_unported_formats(folders, tmp_path):
     save_safetensors(sd, path)
     with pytest.raises(KeyError, match="missing"):
         loader.load_sd_model(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        loader.save_sd_model(tm, str(tmp_path / "q"), quantize="w8")
+    # int8 folders are ported: the mode is recorded and the model loads
+    # frozen (the int8 parity cases are in test_torch_quant_checkpoint.py)
+    loader.save_sd_model(tm, str(tmp_path / "q"), quantize="w8")
+    q = loader.load_sd_model(str(tmp_path / "q"), device="cpu")
+    assert (q.quant_mode, q.quant_frozen) == ("w8", True)
+    with pytest.raises(ValueError, match="requires fp weights"):
+        q.quantize("w8a8")
     with pytest.raises(ValueError, match="load_sd3_model"):
         loader.load_sd_model(d, model_type="sd3", device="cpu")
     single = tmp_path / "model.safetensors"

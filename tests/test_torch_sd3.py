@@ -304,12 +304,19 @@ def test_pipeline_options(models):
     _close(pipe(tm, output_type="latents", draws=draws, **sig).latents.numpy(), ref.latents)
     with pytest.raises(NotImplementedError, match="item 15"):
         pipe(tm, prompt_weighting=True, **kw)
-    for call in (lambda: tm.load_loras({"x": 1.0}), lambda: tm.set_adapters({"x": 1.0}),
-                 lambda: tm.load_lora_weights("x", {})):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tm.quantize("w8")
+    # SD3 adapters and quantization are ported (their parity cases are in
+    # test_torch_sd3_lora.py and test_torch_quant.py): a missing file, an
+    # unknown adapter and an empty one, and a mode set and reverted
+    with pytest.raises(FileNotFoundError, match="sd3_x.safetensors"):
+        tm.load_loras({"x": 1.0})
+    with pytest.raises(ValueError, match="unknown adapters"):
+        tm.set_adapters({"x": 1.0})
+    tm.load_lora_weights("x", {})
+    tm.set_adapters({"x": 1.0})
+    assert tm.get_list_adapters() == {"x": 1.0}
+    tm.quantize("w8")
+    assert tm.quant_mode == "w8"
+    tm.quantize(None)
     tm.delete_adapters()  # nothing loaded: a no-op, as in JAX
     assert tm.get_list_adapters() == {}
     with pytest.raises(ValueError, match="mask_image"):
@@ -392,9 +399,11 @@ def test_sd3_request_through_the_handler(models, tmp_path, caplog):
         out = h({**KW, "prompt": "a dog", "seed": 12, **extra}, "mode")
         assert "error" not in out, out.get("traceback")
         assert decode_image_b64(out["images"][0]).shape == (16, 16, 3)
-    for block, what in (({"loras": {"x": 1.0}}, "item 18"),
+    # SD3 LoRAs and quantize are ported: a missing LoRA file and a bad mode
+    # answer on the error channel
+    for block, what in (({"loras": {"x": 1.0}}, "sd3_x.safetensors"),
                         ({"textual_inversion": ["x.pt"]}, "not supported"),
-                        ({"quantize": "w8a8"}, "item 16")):
+                        ({"quantize": "int4"}, "unknown quant mode")):
         err = h({**KW, "prompt": "a cat", "seed": 1, "model": block}, "err")
         assert "error" in err and what in err["error"], err
     assert "error" not in h({**KW, "prompt": "a cat", "seed": 1,

@@ -85,7 +85,10 @@ def test_scheduler_swap_via_model_block(handler):
     # in JAX, before it reads the folder
     pytest.param({"mode": "train", "train": {"data_dir": "unused", "textual_inversion": "<x>"}},
                  "train_text_encoder=False", id="request_input2-item 19"),
-    pytest.param({"model": {"quantize": "w8a8"}}, "item 16", id="request_input4-item 16"),
+    # int8 quantization is ported: the model block's mode is validated
+    # before the model changes, and a bad one answers on the error channel
+    pytest.param({"model": {"quantize": "int4"}}, "unknown quant mode 'int4'",
+                 id="request_input4-item 16"),
     # SD3 is ported: an SD3 model block naming a folder that is not there
     # answers on the error channel like any other
     pytest.param({"model": {"type": "sd3", "name": "x"}}, "sd3_x",
@@ -195,9 +198,18 @@ def test_http_worker_roundtrip(handler):
 def test_worker_flags_for_unported_features():
     from stablediffusion_tpu_torch.serve.worker import build
 
-    for flags, item in ((["--mesh_dp", "2"], "item 20"), (["--quantize", "w8"], "item 16")):
+    for flags, item in ((["--mesh_dp", "2"], "item 20"),):
         with pytest.raises(NotImplementedError, match=item):
             build(parse_args(flags))
+    # --quantize is ported: without a preloaded model it is ignored (the
+    # quantized worker is test_torch_quant_checkpoint.py's), and "auto"
+    # resolves against --max_batch
+    server = build(parse_args(["--quantize", "w8", "--host", "127.0.0.1", "--port", "0",
+                               "--max_batch", "8", "--device", "cpu"]))
+    try:
+        assert server.handler.model is None and server.handler.expected_batch == 8
+    finally:
+        server.server_close()
     args = parse_args(["--model_dir", "d", "--model_name", "n", "--max_batch", "4"])
     # the JAX worker's default model type (serve/worker.py:155)
     assert (args.model_type, args.max_batch, args.port) == ("sdxl", 4, 8000)
