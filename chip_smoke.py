@@ -238,6 +238,41 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    payload by POST with phase 2's launches and the planned int8 products,
    and ``serve/worker.trigger_fn`` the same job with the same image.
 
+39. The pipeline extensions (run after phase 38) on the full-width SD1.5
+   model at 512², 20 DDIM steps, CFG 7.5, batch 1, one request each: a
+   weighted prompt with a ``[from:to:when]`` edit, a prompt of more than 75
+   tokens (two chunks: each tower pass runs on two rows), FreeU, PAG 3.0 on
+   "mid" and on every group, DeepCache at interval 3, the hires fix (512²
+   base, 1024² at strength 0.7), InstructPix2Pix (an 8-channel UNet,
+   image guidance 1.5), a ControlNet at control_v11p_sd15_canny's config
+   written as a folder and loaded (``utils/testing.write_controlnet_folder``:
+   its zero convolutions seeded non-zero), and IP-Adapter standard and Plus
+   over the ViT-H/14 image encoder, both written and loaded through the
+   loaders.  Each request's launches against its plan (from the modules and
+   the schedule: the tower passes, the full and shallow UNet calls, PAG's
+   call on the conditional half with its perturbed self-attentions left
+   out, the ControlNet's and the image encoder's and Resampler's
+   attentions), finite pixels, a repeat under torch.profiler bit for bit
+   (its device time), and the ControlNet, IP-Adapter, PAG, FreeU, DeepCache
+   and edit images apart from the plain one; each extension on the narrow
+   model of phase 5, card against CPU in fp32 within REF_TOL (the hires
+   fix with both passes' draws injected); the kernels at every new shape,
+   the hires pass's [2,16384,8,40] held head by head.
+40. SDXL at 1024², 20 steps: one request with a ControlNet at
+   diffusers/controlnet-canny-sdxl-1.0's config (its text_time embedding),
+   an IP-Adapter at ip-adapter_sdxl's over the ViT-bigG/14 image encoder
+   (head dim 104), and FreeU, with its plan, a repeat and the peak memory;
+   the narrow SDXL model with all three, card against CPU; the new shapes.
+41. Serving and the lifecycle: phase 39's model behind the worker's server
+   (its ControlNet loaded in the program): a model block naming an
+   IP-Adapter file with a base64 ``ip_adapter_image`` (without an image
+   encoder it answers on the error channel, as the JAX handler's does; with
+   one loaded, its plan), a base64 ``control_image``, and phase 38's UI
+   payload with FreeU, PAG and the hires fix; then ``load_ip_adapter``,
+   ``load_loras``, ``quantize("w8")`` (every IP linear int8 where JAX's
+   plan puts it), ``quantize(None)``, ``delete_adapters`` and
+   ``unload_ip_adapter`` leave the UNet bit for bit as before.
+
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits nonzero, printing no result, when CUDA is not available.
@@ -421,6 +456,10 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     # rounds p to bf16 from the running max of its 64-key tiles, and its
     # plain version does the same
     dname = str(dtype).replace("torch.", "")
+    if B * H * Sq * Skv >= 2**32:
+        # fp32 logits of 16 GiB and more (the hires pass's [2,16384,8,40]):
+        # the same function on one head at a time
+        plain = functools.partial(_per_head, plain)
     if (name, dname) == ("flash_fwd", "bfloat16"):
         ref, flips = attention_p_rounded(q, k, v, causal)
     else:
@@ -457,6 +496,15 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     del q, k, v, out
     torch.cuda.empty_cache()
     return row
+
+
+def _per_head(fn, q, k, v, **kw):
+    """`fn` over [B, S, H, D] called head by head: the same values, a
+    head's logits at a time."""
+    import torch
+
+    return torch.cat([fn(q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1], **kw)
+                      for h in range(q.shape[2])], dim=2)
 
 
 def _cases(by_shape, widen=True):
@@ -772,16 +820,19 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def _profile(label, fn):
+def _profile(label, fn, host=True):
     """Device time by kernel group over one call of `fn` under
     torch.profiler, and the device's busy share of the call's wall time (the
-    profiler's own host cost lowers that share)."""
+    profiler's own host cost lowers that share).  Without `host` only the
+    device's activity is traced: less host cost, and events that take
+    seconds, not tens, to read back after a whole request."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4122,6 +4173,549 @@ def phase_sd3_lora(smi, lora_file):
     return launches
 
 
+# -- the pipeline extensions (phases 39-41) ----------------------------------
+EXT_RES = 512
+EXT_STEPS = 20
+EXT_CFG = 7.5
+EXT_PROMPT = "a photograph of an astronaut riding a horse"
+EXT_WEIGHTED = "a (photograph:1.3) of an [astronaut:robot:0.5] riding a ((horse))"
+# more than 75 tokens of the char-level tokenizer: two chunks
+EXT_LONG = "a photograph of an astronaut riding a horse on the moon " * 2
+EXT_PAG = 3.0
+EXT_CACHE_INTERVAL = 3
+EXT_HIRES_STRENGTH = 0.7
+EXT_IP2P_IMAGE_CFG = 1.5
+
+
+def _unet_call_launches(unet, shallow=False, perturb=(), ip=False):
+    """``flash_fwd`` launches of one UNet call: for each transformer block
+    the call runs, its self-attention unless PAG perturbs the block's group,
+    its cross-attention, and IP-Adapter's image attention where the block's
+    attn2 holds ``to_k_ip`` and image tokens are given; a shallow (DeepCache)
+    call runs the first down block and the last up block alone."""
+    from stablediffusion_tpu_torch.models.unet import BasicTransformerBlock
+
+    groups = [("down", b) for b in (unet.down_blocks[:1] if shallow else unet.down_blocks)]
+    if not shallow:
+        groups.append(("mid", unet.mid_block))
+    groups += [("up", b) for b in (unet.up_blocks[-1:] if shallow else unet.up_blocks)]
+    n = 0
+    for group, block in groups:
+        for m in block.modules():
+            if isinstance(m, BasicTransformerBlock):
+                n += int(group not in perturb) + 1 + int(ip and hasattr(m.attn2, "to_k_ip"))
+    return n
+
+
+def _ext_plan(model, n_full, n_shallow=0, pag=(), ip=False, cn=False, clip_encodes=2,
+              vision=0, resampler=0, streams=1):
+    """(launches by kernel, flash_fwd by part) of one request: `clip_encodes`
+    tower passes of every layer, `n_full` full and `n_shallow` shallow UNet
+    calls, a PAG call per full step, the ControlNet's attentions each step,
+    `vision` image-encoder passes, `resampler` Resampler passes of its depth,
+    and `streams` VAE mid-block attentions."""
+    steps = n_full + n_shallow
+    parts = {
+        "clip": clip_encodes * _clip_layers(model),
+        "unet_full": n_full * _unet_call_launches(model.unet, ip=ip),
+        "unet_shallow": n_shallow * _unet_call_launches(model.unet, shallow=True, ip=ip),
+        "pag": n_full * _unet_call_launches(model.unet, perturb=pag, ip=ip) if pag else 0,
+        "controlnet": steps * 2 * _n_tf(model.controlnet) if cn else 0,
+        "vision": vision * model.image_encoder_config.num_hidden_layers if vision else 0,
+        "resampler": resampler * (model.ip_adapter.config.depth if resampler else 0),
+    }
+    return {"flash_fwd": sum(parts.values()), "flash_stream": streams}, parts
+
+
+def _add_plans(*plans):
+    want = {k: sum(p[0][k] for p in plans) for k in plans[0][0]}
+    parts = {k: sum(p[1][k] for p in plans) for k in plans[0][1]}
+    return want, parts
+
+
+def _seeded_image(res, seed, edges=False):
+    """A seeded RGB image in [0, 1], res x res; with `edges`, sparse white
+    lines on black, as a canny map."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if edges:
+        img = np.zeros((res, res, 3), np.float32)
+        for _ in range(24):
+            if rng.random() < 0.5:
+                img[rng.integers(res), :, :] = 1.0
+            else:
+                img[:, rng.integers(res), :] = 1.0
+        return img
+    coarse = rng.uniform(0, 1, (8, 8, 3)).astype(np.float32)
+    return np.kron(coarse, np.ones((res // 8, res // 8, 1), np.float32))
+
+
+class _ExtRequests:
+    """Counts, checks and profiles the requests of one extension phase: each
+    request runs with the counters at 0 (its launches against its plan,
+    finite pixels of its size), then again under torch.profiler (bit for bit
+    the first image; its device time by group); the launches by shape
+    accumulate for the kernel check."""
+
+    def __init__(self, smi, counters):
+        self.smi, self.counters = smi, counters
+        self.by_shape = {n: {} for n in counters}
+        self.launches, self.device_ms = {}, {}
+
+    def __call__(self, label, pipe, model, kw, plan, plain=None, res=None):
+        import numpy as np
+        import torch
+
+        want, parts = plan
+        for c in self.counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        im = pipe(model, **kw).images
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {n: c.count for n, c in self.counters.items()}
+        for n, c in self.counters.items():
+            for key, v in c.by_shape.items():
+                self.by_shape[n][key] = self.by_shape[n].get(key, 0) + v
+        again = []
+        prof = _profile(label, lambda: again.append(pipe(model, **kw).images), host=False)
+        res = res or kw.get("height", EXT_RES)
+        same = bool(np.array_equal(again[0], im))
+        differs = None if plain is None else bool(not np.array_equal(plain, im))
+        print(json.dumps({"extension_request": label, "wall_s": wall, "launches": got,
+                          "expected_launches": want, "plan_flash_fwd_by_part": parts,
+                          "device_kernel_ms": prof["device_kernel_ms"],
+                          "device_busy_share": prof["device_busy_share"],
+                          "repeat_bit_identical": same, "differs_from_plain": differs,
+                          "shape": list(im.shape), "card": self.smi}), flush=True)
+        if im.shape[1:] != (res, res, 3) or not np.isfinite(im).all():
+            raise AssertionError(f"{label}: image {im.shape}")
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != expected {want}")
+        if not same:
+            raise AssertionError(f"{label}: a repeat gave another image")
+        if differs is False:
+            raise AssertionError(f"{label}: the image equals the plain request's")
+        self.launches[label] = got
+        self.device_ms[label] = prof["device_kernel_ms"]
+        return im
+
+
+def _ext_reference(label, cpu, gpu, kw, draws=None):
+    """One request on a narrow model, card (kernels) against CPU (plain
+    attention), fp32, the same weights and injected draws: latents and
+    pixels within REF_TOL."""
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+
+    from stablediffusion_tpu_torch.utils.images import postprocess_image
+
+    outs = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        pipe = StableDiffusionUnifiedPipeline(device=dev, dtype=torch.float32)
+        f0 = FLASH_FWD_LAUNCHES.count
+        lat = pipe(model, output_type="latents", draws=draws, **kw).latents
+        # the pipeline's own decode of those latents (its "np" output)
+        img = pipe._vae_decode(model, lat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        outs[dev] = (lat.float().cpu().numpy(),
+                     postprocess_image(img.float().cpu().numpy()))
+        if dev == "cuda" and FLASH_FWD_LAUNCHES.count == f0:
+            raise AssertionError(f"{label}: the card run launched no kernel")
+    lat_err = float(np.abs(outs["cpu"][0] - outs["cuda"][0]).max())
+    img_err = float(np.abs(outs["cpu"][1] - outs["cuda"][1]).max())
+    print(json.dumps({"extension_reference": label, "latents_max_abs_err": lat_err,
+                      "images_max_abs_err": img_err, "tol": REF_TOL}), flush=True)
+    if not (lat_err <= REF_TOL and img_err <= REF_TOL):
+        raise AssertionError(f"{label}: card disagrees with CPU: {lat_err}, {img_err}")
+
+
+def _card_copy(module):
+    return copy.deepcopy(module).cuda()
+
+
+def phase_extensions_reference(root):
+    """Phase 39's narrow check: the narrow SD1.5-layout model of phase 5 with
+    each extension, card against CPU in fp32 (FreeU, PAG on every group,
+    DeepCache at interval 3 over 4 steps, weighting with an edit, the hires
+    fix at 2x with both passes' draws injected, InstructPix2Pix on an
+    8-channel copy, a random ControlNet, an IP-Adapter Plus over a 2-layer
+    ViT-H/14)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import IP_ADAPTER_IMAGE_ENCODER
+    from stablediffusion_tpu_torch.models.clip_vision import CLIPVisionModel
+    from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_controlnet,
+        random_module,
+        write_ip_adapter_file,
+    )
+
+    cpu = _narrow_sd15(seed=3)
+    gpu = _to_card(cpu)
+    lat = np.random.default_rng(7).standard_normal((1, 16, 16, 4)).astype(np.float32)
+    common = dict(prompt="a small red house", num_inference_steps=4, guidance_scale=7.5, seed=1)
+    for label, kw in (("freeu", dict(freeu=True)),
+                      ("pag_all", dict(pag_scale=EXT_PAG, pag_applied_layers=("down", "mid", "up"))),
+                      ("deepcache", dict(cache_interval=EXT_CACHE_INTERVAL)),
+                      ("weighting_edit", dict(prompt="a (small:1.3) [red:blue:0.5] house",
+                                              prompt_weighting=True))):
+        _ext_reference(label, cpu, gpu, dict(common, latents=torch.from_numpy(lat), **kw))
+    noise = np.random.default_rng(8).standard_normal((1, 32, 32, 4)).astype(np.float32)
+    _ext_reference("hires_x2", cpu, gpu, dict(common, hires_scale=2.0, height=64, width=64),
+                   draws=[{"latents": lat}, {"latents": noise}])
+    # InstructPix2Pix on an 8-channel copy of the narrow UNet
+    cfg8 = dataclasses.replace(cpu.unet_config, in_channels=8)
+    g = torch.Generator().manual_seed(5)
+    cpu8 = dataclasses.replace(cpu, unet_config=cfg8, unet=random_module(
+        UNet2DConditionModel, cfg8, torch.device("cpu"), torch.float32, g))
+    gpu8 = dataclasses.replace(gpu, unet_config=cfg8, unet=_card_copy(cpu8.unet))
+    _ext_reference("ip2p", cpu8, gpu8, dict(common, latents=torch.from_numpy(lat),
+                                            image=_seeded_image(32, 2),
+                                            image_guidance_scale=EXT_IP2P_IMAGE_CFG))
+    # a ControlNet and an IP-Adapter Plus on the narrow model
+    cpu.controlnet_config = cpu.unet_config
+    cpu.controlnet = random_controlnet(cpu.unet_config, "cpu", torch.float32, seed=4)
+    gpu.controlnet_config, gpu.controlnet = cpu.unet_config, _card_copy(cpu.controlnet)
+    vcfg = dataclasses.replace(IP_ADAPTER_IMAGE_ENCODER, num_hidden_layers=2)
+    enc = random_module(CLIPVisionModel, vcfg, torch.device("cpu"), torch.float32, g)
+    ip = write_ip_adapter_file(os.path.join(root, "narrow_ip_plus.safetensors"),
+                               cpu.unet_config, vcfg, plus=True, num_tokens=16, depth=1,
+                               heads=12, dim=768, dtype=torch.float32, seed=6)
+    for m, e in ((cpu, enc), (gpu, _card_copy(enc))):
+        m.image_encoder_config, m.image_encoder = vcfg, e
+        m.load_ip_adapter(ip)
+    _ext_reference("controlnet_ip_plus", cpu, gpu, dict(
+        common, latents=torch.from_numpy(lat), control_image=_seeded_image(128, 3, edges=True),
+        ip_adapter_image=_seeded_image(64, 4)))
+    del cpu, gpu, cpu8, gpu8
+    torch.cuda.empty_cache()
+
+
+def phase_extensions_sd15(smi, checked):
+    """Phase 39: the extensions on the full-width SD1.5 model at 512², 20
+    DDIM steps, CFG 7.5, batch 1 (phases 39's requests, each with its plan);
+    the narrow reference; the kernels at every new shape.  Returns (rows,
+    launches by request, device ms by request, the model with its ControlNet
+    loaded, the files' folder)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import IP_ADAPTER_IMAGE_ENCODER, SD15_UNET
+    from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils import prompt_edit as pe
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        random_module,
+        write_controlnet_folder,
+        write_image_encoder_folder,
+        write_ip_adapter_file,
+    )
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ext_")
+    model = random_full_model("sd15", device="cuda", seed=0)
+    pipe = StableDiffusionUnifiedPipeline(device="cuda")
+    counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+    ask = _ExtRequests(smi, counters)
+    N = EXT_STEPS
+    base = dict(prompt=EXT_PROMPT, height=EXT_RES, width=EXT_RES, num_inference_steps=N,
+                guidance_scale=EXT_CFG, seed=0)
+    plain = ask("ext_plain", pipe, model, base, _ext_plan(model, N))
+
+    # prompt weighting: an edit adds one encode a further unique prompt
+    variants = pe.unique_variants(pe.schedule_prompts([EXT_WEIGHTED], N)[1])[0]
+    ask("ext_weighted_edit", pipe, model, dict(base, prompt=EXT_WEIGHTED, prompt_weighting=True),
+        _ext_plan(model, N, clip_encodes=2 + len(variants) - 1), plain)
+    # over 75 tokens: two chunks, which each tower pass runs as two rows
+    FLASH_FWD_LAUNCHES.reset()
+    ask("ext_long_prompt", pipe, model, dict(base, prompt=EXT_LONG, prompt_weighting=True),
+        _ext_plan(model, N))
+    clip_rows = {k[0][0] for k in FLASH_FWD_LAUNCHES.by_shape if k[3]}
+    print(json.dumps({"ext_long_prompt_clip_rows": sorted(clip_rows),
+                      "chunks": -(-len(model.tokenizer.tokenize(EXT_LONG)) // 75)}), flush=True)
+    if clip_rows != {2}:
+        raise AssertionError(f"the long prompt's tower ran on {clip_rows} rows, not 2")
+    ask("ext_freeu", pipe, model, dict(base, freeu=True), _ext_plan(model, N), plain)
+    ask("ext_pag_mid", pipe, model, dict(base, pag_scale=EXT_PAG),
+        _ext_plan(model, N, pag=("mid",)), plain)
+    ask("ext_pag_all", pipe, model,
+        dict(base, pag_scale=EXT_PAG, pag_applied_layers=("down", "mid", "up")),
+        _ext_plan(model, N, pag=("down", "mid", "up")), plain)
+    k = EXT_CACHE_INTERVAL
+    outer = N // k
+    ask("ext_deepcache", pipe, model, dict(base, cache_interval=k),
+        _ext_plan(model, outer + N - outer * k, n_shallow=outer * (k - 1)), plain)
+    # the hires fix: txt2img at 512², then img2img at 1024² from the
+    # upscaled latents at the hires strength (no encode; one decode)
+    hi_steps = pipe.get_timesteps(model.scheduler, N, EXT_HIRES_STRENGTH, None)[0].num_steps
+    ask("ext_hires_x2", pipe, model,
+        dict(base, height=2 * EXT_RES, width=2 * EXT_RES, hires_scale=2.0,
+             hires_strength=EXT_HIRES_STRENGTH),
+        _add_plans(_ext_plan(model, N, streams=0), _ext_plan(model, hi_steps)))
+
+    # InstructPix2Pix: an 8-channel UNet at timbrooks/instruct-pix2pix's
+    # config over the same towers and VAE; one encode (the mode), one decode
+    cfg8 = dataclasses.replace(SD15_UNET, in_channels=8)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    ip2p = dataclasses.replace(model, unet_config=cfg8, unet=random_module(
+        UNet2DConditionModel, cfg8, torch.device("cuda"), torch.bfloat16, g))
+    ask("ext_ip2p", pipe, ip2p, dict(base, image=_seeded_image(EXT_RES, 9),
+                                     image_guidance_scale=EXT_IP2P_IMAGE_CFG),
+        _ext_plan(ip2p, N, streams=2))
+    del ip2p
+
+    # ControlNet at lllyasviel/control_v11p_sd15_canny's config (the SD1.5
+    # UNet's encoder), written as a folder and loaded
+    t = time.perf_counter()
+    write_controlnet_folder(os.path.join(root, "controlnet"), SD15_UNET, device="cuda", seed=10)
+    model.load_controlnet(root)
+    print(f"controlnet folder written and loaded in {time.perf_counter() - t:.3f} s", flush=True)
+    control = _seeded_image(EXT_RES, 11, edges=True)
+    ask("ext_controlnet", pipe, model, dict(base, control_image=control),
+        _ext_plan(model, N, cn=True), plain)
+
+    # IP-Adapter, standard (ip-adapter_sd15) and Plus (ip-adapter-plus_sd15),
+    # over the ViT-H/14 image encoder
+    t = time.perf_counter()
+    write_image_encoder_folder(os.path.join(root, "image_encoder"), IP_ADAPTER_IMAGE_ENCODER,
+                               device="cuda", seed=12)
+    std = write_ip_adapter_file(os.path.join(root, "ip-adapter_sd15.safetensors"), SD15_UNET,
+                                IP_ADAPTER_IMAGE_ENCODER, seed=13)
+    plus = write_ip_adapter_file(os.path.join(root, "ip-adapter-plus_sd15.safetensors"),
+                                 SD15_UNET, IP_ADAPTER_IMAGE_ENCODER, plus=True, num_tokens=16,
+                                 depth=4, heads=12, dim=768, seed=14)
+    model.load_ip_adapter(std, image_encoder_path=root)
+    print(f"image encoder and IP-Adapter files written and loaded in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    ip_image = _seeded_image(EXT_RES, 15)
+    ask("ext_ip_adapter", pipe, model, dict(base, ip_adapter_image=ip_image),
+        _ext_plan(model, N, ip=True, vision=1), plain)
+    model.load_ip_adapter(plus)
+    ask("ext_ip_adapter_plus", pipe, model, dict(base, ip_adapter_image=ip_image),
+        _ext_plan(model, N, ip=True, vision=2, resampler=2), plain)
+    model.unload_ip_adapter()
+    torch.cuda.empty_cache()
+    t_requests = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    phase_extensions_reference(root)
+    t_reference = time.perf_counter() - t
+    t = time.perf_counter()
+    rows = phase_new_shapes(ask.by_shape, checked, "extensions_sd15")
+    print(json.dumps({"phase39_s": {"requests": t_requests, "reference": t_reference,
+                                    "kernels": time.perf_counter() - t,
+                                    "kernel_cases": len(rows)}}), flush=True)
+    return rows, ask.launches, ask.device_ms, model, root
+
+
+def phase_extensions_sdxl(smi, checked, root):
+    """Phase 40: SDXL at 1024², 20 steps, one request with a ControlNet at
+    diffusers/controlnet-canny-sdxl-1.0's config (the text_time embedding),
+    an IP-Adapter at ip-adapter_sdxl's over the ViT-bigG/14 image encoder,
+    and FreeU at the SDXL defaults; the narrow SDXL model with all three,
+    card against CPU; the kernels at every new shape; the peak memory."""
+    import dataclasses
+
+    import torch
+
+    from stablediffusion_tpu_torch.core.config import IP_ADAPTER_SDXL_IMAGE_ENCODER, SDXL_UNET
+    from stablediffusion_tpu_torch.models.clip_vision import CLIPVisionModel
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_controlnet,
+        random_full_model,
+        random_module,
+        write_controlnet_folder,
+        write_image_encoder_folder,
+        write_ip_adapter_file,
+    )
+
+    model = random_full_model("sdxl", device="cuda", seed=0)
+    xl_root = os.path.join(root, "sdxl")
+    t = time.perf_counter()
+    write_controlnet_folder(os.path.join(xl_root, "controlnet"), SDXL_UNET, device="cuda",
+                            seed=20)
+    model.load_controlnet(xl_root)
+    write_image_encoder_folder(os.path.join(xl_root, "image_encoder"),
+                               IP_ADAPTER_SDXL_IMAGE_ENCODER, device="cuda", seed=21)
+    ip = write_ip_adapter_file(os.path.join(xl_root, "ip-adapter_sdxl.safetensors"), SDXL_UNET,
+                               IP_ADAPTER_SDXL_IMAGE_ENCODER, seed=22)
+    model.load_ip_adapter(ip, image_encoder_path=xl_root)
+    print(f"SDXL ControlNet, ViT-bigG/14 and IP-Adapter files written and loaded in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    pipe = StableDiffusionUnifiedPipeline(device="cuda")
+    counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+    ask = _ExtRequests(smi, counters)
+    torch.cuda.reset_peak_memory_stats()
+    ask("ext_sdxl_controlnet_ip_freeu", pipe, model,
+        dict(prompt=EXT_PROMPT, height=SDXL_RES, width=SDXL_RES, num_inference_steps=SDXL_STEPS,
+             guidance_scale=EXT_CFG, seed=0, freeu=True,
+             control_image=_seeded_image(SDXL_RES, 23, edges=True),
+             ip_adapter_image=_seeded_image(SDXL_RES, 24)),
+        _ext_plan(model, SDXL_STEPS, ip=True, cn=True, vision=1))
+    print(json.dumps({"ext_sdxl_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "card": smi}), flush=True)
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    # the narrow SDXL model of phase 18 with all three, card against CPU
+    cpu = _narrow_sdxl(seed=5)
+    gpu = _to_card(cpu)
+    cpu.controlnet_config = cpu.unet_config
+    cpu.controlnet = random_controlnet(cpu.unet_config, "cpu", torch.float32, seed=25)
+    gpu.controlnet_config, gpu.controlnet = cpu.unet_config, _card_copy(cpu.controlnet)
+    vcfg = dataclasses.replace(IP_ADAPTER_SDXL_IMAGE_ENCODER, num_hidden_layers=2)
+    g = torch.Generator().manual_seed(26)
+    enc = random_module(CLIPVisionModel, vcfg, torch.device("cpu"), torch.float32, g)
+    ip_small = write_ip_adapter_file(os.path.join(xl_root, "narrow_ip.safetensors"),
+                                     cpu.unet_config, vcfg, dtype=torch.float32, seed=27)
+    for m, e in ((cpu, enc), (gpu, _card_copy(enc))):
+        m.image_encoder_config, m.image_encoder = vcfg, e
+        m.load_ip_adapter(ip_small)
+    lat = torch.randn(1, 16, 16, 4, generator=torch.Generator().manual_seed(28))
+    _ext_reference("sdxl_controlnet_ip_freeu", cpu, gpu, dict(
+        prompt="a small red house", num_inference_steps=4, guidance_scale=7.5, seed=1,
+        latents=lat, freeu=True, control_image=_seeded_image(128, 29, edges=True),
+        ip_adapter_image=_seeded_image(64, 30)))
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rows = phase_new_shapes(ask.by_shape, checked, "extensions_sdxl")
+    print(json.dumps({"phase40_kernels_s": time.perf_counter() - t,
+                      "kernel_cases": len(rows)}), flush=True)
+    return rows, ask.launches, ask.device_ms
+
+
+def phase_extension_serving(smi, model, root):
+    """Phase 41: serving and the adapter lifecycle on phase 39's SD1.5
+    model (its ControlNet loaded in the program, as JAX has no request key
+    for it), over HTTP to the worker's server on 127.0.0.1: a model block
+    naming an IP-Adapter file with a base64 ``ip_adapter_image`` (first
+    without an image encoder, answered on the error channel as JAX's
+    handler does, then with one loaded in the program), a base64
+    ``control_image``, and phase 38's UI payload with FreeU, PAG and the
+    hires fix; then ``load_ip_adapter``, ``load_loras`` + ``set_adapters``,
+    ``quantize("w8")`` (the IP linears int8 exactly where JAX's plan puts
+    them), ``quantize(None)``, ``delete_adapters``, ``unload_ip_adapter``:
+    every UNet tensor bit for bit as before.  Returns the launches by
+    request."""
+    import base64
+    import io
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stablediffusion_tpu_torch.lora.formats import save_lora_file
+    from stablediffusion_tpu_torch.models.ip_adapter import cross_attn_paths
+    from stablediffusion_tpu_torch.ops.attention import FLASH_FWD_LAUNCHES
+    from stablediffusion_tpu_torch.ops.flash_attention import FLASH_STREAM_LAUNCHES
+    from stablediffusion_tpu_torch.ops.quant import DEFAULT_SKIP_KEYS, Int8Linear
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.serve.handler import Handler
+    from stablediffusion_tpu_torch.serve.webapp import build_ui_request
+    from stablediffusion_tpu_torch.serve.worker import make_server
+    from stablediffusion_tpu_torch.utils.testing import random_lora
+
+    def b64(img01):
+        buf = io.BytesIO()
+        Image.fromarray((img01 * 255).round().astype(np.uint8)).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    counters = {"flash_fwd": FLASH_FWD_LAUNCHES, "flash_stream": FLASH_STREAM_LAUNCHES}
+    N = EXT_STEPS
+    req = dict(prompt=EXT_PROMPT, height=EXT_RES, width=EXT_RES, num_inference_steps=N,
+               guidance_scale=EXT_CFG, seed=31)
+    encoder = (model.image_encoder_config, model.image_encoder)
+    model.image_encoder_config = model.image_encoder = None
+    server = make_server(Handler(model=model, model_dir=root), "127.0.0.1", 0, max_batch=1)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    launches = {}
+    try:
+        port = server.server_address[1]
+        ip_req = dict(req, model={"ip_adapter": "ip-adapter_sd15.safetensors"},
+                      ip_adapter_image=b64(_seeded_image(EXT_RES, 15)))
+        reply, _ = _ask(port, counters, smi, "ext_serve_ip_adapter_no_encoder", ip_req, None)
+        print(json.dumps({"ext_serve_no_encoder_error": reply.get("error"),
+                          "as_jax": "handler.py:240 loads no image encoder; "
+                                    "unified.py:726-729 raises"}), flush=True)
+        if "no image encoder loaded" not in str(reply.get("error")):
+            raise AssertionError(f"without an image encoder: {reply}")
+        model.image_encoder_config, model.image_encoder = encoder
+        want, _ = _ext_plan(model, N, ip=True, vision=1)
+        _, row = _ask(port, counters, smi, "ext_serve_ip_adapter", ip_req, want)
+        launches["ext_serve_ip_adapter"] = row["launches"]
+        cn_req = dict(req, control_image=b64(_seeded_image(EXT_RES, 11, edges=True)))
+        want, _ = _ext_plan(model, N, cn=True)
+        _, row = _ask(port, counters, smi, "ext_serve_controlnet", cn_req, want)
+        launches["ext_serve_controlnet"] = row["launches"]
+        ui = build_ui_request("txt2img", EXT_PROMPT, steps=N, cfg=EXT_CFG, seed=32,
+                              width=2 * EXT_RES, height=2 * EXT_RES, scheduler="DDIM",
+                              freeu=True, pag_scale=EXT_PAG, hires_scale=2.0)
+        hi = StableDiffusionUnifiedPipeline(device="cuda").get_timesteps(
+            model.scheduler, N, ui["hires_strength"], None)[0].num_steps
+        want, _ = _add_plans(_ext_plan(model, N, pag=("mid",), streams=0),
+                             _ext_plan(model, hi, pag=("mid",)))
+        _, row = _ask(port, counters, smi, "ext_serve_ui_freeu_pag_hires", ui, want)
+        launches["ext_serve_ui_freeu_pag_hires"] = row["launches"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+
+    # the lifecycle
+    model.unload_ip_adapter()
+    before = {k: v.clone() for k, v in model.unet.state_dict().items()}
+    model.load_ip_adapter(os.path.join(root, "ip-adapter_sd15.safetensors"))
+    factors = random_lora(model.unet, ("to_q", "to_k", "to_v", "to_out.0"), rank=8, seed=33)
+    save_lora_file({"unet": factors}, os.path.join(root, "sd15_ext.safetensors"))
+    model.load_loras({"ext": 0.8}, lora_dir=root)
+    model.quantize("w8")
+    # JAX's plan (ops/quant.quantize_params over the IP-fused base): a linear
+    # of at least quant_min_size elements whose path holds no skip key
+    ip_paths = [f"{'.'.join(p)}.{n}" for p in cross_attn_paths(model.unet_config)
+                for n in ("to_k_ip", "to_v_ip")]
+    jax_int8 = {p for p in ip_paths if not any(s in p for s in DEFAULT_SKIP_KEYS)
+                and model._fp_modules[p].weight.numel() >= model.quant_min_size}
+    got_int8 = {p for p in ip_paths if isinstance(model.unet.get_submodule(p), Int8Linear)}
+    model.quantize(None)
+    model.delete_adapters()
+    model.unload_ip_adapter()
+    after = model.unet.state_dict()
+    restored = sorted(after) == sorted(before) and all(torch.equal(after[k], v)
+                                                       for k, v in before.items())
+    print(json.dumps({"ext_lifecycle": "load_ip_adapter, load_loras, quantize w8, "
+                      "quantize None, delete_adapters, unload_ip_adapter",
+                      "ip_linears": len(ip_paths), "int8_under_w8": len(got_int8),
+                      "int8_where_jax_plans": got_int8 == jax_int8,
+                      "unet_bit_for_bit": restored, "card": smi}), flush=True)
+    if got_int8 != jax_int8 or not jax_int8:
+        raise AssertionError(f"IP linears int8 {len(got_int8)}, JAX's plan {len(jax_int8)}")
+    if not restored:
+        raise AssertionError("the lifecycle did not give the UNet back bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4224,6 +4818,24 @@ def main() -> int:
                     **phase_front_doors(smi, int8_root, int8_name, sd15)}
     del sd15
     torch.cuda.empty_cache()
+
+    # the pipeline extensions: SD1.5 (39), SDXL (40), serving and the
+    # adapter lifecycle (41)
+    t_ext = time.perf_counter()
+    ext_rows, ext_launches, ext_ms, ext_model, ext_root = phase_extensions_sd15(smi, checked)
+    rows += ext_rows
+    xl_rows, xl_launches, xl_ms = phase_extensions_sdxl(smi, checked, ext_root)
+    rows += xl_rows
+    ext_launches.update(xl_launches)
+    ext_launches.update(phase_extension_serving(smi, ext_model, ext_root))
+    del ext_model
+    torch.cuda.empty_cache()
+    ms = {**ext_ms, **xl_ms}
+    print(json.dumps({"extension_device_ms": ms,
+                      "against_plain": {k: v - ms["ext_plain"] for k, v in ms.items()
+                                        if not k.startswith("ext_sdxl")},
+                      "phases_39_41_s": time.perf_counter() - t_ext, "card": smi}), flush=True)
+    serving_rest.update(ext_launches)
     # the masked route (T5's position bias) is no kernel: its count by path
     print(json.dumps({"attention_masked_launches_by_path": {
         p: n.get("attention_masked", 0) for p, n in sd3_launches.items()},

@@ -86,6 +86,64 @@ def tiny_clip_config(with_projection: bool = False) -> CLIPTextConfig:
 
 
 @dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT vision tower (transformers CLIPVisionModel[WithProjection]),
+    the IP-Adapter image encoder (``config.py:101``); the defaults are
+    h94/IP-Adapter's ``models/image_encoder``, OpenCLIP ViT-H/14."""
+
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    num_channels: int = 3
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 1024
+    with_projection: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def num_positions(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    @classmethod
+    def from_diffusers_dict(cls, d: dict) -> "CLIPVisionConfig":
+        archs = d.get("architectures") or []
+        return cls(
+            hidden_size=d.get("hidden_size", 1280),
+            intermediate_size=d.get("intermediate_size", 5120),
+            num_hidden_layers=d.get("num_hidden_layers", 32),
+            num_attention_heads=d.get("num_attention_heads", 16),
+            image_size=d.get("image_size", 224),
+            patch_size=d.get("patch_size", 14),
+            num_channels=d.get("num_channels", 3),
+            hidden_act=d.get("hidden_act", "gelu"),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+            projection_dim=d.get("projection_dim", 1024),
+            with_projection="CLIPVisionModelWithProjection" in archs if archs else True,
+        )
+
+
+# h94/IP-Adapter models/image_encoder (ViT-H/14) and sdxl_models/image_encoder
+# (ViT-bigG/14)
+IP_ADAPTER_IMAGE_ENCODER = CLIPVisionConfig()
+IP_ADAPTER_SDXL_IMAGE_ENCODER = CLIPVisionConfig(
+    hidden_size=1664, intermediate_size=8192, num_hidden_layers=48,
+    num_attention_heads=16, projection_dim=1280)
+
+
+def tiny_clip_vision_config(with_projection: bool = True) -> CLIPVisionConfig:
+    return CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, image_size=32, patch_size=8,
+                            projection_dim=24, with_projection=with_projection)
+
+
+@dataclass(frozen=True)
 class VAEConfig:
     """AutoencoderKL."""
 

@@ -8,8 +8,11 @@ rule (:28-36), so that ``time_embedding.linear_1`` is still transposed.  The
 rule covers every tree of the port's modules: CLIP, the UNet and the VAE,
 the MM-DiT (its HWIO patch kernel ``pos_embed.proj.weight``, and
 ``pos_embed.pos_embed``, a [1, positions, dim] table that is no weight and
-keeps its layout) and T5 (the ``shared`` and ``relative_attention_bias``
-tables).
+keeps its layout), T5 (the ``shared`` and ``relative_attention_bias``
+tables), the ControlNet (HWIO convolutions, the trunk's UNet keys), the CLIP
+vision tower (its HWIO patch kernel; ``class_embedding`` a vector and
+``position_embedding`` a table, both as they are) and the IP-Adapter's image
+projection (the Resampler's ``latents`` [1, queries, dim], no weight).
 
 An int8 layer of a quantized tree (JAX ``ops/quant.quantize_params``)
 carries ``weight_int8`` in the HWIO or (in, out) layout with a ``w8_scale``

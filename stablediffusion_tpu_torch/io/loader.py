@@ -8,8 +8,11 @@ the fp16 variant first, sharded indexes), ``load_component_state`` (:187),
 ``tokenizer_2/``, whose pad token comes from its special_tokens_map),
 ``load_sd3_model`` (:360; ``text_encoder_3/`` and ``tokenizer_3/``
 optional), ``save_sd_model`` (:497) and ``save_sd3_model`` (:560) with their
-``quantize=`` (``_check_fp_save`` :471, ``_quantized_tree`` :481), and the
-config writers (:649-680).  The SDXL
+``quantize=`` (``_check_fp_save`` :471, ``_quantized_tree`` :481),
+``save_controlnet`` (:631) and the config writers (:649-680).  A ControlNet
+folder (``load_controlnet``, JAX ``models/wrapper.py:117``) and an IP-Adapter
+``image_encoder`` folder (``load_image_encoder``, JAX ``wrapper.py:376``)
+load here too; ``save_image_encoder`` writes the latter.  The SDXL
 refiner's folder is read by :func:`load_unet` (``SDModel.load_refiner``).
 A1111/LDM single files load through :func:`load_sd_single_file` (:75-161, with ``io/convert_cli.
 load_single_file`` :16-27), which converts them in memory with the port's
@@ -48,6 +51,7 @@ from torch import nn
 
 from stablediffusion_tpu_torch.core.config import (
     CLIPTextConfig,
+    CLIPVisionConfig,
     SchedulerConfig,
     SD3Config,
     UNetConfig,
@@ -629,6 +633,47 @@ def save_sd3_model(model: SD3Model, path: str, variant: Optional[str] = None,
         index["_sdtpu_quant"] = quantize
     with open(os.path.join(path, "model_index.json"), "w") as f:
         json.dump(index, f)
+
+
+def load_controlnet(path: str, device: torch.device, dtype: torch.dtype):
+    """(config, module) of a diffusers-layout ControlNet folder, `path` or
+    its ``controlnet/`` subfolder, on `device` in `dtype`."""
+    from stablediffusion_tpu_torch.models.controlnet import ControlNetModel
+
+    if not os.path.exists(os.path.join(path, "config.json")):
+        path = os.path.join(path, "controlnet")
+    cfg = UNetConfig.from_diffusers_dict(_read_json(os.path.join(path, "config.json")))
+    return cfg, _load_component(path, ControlNetModel, cfg, device, dtype)
+
+
+def save_controlnet(controlnet: nn.Module, config: UNetConfig, path: str) -> None:
+    """Write a diffusers-layout ControlNet folder (ControlNetModel's
+    save_pretrained layout): the state dict in its dtypes and config.json,
+    which :func:`load_controlnet` and the JAX package's ``load_controlnet``
+    read back."""
+    cfg = _unet_cfg_dict(config)
+    cfg["_class_name"] = "ControlNetModel"
+    _dump_component(path, "", controlnet, cfg)
+
+
+def load_image_encoder(path: str, device: torch.device, dtype: torch.dtype):
+    """(config, module) of a transformers-layout CLIP vision folder, `path`
+    or its ``image_encoder/`` subfolder, on `device` in `dtype`."""
+    from stablediffusion_tpu_torch.models.clip_vision import CLIPVisionModel
+
+    if os.path.isdir(os.path.join(path, "image_encoder")):
+        path = os.path.join(path, "image_encoder")
+    cfg = CLIPVisionConfig.from_diffusers_dict(_read_json(os.path.join(path, "config.json")))
+    return cfg, _load_component(path, CLIPVisionModel, cfg, device, dtype)
+
+
+def save_image_encoder(encoder: nn.Module, config: CLIPVisionConfig, path: str) -> None:
+    """Write an ``image_encoder`` folder: ``model.safetensors`` and a
+    transformers config.json."""
+    cfg = dataclasses.asdict(config)
+    cfg["architectures"] = ["CLIPVisionModelWithProjection" if config.with_projection
+                            else "CLIPVisionModel"]
+    _dump_component(path, "", encoder, cfg, fname="model")
 
 
 def _unet_cfg_dict(c: UNetConfig) -> dict:

@@ -39,9 +39,12 @@ class CLIPTextOutput:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """Causal for the text tower; the vision tower's takes `causal=False`."""
+
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
         H = cfg.hidden_size
+        self.causal = causal
         self.heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
         self.q_proj = nn.Linear(H, H)
         self.k_proj = nn.Linear(H, H)
@@ -54,7 +57,7 @@ class CLIPAttention(nn.Module):
         q = lin(self.q_proj, x).reshape(shape)
         k = lin(self.k_proj, x).reshape(shape)
         v = lin(self.v_proj, x).reshape(shape)
-        out = attention(q, k, v, causal=True)
+        out = attention(q, k, v, causal=self.causal)
         return lin(self.out_proj, out.reshape(B, S, H))
 
 
@@ -70,9 +73,9 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, causal: bool = True):
         super().__init__()
-        self.self_attn = CLIPAttention(cfg)
+        self.self_attn = CLIPAttention(cfg, causal)
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)

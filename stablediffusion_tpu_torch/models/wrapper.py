@@ -2,7 +2,9 @@
 
 Port of ``stablediffusion_tpu/models/wrapper.py``: the holder (:29-85), its
 ``reload`` (:87-115), ``load_refiner`` (:132-152), textual inversion
-(:194-374) and the LoRA adapter lifecycle (:460-561).  The JAX holder pairs
+(:194-374), the LoRA adapter lifecycle (:460-561), the ControlNet
+(``load_controlnet`` :117) and IP-Adapter with its image encoder
+(``load_ip_adapter`` :156-192, ``load_image_encoder`` :376).  The JAX holder pairs
 configs with param trees; here it pairs them with ``nn.Module``s, all on
 one device.  SDXL is told by the presence of the second text tower
 (``text_encoder_2``, bigG, with its ``tokenizer_2``); an SDXL model may also
@@ -21,9 +23,15 @@ modules they replaced, which hold the fused weights: fusion and
 ``quantize(None)`` swap them back first.  A model loaded from an int8
 folder holds no floating-point tower (``quant_frozen``): it refuses fusion
 and re-quantization.  Textual inversion appends rows to the token-embedding
-tables, which no adapter touches, so re-fusing keeps them.  IP-Adapter and
-ControlNet are absent (ROADMAP §1 item 15), so the serving handler's
-``hasattr`` guards answer "not supported" as they do for the JAX package.
+tables, which no adapter touches, so re-fusing keeps them.
+
+An IP-Adapter's ``to_k_ip`` / ``to_v_ip`` are linears added to the UNet's
+cross-attentions (``models/ip_adapter.fuse_ip_weights``) inside the same
+lifecycle: LoRA fusion leaves them as they are, ``quantize`` plans them as
+JAX's ``_maybe_quantize`` plans its IP-fused base (by path and size), and
+``unload_ip_adapter`` removes them, which gives back the UNet's modules and
+tensors as they were.  The ControlNet is held in the UNet's dtype, the image
+encoder in fp32 as the text towers; JAX keeps each file's stored dtypes.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from torch import nn
 
 from stablediffusion_tpu_torch.core.config import (
     CLIPTextConfig,
+    CLIPVisionConfig,
     SchedulerConfig,
     UNetConfig,
     VAEConfig,
@@ -231,12 +240,21 @@ class SDModel(AdapterHolder):
     # the SDXL refiner's UNet, loaded on demand (load_refiner)
     refiner_config: Optional[UNetConfig] = None
     refiner: Optional[UNet2DConditionModel] = None
+    # ControlNet (load_controlnet), IP-Adapter (load_ip_adapter: its image
+    # projection, a models/ip_adapter.IPAdapter) and the image encoder
+    controlnet_config: Optional[UNetConfig] = None
+    controlnet: Optional[nn.Module] = None
+    ip_adapter: Optional[Any] = None
+    ip_scale: float = 1.0
+    image_encoder_config: Optional[CLIPVisionConfig] = None
+    image_encoder: Optional[nn.Module] = None
     _scheduler: Optional[Any] = field(default=None, repr=False)
     # textual inversion: each table's original row count, trigger -> towers
     _ti_state: Optional[Dict[str, Any]] = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        modules = (self.unet, self.vae, self.text_encoder, self.text_encoder_2, self.refiner)
+        modules = (self.unet, self.vae, self.text_encoder, self.text_encoder_2, self.refiner,
+                   self.controlnet, self.image_encoder)
         devices = {p.device for m in modules if m is not None for p in m.parameters()}
         if len(devices) != 1:
             raise ValueError(f"SDModel modules span devices {sorted(map(str, devices))}")
@@ -279,6 +297,59 @@ class SDModel(AdapterHolder):
             path = resolve_checkpoint(self.model_type, "refiner")
         dtype = next(self.unet.parameters()).dtype
         self.refiner_config, self.refiner = load_unet(path, self.device, dtype)
+
+    def load_controlnet(self, path: str) -> None:
+        """Load a diffusers-layout ControlNet folder (`path`, or its
+        ``controlnet/`` subfolder) onto the model's device in the UNet's
+        dtype."""
+        from stablediffusion_tpu_torch.io.loader import load_controlnet
+
+        dtype = next(self.unet.parameters()).dtype
+        self.controlnet_config, self.controlnet = load_controlnet(path, self.device, dtype)
+
+    # -- IP-Adapter (wrapper.py:156-192, :376) --------------------------------
+    def load_ip_adapter(self, path: str, image_encoder_path: Optional[str] = None) -> None:
+        """Load an IP-Adapter checkpoint (.safetensors or .bin with
+        ``image_proj`` and ``ip_adapter`` groups): its image projection on
+        the model's device and its decoupled cross-attention projections
+        added to the UNet, both in the UNet's dtype; the fused LoRAs stay and
+        the UNet is quantized again at the model's mode.  A loaded adapter
+        is replaced."""
+        from stablediffusion_tpu_torch.models.ip_adapter import (
+            IPAdapter,
+            fuse_ip_weights,
+            strip_ip_weights,
+        )
+
+        dtype = next(self.unet.parameters()).dtype
+        adapter, ip_sd = IPAdapter.load(path, self.device, dtype)
+        with self._fp_tower():
+            strip_ip_weights(self.unet)
+            fuse_ip_weights(self.unet, self.unet_config, ip_sd)
+        self.ip_adapter = adapter
+        if image_encoder_path is not None:
+            self.load_image_encoder(image_encoder_path)
+
+    def set_ip_adapter_scale(self, scale: float) -> None:
+        self.ip_scale = float(scale)
+
+    def unload_ip_adapter(self) -> None:
+        """Remove the IP-Adapter's projections from the UNet (quantized
+        again at the model's mode) and drop its image projection."""
+        from stablediffusion_tpu_torch.models.ip_adapter import strip_ip_weights
+
+        with self._fp_tower():
+            strip_ip_weights(self.unet)
+        self.ip_adapter = None
+
+    def load_image_encoder(self, path: str) -> None:
+        """Load a CLIP vision tower (a transformers-layout ``image_encoder``
+        folder, or the folder holding one) onto the model's device in
+        fp32."""
+        from stablediffusion_tpu_torch.io.loader import load_image_encoder
+
+        self.image_encoder_config, self.image_encoder = load_image_encoder(
+            path, self.device, torch.float32)
 
     def reload(self) -> "SDModel":
         """Re-read the checkpoint this model came from (a folder or a single

@@ -24,8 +24,14 @@ depends on its own seed only; parity tests inject the JAX draws through
 LoRA adapters go on the MM-DiT and both CLIP towers, never on T5, and int8
 quantization on the MM-DiT (:98-255), through the lifecycle ``SDModel``
 shares (``models/wrapper.AdapterHolder``); LoRA files resolve as
-``{lora_dir}/sd3_{name}.safetensors``.  Not ported here: prompt weighting,
-which raises and names ROADMAP §1 item 15.
+``{lora_dir}/sd3_{name}.safetensors``.
+
+``prompt_weighting`` (:400-450, :556-590) weights the CLIP towers' tokens
+(one 77-token window each; T5 reads the text without the markup) and turns
+on ``[from:to:when]`` / ``[a|b]`` prompt editing: the embeddings of the
+unique realised prompts are stacked and the loop picks one by step, the
+boundaries shifted by img2img's skipped steps; pooled embeds stay at the
+first variant.
 """
 
 from __future__ import annotations
@@ -62,15 +68,14 @@ from stablediffusion_tpu_torch.pipelines.unified import (
     StableDiffusionUnifiedPipeline,
     _Draws,
     clip_encode,
+    embeds_at,
     to_nchw,
 )
 from stablediffusion_tpu_torch.schedulers import make_scheduler
 from stablediffusion_tpu_torch.schedulers.common import Plan, resolve_custom_schedule
 from stablediffusion_tpu_torch.utils import images as img_utils
-
-
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet, it comes with ROADMAP §1 item {item}")
+from stablediffusion_tpu_torch.utils import prompt_edit as pe
+from stablediffusion_tpu_torch.utils import prompt_weights as pw
 
 
 @dataclass
@@ -177,10 +182,12 @@ class StableDiffusion3Pipeline:
         do_cfg: bool = True,
         max_sequence_length: int = 256,
         clip_skip: Optional[int] = None,
+        prompt_weighting: bool = False,
     ):
         """-> (embeds [B*n, 77 + max_sequence_length, joint_dim], neg_embeds,
         pooled [B*n, P1 + P2], neg_pooled), the negatives None without
-        CFG."""
+        CFG.  `prompt_weighting` weights the CLIP tokens and hands T5 the
+        text without the markup."""
         prompt = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompt)
 
@@ -189,14 +196,25 @@ class StableDiffusion3Pipeline:
             p = [p] if isinstance(p, str) else list(p)
             return p * B if len(p) == 1 and B > 1 else p
 
+        def clip_embed(texts, tok, encoder):
+            ids = weights = None
+            if prompt_weighting:
+                ids, w = pw.encode_with_weights(tok, texts)
+                weights = w if (w != 1.0).any() else None
+            h, pooled = clip_encode(tok, encoder, texts, "penultimate", self.device,
+                                    clip_skip or 0, ids=ids)
+            if weights is not None:
+                h = pw.apply_token_weights(h, weights)
+            return h, pooled
+
         def encode_all(p1, p2, p3):
-            h1, pool1 = clip_encode(model.tokenizer, model.text_encoder, p1, "penultimate",
-                                    self.device, clip_skip or 0)
-            h2, pool2 = clip_encode(model.tokenizer_2, model.text_encoder_2, p2,
-                                    "penultimate", self.device, clip_skip or 0)
+            h1, pool1 = clip_embed(p1, model.tokenizer, model.text_encoder)
+            h2, pool2 = clip_embed(p2, model.tokenizer_2, model.text_encoder_2)
             clip_h = torch.cat([h1, h2.to(h1.dtype)], dim=-1)
             clip_h = F.pad(clip_h, (0, model.joint_dim - clip_h.shape[-1]))
             if model.text_encoder_3 is not None:
+                if prompt_weighting:  # T5 takes no token weights
+                    p3 = [pw.strip_weight_markup(t) for t in p3]
                 ids = np.asarray(model.tokenizer_3(p3, max_length=max_sequence_length))
                 t5_h = model.text_encoder_3(torch.from_numpy(ids).long().to(self.device))
             else:  # T5 dropped: zeros, as diffusers does
@@ -227,20 +245,22 @@ class StableDiffusion3Pipeline:
         return normalize_latents(z, model.vae_config)
 
     @torch.no_grad()
-    def _denoise(self, model: SD3Model, latents: torch.Tensor, embeds: torch.Tensor,
+    def _denoise(self, model: SD3Model, latents: torch.Tensor, embeds,
                  pooled: torch.Tensor, plan: Plan, draws: _Draws, guidance_scale: float,
                  do_cfg: bool, mask: Optional[torch.Tensor] = None,
                  image_latents: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The flow-match loop (sd3.py:262-320): CFG batch order [uncond |
         text], the guidance combine in fp32; with a mask, the kept region
-        follows the image re-noised to the next step's sigma."""
+        follows the image re-noised to the next step's sigma.  Under prompt
+        editing `embeds` is a (stack, starts, idx_map) triple, the starts in
+        local step units."""
         scheduler = model.scheduler
         N = plan.num_steps
         state = scheduler.init_state(plan, latents.shape, latents.device)
         for i in range(N):
             x = torch.cat([latents, latents]) if do_cfg else latents
-            pred = model.transformer(x, plan.timesteps[i], embeds, pooled)
+            pred = model.transformer(x, plan.timesteps[i], embeds_at(embeds, i), pooled)
             if do_cfg:
                 uncond, text = pred.float().chunk(2)
                 pred = uncond + guidance_scale * (text - uncond)
@@ -293,8 +313,6 @@ class StableDiffusion3Pipeline:
         "latents" (the initial latents, or the noise added to the image),
         "encode" (the VAE encode's sampling noise), "steps" for a scheduler
         that draws step noise) in place of the generators."""
-        if prompt_weighting:
-            raise _later("prompt_weighting", 15)
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, pipeline on {self.device}")
         if prompt is None:
@@ -317,14 +335,35 @@ class StableDiffusion3Pipeline:
             seed = int(np.random.randint(0, 2**31 - 1))
         rng = _Draws(seed, self.device, draws)
 
+        # prompt editing and alternation: the unique realised prompts, each
+        # encoded once (fixed-length embeds, so no chunk floor)
+        edit_starts = edit_uniq = edit_idx_map = None
+        enc_prompt = prompt
+        if prompt_weighting:
+            texts = [prompt] if isinstance(prompt, str) else list(prompt)
+            merged = pe.schedule_prompts(texts, num_inference_steps)
+            if merged is not None and len(merged[0]) > 1:
+                edit_starts = merged[0]
+                edit_uniq, edit_idx_map = pe.unique_variants(merged[1])
+                enc_prompt = edit_uniq[0]
+            elif merged is not None:
+                enc_prompt = merged[1][0]
+        enc = dict(num_images_per_prompt=n, max_sequence_length=max_sequence_length,
+                   clip_skip=clip_skip, prompt_weighting=prompt_weighting)
         embeds, neg_embeds, pooled, neg_pooled = self.encode_prompt(
-            model, prompt, prompt_2, prompt_3, negative_prompt, negative_prompt_2,
-            negative_prompt_3, num_images_per_prompt=n, do_cfg=do_cfg,
-            max_sequence_length=max_sequence_length, clip_skip=clip_skip)
+            model, enc_prompt, prompt_2, prompt_3, negative_prompt, negative_prompt_2,
+            negative_prompt_3, do_cfg=do_cfg, **enc)
         if do_cfg:
             embeds = torch.cat([neg_embeds, embeds])
             pooled = torch.cat([neg_pooled, pooled])
         embeds, pooled = embeds.to(self.dtype), pooled.to(self.dtype)
+        if edit_starts is not None:
+            full = [embeds]
+            for v in edit_uniq[1:]:
+                e = self.encode_prompt(model, v, prompt_2, prompt_3, None, None, None,
+                                       do_cfg=False, **enc)[0].to(self.dtype)
+                full.append(torch.cat([neg_embeds.to(self.dtype), e]) if do_cfg else e)
+            embeds = (torch.stack(full), list(edit_starts), list(edit_idx_map))
 
         lat_c = model.vae_config.latent_channels
         if mask_image is not None and image is None:
@@ -341,6 +380,8 @@ class StableDiffusion3Pipeline:
                 latents = to_nchw(latents, lat_c, self.device).float()
         else:
             t_start = min(max(int(plan.num_steps * (1.0 - strength)), 0), plan.num_steps - 1)
+            if isinstance(embeds, tuple):  # edit boundaries in the sliced plan's steps
+                embeds = (embeds[0], [s0 - t_start for s0 in embeds[1]], embeds[2])
             plan = StableDiffusionUnifiedPipeline._slice_plan(plan, t_start)
             pixels = img_utils.preprocess_image(image, height, width)
             init_lat = self._vae_encode(model, pixels, rng, vae_tiling)

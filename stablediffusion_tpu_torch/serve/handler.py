@@ -7,7 +7,7 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
     restores the adapters' own scales after; the third trains a LoRA on the
     loaded model through ``train/trainer.SDLoRATrainer``);
   * an optional model block {type, name, scheduler, prediction_type, loras,
-    textual_inversion, quantize}:
+    textual_inversion, ip_adapter, quantize}:
     - ``name`` hot-reloads the model from the diffusers folder
       ``{type}_{name}`` under the model dir (type "sd15", "sdxl" or "sd3";
       with no type and no model loaded, "sdxl", as in JAX), or from the
@@ -20,6 +20,10 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
       empty value clears them;
     - ``textual_inversion`` is declarative: the list is the state (.pt
       files load with ``weights_only=True`` only);
+    - ``ip_adapter`` names an IP-Adapter file (a path, or one under the
+      model dir) that ``load_ip_adapter`` loads without an image encoder, as
+      JAX's handler does (``handler.py:225-242``); a falsy value unloads it;
+      an SD3 model refuses a file;
     - ``quantize`` ("auto" | "w8" | "w8a8" | "w8a8:N" | null) is
       declarative too: "auto" resolves against ``expected_batch`` (the
       worker sets it to its batcher's max_batch), and a request that names
@@ -32,7 +36,8 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
     its ``__call__`` does not take are dropped with a warning
     (``handler.py:352-368``), so an SDXL payload still serves;
   * `params` merge into the top-level arguments; a seed is drawn when absent
-    and echoed;
+    and echoed; ``image``, ``mask_image``, ``control_image`` and
+    ``ip_adapter_image`` given as base64 strings are decoded;
   * images come back as base64 JPEG, or as URLs through an upload sink;
   * every failure answers on the error channel ({"error", "traceback"}).
 
@@ -41,10 +46,9 @@ item: the "inference_wandb" mode (item 21) and a serving mesh (item 20); in
 the "train" mode, the trainer's options that ``train/trainer.check_args``
 refuses (item 20).  The "train" mode trains SD1.5 and SDXL models, as the
 JAX handler's does: an SD3 model is refused, with a pointer to
-``train/sd3_train.SD3LoRATrainer``.  The models have no
-``load_ip_adapter``, and an SD3 model no ``load_textual_inversion``, so
-those keys answer "not supported", as they do for JAX model types without
-them.
+``train/sd3_train.SD3LoRATrainer``.  An SD3 model has no
+``load_ip_adapter`` or ``load_textual_inversion``, so those keys answer "not
+supported", as they do in JAX.
 """
 
 from __future__ import annotations
@@ -229,9 +233,18 @@ class Handler:
                     src = os.path.join(self.model_dir, src)
                 self.model.load_textual_inversion(
                     src, token=ti.get("token") if isinstance(ti, dict) else None)
-        if model_cfg.get("ip_adapter") and not hasattr(self.model, "load_ip_adapter"):
-            raise ValueError(f"ip_adapter is not supported for model type "
-                             f"{self.model.model_type!r} (ROADMAP §1 item 15)")
+        if "ip_adapter" in model_cfg:
+            ip = model_cfg["ip_adapter"]
+            if not hasattr(self.model, "load_ip_adapter"):  # SD3; clearing is a no-op
+                if ip:
+                    raise ValueError(f"ip_adapter is not supported for model type "
+                                     f"{self.model.model_type!r}")
+            elif ip:
+                path = ip if os.path.exists(str(ip)) else os.path.join(self.model_dir or ".",
+                                                                         str(ip))
+                self.model.load_ip_adapter(path)
+            else:
+                self.model.unload_ip_adapter()
         if "quantize" in model_cfg:
             # resolved here, so that a client sending "auto" with every
             # request compares concrete modes and quantizes once
@@ -279,7 +292,7 @@ class Handler:
     def _generate(self, args: Dict[str, Any], output_type: str = "uint8"):
         """One pipeline call.  "uint8" quantizes on the card and copies; the
         batcher passes "uint8_device" to copy on its postprocess thread."""
-        for key in ("image", "mask_image"):
+        for key in ("image", "mask_image", "control_image", "ip_adapter_image"):
             if isinstance(args.get(key), str):
                 args = dict(args, **{key: decode_image_b64(args[key])})
         if self.model.model_type == "sd3":

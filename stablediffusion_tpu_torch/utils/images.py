@@ -4,7 +4,8 @@ Port of ``stablediffusion_tpu/utils/images.py:25-231``: the
 VaeImageProcessor analogues (``preprocess_image`` to NHWC in [-1, 1],
 ``preprocess_mask`` to a binarized one-channel NHWC mask), the
 ``padding_mask_crop`` helpers (``get_crop_region``, ``apply_overlay``), the
-[-1, 1] -> [0, 1] / uint8 conversions, and ``postprocess_uint8_device``, which
+[-1, 1] -> [0, 1] / uint8 conversions, ``clip_image_preprocess`` (the image
+encoder's input), and ``postprocess_uint8_device``, which
 quantizes to uint8 on the tensor's device (on the card, so the host fetches a
 quarter of the bytes).  Host-side numpy, with PIL's bilinear resize where
 PIL is installed, as in the JAX package.
@@ -81,6 +82,33 @@ def preprocess_image(image: ImageLike, height: int, width: int) -> np.ndarray:
         batch = np.repeat(batch, 3, axis=-1)
     batch = _resize(batch, height, width)
     return batch * 2.0 - 1.0
+
+
+CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def clip_image_preprocess(image: ImageLike, size: int = 224) -> np.ndarray:
+    """-> float32 NHWC, CLIP-normalised: the image encoder's input for
+    IP-Adapter (``images.py:88``).  The shortest side is resized to `size`,
+    then the centre is cropped to size x size, as CLIPImageProcessor does."""
+    batch = _to_numpy_batch(image)
+    if batch.shape[-1] == 4:
+        batch = batch[..., :3]
+    if batch.shape[-1] == 1:
+        batch = np.repeat(batch, 3, axis=-1)
+    h, w = batch.shape[1:3]
+    if h != w:
+        if h < w:
+            nh, nw = size, max(size, round(w * size / h))
+        else:
+            nh, nw = max(size, round(h * size / w)), size
+        batch = _resize(batch, nh, nw)
+        top, left = (nh - size) // 2, (nw - size) // 2
+        batch = batch[:, top : top + size, left : left + size]
+    else:
+        batch = _resize(batch, size, size)  # [0, 1]
+    return (batch - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD
 
 
 def preprocess_mask(mask: ImageLike, height: int, width: int) -> np.ndarray:

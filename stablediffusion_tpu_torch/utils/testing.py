@@ -13,7 +13,11 @@ paths: seeded random LoRA factors (``random_lora``, saved by
 embeddings (``random_textual_inversion``), and an A1111/LDM single-file
 writer (``ldm_state_dict``, ``save_ldm_single_file``), the inverse of
 ``io/a1111``'s UNet, VAE and CLIP-L mapping (as the JAX tests' inverse,
-``tests/test_a1111.py:42-140``).  The values follow ``random_params_like`` — 1-D
+``tests/test_a1111.py:42-140``), and seeded writers of a ControlNet folder
+(``write_controlnet_folder``), an IP-Adapter ``.safetensors``
+(``write_ip_adapter_file``: ``image_proj.*`` and ``ip_adapter.*``, standard
+or Plus) and an ``image_encoder`` folder (``write_image_encoder_folder``),
+which the loaders read back.  The values follow ``random_params_like`` — 1-D
 parameters (norm scales, biases) are ones, the rest normal with std
 min(0.02, fan_in**-0.5) — but are drawn by a ``torch.Generator`` on the
 target device, so the two packages' weights differ.  Modules are built on the
@@ -720,3 +724,109 @@ def save_ldm_single_file(model: SDModel, path: str) -> None:
     from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
 
     save_safetensors(ldm_state_dict(model), path)
+
+
+# -- ControlNet, IP-Adapter and image-encoder files ---------------------------
+def random_controlnet(config: UNetConfig, device: Union[str, torch.device, None] = None,
+                      dtype: Optional[torch.dtype] = None, seed: int = 0) -> nn.Module:
+    """A ControlNet of `config` with random weights from `seed`.  Its
+    "zero" convolutions (the control outputs and the embedder's conv_out)
+    get seeded non-zero weights and zero biases, so that it changes the
+    UNet's output (one built by ``controlnet.init_from_unet`` does not)."""
+    from stablediffusion_tpu_torch.models.controlnet import ControlNetModel
+
+    device = resolve_device(device)
+    dtype = dtype or default_dtype(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    net = random_module(ControlNetModel, config, device, dtype, g)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.startswith(("controlnet_down_blocks", "controlnet_mid_block",
+                                "controlnet_cond_embedding.conv_out")) and p.dim() == 1:
+                p.zero_()
+    return net
+
+
+def write_controlnet_folder(path: str, config: UNetConfig,
+                            device: Union[str, torch.device, None] = None,
+                            dtype: torch.dtype = torch.float16, seed: int = 0) -> str:
+    """A diffusers ControlNet folder at `path` of :func:`random_controlnet`'s
+    weights in `dtype` (built on `device`), read back by
+    ``SDModel.load_controlnet``.  Returns `path`."""
+    from stablediffusion_tpu_torch.io.loader import save_controlnet
+
+    save_controlnet(random_controlnet(config, device, dtype, seed), config, path)
+    return path
+
+
+def write_image_encoder_folder(path: str, config, device: Union[str, torch.device, None] = None,
+                               dtype: torch.dtype = torch.float16, seed: int = 0) -> str:
+    """An ``image_encoder`` folder at `path` (``model.safetensors`` in
+    `dtype` and config.json) of a CLIP vision tower of `config` with random
+    weights from `seed`, read back by ``SDModel.load_image_encoder``.
+    Returns `path`."""
+    from stablediffusion_tpu_torch.io.loader import save_image_encoder
+    from stablediffusion_tpu_torch.models.clip_vision import CLIPVisionModel
+
+    device = resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    save_image_encoder(random_module(CLIPVisionModel, config, device, dtype, g), config, path)
+    return path
+
+
+def ip_adapter_state(unet_config: UNetConfig, image_encoder_config, plus: bool = False,
+                     num_tokens: int = 4, depth: int = 4, heads: int = 12, dim: int = 768,
+                     seed: int = 0, dtype: torch.dtype = torch.float32,
+                     std: float = 0.02) -> Dict[str, torch.Tensor]:
+    """The flat state of an IP-Adapter checkpoint for a UNet of
+    `unet_config` and an image encoder of `image_encoder_config`, random
+    from `seed` (CPU): ``image_proj.*`` (the standard projection of the
+    projected embed to `num_tokens` tokens, or with `plus` the Resampler:
+    `num_tokens` queries of width `dim`, `depth` layers of `heads` heads of
+    64, over the encoder's hidden states) and ``ip_adapter.{2i+1}.to_k_ip``
+    / ``to_v_ip`` for every cross-attention.  Norm scales are ones, the
+    other vectors and matrices normal with std `std`."""
+    from stablediffusion_tpu_torch.models.ip_adapter import (
+        ImageProjConfig,
+        ImageProjModel,
+        Resampler,
+        cross_attn_paths,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    xdim = unet_config.cross_attention_dim
+    if plus:
+        cfg = ImageProjConfig("resampler", num_tokens, xdim, dim=dim, depth=depth, heads=heads,
+                              embedding_dim=image_encoder_config.hidden_size)
+        keys = {"proj_in.bias", "proj_out.bias"}
+        proj = Resampler(cfg, keys)
+    else:
+        cfg = ImageProjConfig("proj", num_tokens, xdim)
+        proj = ImageProjModel(cfg, image_encoder_config.projection_dim)
+    state = {}
+    for name, p in proj.state_dict().items():
+        is_norm_scale = name.endswith("weight") and p.dim() == 1
+        state[f"image_proj.{name}"] = (torch.ones(p.shape) if is_norm_scale
+                                       else torch.randn(p.shape, generator=g) * std)
+    ch, n = unet_config.block_out_channels, len(unet_config.block_out_channels)
+    for i, path in enumerate(cross_attn_paths(unet_config)):
+        if path[0] == "mid_block":
+            c = ch[-1]
+        else:
+            c = ch[int(path[1])] if path[0] == "down_blocks" else ch[n - 1 - int(path[1])]
+        for name in ("to_k_ip", "to_v_ip"):
+            state[f"ip_adapter.{2 * i + 1}.{name}.weight"] = torch.randn(
+                c, xdim, generator=g) * std
+    return {k: v.to(dtype) for k, v in state.items()}
+
+
+def write_ip_adapter_file(path: str, unet_config: UNetConfig, image_encoder_config,
+                          plus: bool = False, seed: int = 0,
+                          dtype: torch.dtype = torch.float16, **kw) -> str:
+    """:func:`ip_adapter_state` written as a .safetensors IP-Adapter file at
+    `path`, read back by ``SDModel.load_ip_adapter``.  Returns `path`."""
+    from stablediffusion_tpu_torch.io.safetensors_io import save_safetensors
+
+    save_safetensors(ip_adapter_state(unet_config, image_encoder_config, plus=plus, seed=seed,
+                                      dtype=dtype, **kw), path)
+    return path

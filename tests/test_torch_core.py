@@ -65,7 +65,8 @@ def test_import_pulls_in_no_jax():
                 "serve.batcher", "serve.upload", "schedulers.unipc", "schedulers.lms",
                 "lora.formats", "io.a1111", "models.t5", "models.mmdit", "pipelines.sd3",
                 "tokenizer.sentencepiece_unigram", "ops.quant", "io.quantize_cli",
-                "serve.webapp"):
+                "serve.webapp", "ops.freeu", "models.controlnet", "models.clip_vision",
+                "models.ip_adapter", "utils.prompt_weights", "utils.prompt_edit"):
         assert f"stablediffusion_tpu_torch.{sub}" in mods
     code = (
         "import importlib, sys\n"

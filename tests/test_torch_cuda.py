@@ -581,3 +581,86 @@ def test_int8_gemm_refusal_raises_on_card(cuda):
     m = _int8_layer("linear", "w8a8", 12, 64).to(cuda)
     with pytest.raises(RuntimeError):
         int8_linear(m, torch.randn(32, 12, device=cuda))
+
+
+# -- the pipeline extensions: new attention shapes, card against the CPU -----
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, Sq, H, D, Skv", [
+    (2, 4096, 8, 40, 4), (2, 1024, 8, 80, 16), (2, 256, 8, 160, 4), (2, 64, 8, 160, 16),
+    (2, 4096, 10, 64, 4), (2, 1024, 20, 64, 16),  # IP-Adapter's image keys
+    (1, 257, 16, 80, 257), (1, 257, 16, 104, 257),  # ViT-H/14, ViT-bigG/14
+    (1, 16, 12, 64, 273),  # the Plus resampler
+    (1, 4096, 8, 40, 4096), (3, 1024, 8, 80, 77),  # PAG's half, IP2P's three rows
+])
+def test_flash_fwd_at_the_extension_shapes(cuda, dtype, B, Sq, H, D, Skv):
+    """The extensions' new shapes: key lengths of 4 and 16 (one ragged key
+    tile), D = 104 (the <128> instantiation), a 16-query resampler over 273
+    keys, batch 1 and 3."""
+    q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
+    out = flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    _within_limit(out, attention_plain, q, k, v, p_rounded=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("extra", [
+    dict(freeu=True), dict(pag_scale=2.0, pag_applied_layers=("down", "mid", "up")),
+    dict(cache_interval=2), dict(prompt_weighting=True, prompt="a (red:1.3) [cat:dog:0.5]"),
+    dict(hires_scale=2.0), dict(control_image=True), dict(ip_adapter_image=True),
+], ids=["freeu", "pag", "deepcache", "weighting", "hires", "controlnet", "ip_adapter"])
+def test_extensions_on_card_match_cpu(cuda, extra, tmp_path):
+    """Each extension through the kernels on the card against the plain
+    attention on the CPU, fp32, the same weights and injected latents."""
+    import copy
+
+    import numpy as np
+
+    from stablediffusion_tpu_torch.core.config import tiny_clip_vision_config
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils.testing import (
+        write_controlnet_folder,
+        write_image_encoder_folder,
+        write_ip_adapter_file,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = dict(extra)
+    cpu = _tiny_model("cpu")
+    card = copy.deepcopy(cpu)
+    for c in ("unet", "vae", "text_encoder"):
+        setattr(card, c, getattr(card, c).to(cuda))
+    models = {"cpu": cpu, cuda: card}
+    if extra.pop("control_image", False):
+        write_controlnet_folder(str(tmp_path / "cn"), models["cpu"].unet_config, device="cpu",
+                                dtype=torch.float32, seed=1)
+        extra["control_image"] = np.random.default_rng(0).uniform(0, 1, (64, 64, 3))
+    if extra.pop("ip_adapter_image", False):
+        vcfg = tiny_clip_vision_config()
+        write_image_encoder_folder(str(tmp_path / "image_encoder"), vcfg, device="cpu",
+                                   dtype=torch.float32, seed=2)
+        write_ip_adapter_file(str(tmp_path / "ip.safetensors"), models["cpu"].unet_config, vcfg,
+                              plus=True, num_tokens=4, depth=1, heads=1, dim=32,
+                              dtype=torch.float32)
+        extra["ip_adapter_image"] = np.random.default_rng(1).uniform(0, 1, (32, 32, 3))
+    outs = {}
+    for d, m in models.items():
+        if "control_image" in extra:
+            m.load_controlnet(str(tmp_path / "cn"))
+        if "ip_adapter_image" in extra:
+            m.load_ip_adapter(str(tmp_path / "ip.safetensors"), str(tmp_path))
+        req = dict(dict(prompt="a cat", num_inference_steps=4, guidance_scale=7.5, seed=3,
+                        height=64, width=64), **extra)
+        rng = np.random.default_rng(4)
+        if "hires_scale" in req:  # each pass's draws: the CPU's and the card's
+            # generators draw different streams
+            req["draws"] = [{"latents": rng.standard_normal((1, 16, 16, 4)).astype(np.float32)},
+                            {"latents": rng.standard_normal((1, 32, 32, 4)).astype(np.float32)}]
+        else:
+            req["latents"] = torch.from_numpy(
+                rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
+        pipe = StableDiffusionUnifiedPipeline(device=d, dtype=torch.float32)
+        outs[str(d)] = pipe(m, output_type="np", **req).images
+    err = float(np.abs(outs["cpu"] - outs["cuda"]).max())
+    assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err

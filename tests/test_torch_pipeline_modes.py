@@ -230,10 +230,12 @@ def test_uint8_device_and_unported_arguments(models):
     host = pipe(tm, output_type="uint8", **kw).images
     assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
     np.testing.assert_array_equal(dev.numpy(), host)
-    for extra, item in ((dict(hires_scale=2.0), "item 15"), (dict(freeu=True), "item 15"),
-                        (dict(pag_scale=3.0), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            pipe(tm, **kw, **extra)
+    # the extensions are ported (their parity cases are in
+    # test_torch_extensions.py and test_torch_hires_ip2p.py): each runs and
+    # changes the image
+    for extra in (dict(hires_scale=2.0), dict(freeu=True), dict(pag_scale=3.0)):
+        im = pipe(tm, output_type="uint8", **kw, **extra).images
+        assert im.shape == host.shape and not np.array_equal(im, host)
     # SD3's arguments belong to the SD3 pipeline; here, as in the JAX
     # pipeline, they are unexpected keywords
     with pytest.raises(TypeError, match="prompt_3"):

@@ -287,8 +287,9 @@ def test_pipeline_matches_jax(models, mode):
 
 def test_pipeline_options(models):
     """uint8 on the device and on the host agree, the tiled decode takes the
-    one-tile path at this size, a custom sigma list follows JAX, and the
-    unported options raise with their ROADMAP item."""
+    one-tile path at this size, a custom sigma list follows JAX, prompt
+    weighting on a prompt without markup gives the plain image, and the
+    adapter and int8 options fail as JAX's do."""
     jm, tm = models
     pipe = StableDiffusion3Pipeline(device="cpu")
     kw = dict(KW, prompt="a cat", seed=7)
@@ -302,8 +303,11 @@ def test_pipeline_options(models):
     with capture_jax_sd3_draws() as draws:
         ref = jsd3.StableDiffusion3Pipeline()(jm, output_type="latents", **sig)
     _close(pipe(tm, output_type="latents", draws=draws, **sig).latents.numpy(), ref.latents)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pipe(tm, prompt_weighting=True, **kw)
+    # prompt weighting is ported (its parity cases are in
+    # test_torch_prompt_weights.py): a prompt without markup encodes as the
+    # plain call does
+    np.testing.assert_array_equal(pipe(tm, output_type="uint8", prompt_weighting=True,
+                                       **kw).images, host)
     # SD3 adapters and quantization are ported (their parity cases are in
     # test_torch_sd3_lora.py and test_torch_quant.py): a missing file, an
     # unknown adapter and an empty one, and a mode set and reverted

@@ -93,8 +93,12 @@ def test_scheduler_swap_via_model_block(handler):
     # answers on the error channel like any other
     pytest.param({"model": {"type": "sd3", "name": "x"}}, "sd3_x",
                  id="request_input5-item 18"),
-    pytest.param({"hires_scale": 2.0}, "item 15", id="request_input6-item 15"),
-    pytest.param({"model": {"ip_adapter": "ip.bin"}}, "not supported",
+    # the pipeline extensions are ported: the hires fix answers a window it
+    # cannot combine with on the error channel, as JAX's pipeline raises, and
+    # an IP-Adapter file that is not there is named
+    pytest.param({"hires_scale": 2.0, "denoising_end": 0.5}, "cannot combine",
+                 id="request_input6-item 15"),
+    pytest.param({"model": {"ip_adapter": "ip.bin"}}, "ip.bin",
                  id="request_input7-not supported"),
 ])
 def test_unported_features_answer_on_the_error_channel(handler, request_input, item):

@@ -229,43 +229,59 @@ def _jax_noise(key, shape):
 
 
 @contextlib.contextmanager
-def capture_jax_draws():
-    """Record the random draws of the JAX pipeline calls made inside the
-    block, as the port's ``draws=`` takes them (NHWC): "latents" (the one
-    ``randn`` of a call: initial latents or the noise added to the image),
-    "encode" and "encode_masked" (the VAE encodes' sampling noise, in call
-    order) and "steps" [N, B, h, w, c] (from the keys handed to
-    ``_denoise``).  Wraps the pipeline module's own functions, so the draws
-    are the call's, not a recomputation of its key splits."""
+def capture_jax_draw_calls():
+    """The draws of each JAX pipeline pass made inside the block, as
+    :func:`capture_jax_draws` records one call's (the hires fix runs two: its
+    base pass, then its img2img pass): yields a list with one draws dict per
+    pass, in order; a pass ends at its ``_denoise``."""
     from stablediffusion_tpu.pipelines import unified as ju
 
-    draws = {}
+    calls, current = [], {}
     orig = {n: getattr(ju, n) for n in ("randn", "_vae_encode_any", "_denoise")}
 
     def randn(*args, **kw):
         out = orig["randn"](*args, **kw)
-        assert "latents" not in draws, "a second randn in one call"
-        draws["latents"] = np.array(out, np.float32)
+        assert "latents" not in current, "a second randn in one pass"
+        current["latents"] = np.array(out, np.float32)
         return out
 
     def vae_encode_any(params, image, key, **kw):
         out = orig["_vae_encode_any"](params, image, key, **kw)
         if kw.get("sample", True):
-            site = "encode_masked" if "encode" in draws else "encode"
-            draws[site] = _jax_noise(key, out.shape)
+            site = "encode_masked" if "encode" in current else "encode"
+            current[site] = _jax_noise(key, out.shape)
         return out
 
     def denoise(unet_params, latents, embeds, plan, keys, *args, **kw):
-        draws["steps"] = np.stack([_jax_noise(keys[i], latents.shape)
-                                   for i in range(keys.shape[0])])
+        current["steps"] = np.stack([_jax_noise(keys[i], latents.shape)
+                                     for i in range(keys.shape[0])])
+        calls.append(dict(current))
+        current.clear()
         return orig["_denoise"](unet_params, latents, embeds, plan, keys, *args, **kw)
 
     ju.randn, ju._vae_encode_any, ju._denoise = randn, vae_encode_any, denoise
     try:
-        yield draws
+        yield calls
     finally:
         for n, f in orig.items():
             setattr(ju, n, f)
+
+
+@contextlib.contextmanager
+def capture_jax_draws():
+    """Record the random draws of the one JAX pipeline call made inside the
+    block, as the port's ``draws=`` takes them (NHWC): "latents" (the one
+    ``randn`` of a call: initial latents or the noise added to the image),
+    "encode" and "encode_masked" (the VAE encodes' sampling noise, in call
+    order) and "steps" [N, B, h, w, c] (from the keys handed to
+    ``_denoise``).  Wraps the pipeline module's own functions, so the draws
+    are the call's, not a recomputation of its key splits; the dict is
+    filled when the block ends."""
+    draws = {}
+    with capture_jax_draw_calls() as calls:
+        yield draws
+    assert len(calls) <= 1, "a second pipeline pass in one call"
+    draws.update(calls[0] if calls else {})
 
 
 @pytest.fixture(scope="module", autouse=True)
