@@ -6,7 +6,8 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
 
 1. Card and build: print the card's name and power limit, build the three
    CUDA sources of ``stablediffusion_tpu_torch/csrc`` (one nvcc each, all
-   started together), print each kernel's registers and spilled bytes
+   started together) into a fresh kernel build cache directory in the
+   checkout (``core/compile_cache``), print each kernel's registers and spilled bytes
    (``-Xptxas -v``; a spill in ``flash_bwd.cu`` fails the run), set and
    print the TF32 switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
@@ -272,6 +273,27 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    ``load_loras``, ``quantize("w8")`` (every IP linear int8 where JAX's
    plan puts it), ``quantize(None)``, ``delete_adapters`` and
    ``unload_ip_adapter`` leave the UNet bit for bit as before.
+42. ControlNet training (after phase 41): ``ControlNetTrainer`` on the
+   full-width SD1.5 model at 512², batch 4, lr 5e-6, a ControlNet at
+   control_v11p_sd15_canny's config initialized from the UNet, over a
+   folder pair of seeded images and edge maps: 3 steps with a checkpoint at
+   step 2 and the launch plan exact each step (the ControlNet's and the
+   UNet's up-block attentions under grad; the UNet's down and mid blocks,
+   where the residuals have not joined yet, and CLIP-L without), a profiled
+   step, a resumed step 3 bit for bit the straight run's (cuDNN
+   deterministic for the phase), the saved fp32 folder reloaded equal, one
+   ControlNet request served with it; then every new kernel shape (batch 4)
+   against its plain version.
+43. The parallel paths on a 1-rank NCCL process group: an SD1.5 512² LoRA
+   trainer step under DP, ZeRO-1 and FSDP, each bit for bit and launch for
+   launch the meshless step, and one request through a ``Handler(mesh=)``.
+44. The tooling: the convert CLI's folder renders the image of the handler's
+   single-file render bit for bit; phase 1's cold build into the cache
+   directory against a fresh process's warm load; the native BPE loop's
+   word count; a request's "generate" span in a ``profile_to`` trace; an
+   ``inference_wandb`` request (config inline); one request's FLOPs
+   (FlopCounterMode plus the kernels' launch records) equal to
+   FlopCounterMode's count of the request through SDPA, and its MFU.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -285,6 +307,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -837,9 +860,14 @@ def _profile(label, fn, host=True):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    spans, groups, by_name = [], {}, {}
+    spans, groups, by_name, annotations = [], {}, {}, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            continue
+        # a record_function span (the port's ``trace``) also shows as a device
+        # range: it is no kernel, and it would cover the kernels it spans
+        if getattr(e, "is_user_annotation", False):
+            annotations += 1
             continue
         dur = e.time_range.elapsed_us() / 1e3
         spans.append((e.time_range.start, e.time_range.end))
@@ -857,7 +885,7 @@ def _profile(label, fn, host=True):
     row = {
         "profile": label,
         "wall_ms_profiled": wall_ms, "device_kernel_ms": sum(groups.values()),
-        "device_kernels": len(spans),
+        "device_kernels": len(spans), "device_annotations_skipped": annotations,
         "device_busy_share": busy_us / 1e3 / wall_ms,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[n[:90], ms] for n, ms in top],
@@ -1264,7 +1292,7 @@ class _TrainProbe:
         mod = importlib.import_module(module)
         trainer_cls = getattr(mod, trainer_name) if trainer_name else None
         self._mod, self._trainer_cls = mod, trainer_cls
-        self._orig = (mod.make_train_step, getattr(mod, encode_name),
+        self._orig = (mod.make_train_step, getattr(mod, encode_name) if encode_name else None,
                       trainer_cls._log_validation if trainer_cls else None)
         probe = self
 
@@ -1311,7 +1339,8 @@ class _TrainProbe:
             probe.validations.append(probe._delta(snap))
 
         mod.make_train_step = make_train_step
-        setattr(mod, encode_name, make_encode_fn)
+        if encode_name:
+            setattr(mod, encode_name, make_encode_fn)
         if trainer_cls is not None:
             trainer_cls._log_validation = log_validation
         return self
@@ -1319,7 +1348,8 @@ class _TrainProbe:
     def __exit__(self, *exc):
         m, (_, encode_name, _) = self._mod, self._names
         m.make_train_step = self._orig[0]
-        setattr(m, encode_name, self._orig[1])
+        if encode_name:
+            setattr(m, encode_name, self._orig[1])
         if self._trainer_cls is not None:
             self._trainer_cls._log_validation = self._orig[2]
 
@@ -4716,6 +4746,484 @@ def phase_extension_serving(smi, model, root):
     return launches
 
 
+# -- the last slice: ControlNet training, parallelism, tooling -----------------
+
+CN_TRAIN_BATCH = 4  # train_controlnet.py's default
+CN_TRAIN_STEPS = 3  # a checkpoint at step 2, then a resume of step 3
+CN_TRAIN_LR = 5e-6
+
+
+def _unet_tf_split(unet):
+    """(transformer blocks in the down and mid blocks, in the up blocks)."""
+    return (_n_tf(unet.down_blocks) + _n_tf(unet.mid_block), _n_tf(unet.up_blocks))
+
+
+def phase_train_controlnet(smi):
+    """Phase 42: ``ControlNetTrainer`` on the full-width SD1.5 model at 512²,
+    batch 4, lr 5e-6, a ControlNet at control_v11p_sd15_canny's config (the
+    UNet's encoder) initialized from the UNet, a folder pair of seeded
+    images and edge maps: 3 steps with a checkpoint at step 2, then a run
+    resumed from it whose step 3 equals the straight run's (cuDNN
+    deterministic for the phase); every zero convolution moved (a fresh
+    ControlNet's zero convolutions scale every other weight's gradient, so
+    at lr 5e-6 many other masters move by less than their fp32 ulp in 3
+    steps: counted, not required); the saved folder reloaded equal to the
+    fp32 masters and one ControlNet request served with it.  The launch
+    plan from the modules: the ControlNet's attentions and the UNet's
+    up-block attentions run under grad (forward with lse, both backward
+    kernels); the UNet's down and mid blocks do not (the residuals join
+    after them), nor CLIP-L (causal, no lse); one flash_stream for the VAE
+    encode."""
+    import base64
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stablediffusion_tpu_torch.io.loader import load_controlnet
+    from stablediffusion_tpu_torch.serve.handler import Handler, decode_image_b64
+    from stablediffusion_tpu_torch.train.controlnet_trainer import (
+        ControlNetTrainer,
+        ControlNetTrainingArgs,
+    )
+    from stablediffusion_tpu_torch.train.optim import tree_leaves
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cn_train_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = random_full_model("sd15", device="cuda", seed=42)
+        model.vae.float()  # as load_sd_model holds it
+        data = write_image_folder(os.path.join(root, "img"), CN_TRAIN_BATCH * 2, 512, seed=7,
+                                  caption=TRAIN_PROMPT)
+        cond = os.path.join(root, "cond")
+        os.makedirs(cond)
+        for i, f in enumerate(sorted(x for x in os.listdir(data) if x.endswith(".jpg"))):
+            edges = (_seeded_image(512, 100 + i, edges=True) * 255).astype(np.uint8)
+            Image.fromarray(edges).save(os.path.join(cond, f.replace(".jpg", ".png")))
+        down_mid, up = _unet_tf_split(model.unet)
+        n_cn = down_mid  # the ControlNet is the UNet's encoder: its down and mid blocks
+        grad = 2 * (up + n_cn)
+        want = {"flash_fwd": {"with_lse": grad,
+                              "causal_no_lse": model.text_encoder_config.num_hidden_layers,
+                              "other": 2 * down_mid},
+                "flash_stream": 1, "flash_bwd_dq": grad, "flash_bwd_dkv": grad}
+        plan = {"unet_transformer_blocks_down_mid": down_mid, "unet_up": up,
+                "controlnet_transformer_blocks": n_cn,
+                "forwards_a_step": grad + 2 * down_mid}
+
+        def args(out, **kw):
+            base = dict(train_batch_size=CN_TRAIN_BATCH, learning_rate=CN_TRAIN_LR,
+                        resolution=512, max_train_steps=CN_TRAIN_STEPS, checkpointing_steps=2,
+                        log_every=1, report_to=None, output_dir=os.path.join(root, out))
+            return ControlNetTrainingArgs(**{**base, **kw})
+
+        counters = _train_counters()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        probe = _TrainProbe(module="stablediffusion_tpu_torch.train.controlnet_trainer",
+                            encode=None, trainer=None)
+        t = time.perf_counter()
+        with probe:
+            straight = ControlNetTrainer(model, args("straight"), data, cond).train()
+        train_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_steps("train_controlnet_step", probe, want)
+        _fwd_counts_are_bf16(probe, "ControlNet training")
+        walls = [s["wall_s"] for s in probe.steps]
+        init = probe.initial
+        straight = {n: t.clone() for n, t in straight.items()}  # the profiled step moves it
+        still = sorted(n for n in straight if torch.equal(straight[n], init[n]))
+        # a fresh ControlNet's zero convolutions scale every other weight's
+        # gradient: at lr 5e-6 the first steps move them by less than an fp32
+        # ulp of many weights (norm scales near 1), but never the zero
+        # convolutions themselves
+        zero_convs = [n for n in straight
+                      if n.startswith(("controlnet_down_blocks", "controlnet_mid_block"))]
+        zero_still = [n for n in zero_convs if n in still]
+        totals = {n: c.count for n, c in counters.items()}
+        by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
+        last = probe.last_call
+        prof = _profile("train_controlnet_step", lambda: last[0](*last[1:]), host=False)
+        del last, probe
+        # the resume: step 3 from checkpoint-2 equals the straight run's
+        resumed = ControlNetTrainer(model, args("resumed", resume_from_checkpoint=os.path.join(
+            root, "straight", "checkpoint-2")), data, cond).train()
+        exact = all(torch.equal(resumed[n], straight[n]) for n in straight)
+        worst = max(((resumed[n] - straight[n]).abs().max()
+                     / straight[n].abs().max().clamp_min(1e-30)).item() for n in straight)
+        # the saved folder: the fp32 masters, reloaded equal; then served
+        _, reloaded = load_controlnet(os.path.join(root, "straight"), torch.device("cuda"),
+                                      torch.float32)
+        same = all(torch.equal(p, straight[n]) for n, p in reloaded.named_parameters())
+        del reloaded
+        model.load_controlnet(os.path.join(root, "straight"))
+        control = (_seeded_image(512, 100, edges=True) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(control).save(buf, format="PNG")
+        handler = Handler(model=model)
+        for c in counters.values():
+            c.reset()
+        resp = handler({"prompt": TRAIN_PROMPT, "seed": 3, "num_inference_steps": 20,
+                        "guidance_scale": 7.5, "height": 512, "width": 512,
+                        "control_image": base64.b64encode(buf.getvalue()).decode()}, "cn")
+        if "error" in resp:
+            raise AssertionError(f"ControlNet request: {resp['traceback']}")
+        served = {n: c.count for n, c in counters.items()}
+        # each of 20 steps one UNet and one ControlNet call on the CFG pair,
+        # and the prompt's and negative's CLIP-L encodes
+        want_served = (20 * (2 * _n_tf(model.unet) + 2 * n_cn)
+                       + 2 * model.text_encoder_config.num_hidden_layers)
+        im = decode_image_b64(resp["images"][0])
+        summary = {
+            "train_controlnet": "ControlNetTrainer SD1.5 512x512, batch 4, AdamW constant 5e-6, "
+                                "ControlNet at control_v11p_sd15_canny's config from the UNet, "
+                                "fp32 masters cast to bf16 at each use, fp32 VAE encode",
+            "card": smi, "step_wall_s": walls,
+            "train_call_s": train_s, "peak_memory_gib": peak, "launches_per_step": want,
+            "plan": plan, "profiled_step": {k: prof[k] for k in (
+                "wall_ms_profiled", "device_kernel_ms", "device_busy_share", "groups_ms")},
+            "controlnet_params": sum(t.numel() for t in straight.values()),
+            "masters": len(straight), "unmoved_masters": len(still),
+            "unmoved_sample": still[:4], "zero_convs": len(zero_convs),
+            "unmoved_zero_convs": zero_still, "resumed_equal_bitwise": exact,
+            "resumed_worst_rel_err": worst, "reloaded_equal_fp32_masters": same,
+            "served_launches": served, "served_flash_fwd_want": want_served,
+            "served_image_shape": list(im.shape)}
+        print(json.dumps(summary), flush=True)
+        if zero_still or not exact or not same or served["flash_fwd"] != want_served \
+                or served["flash_stream"] != 1 or im.shape != (512, 512, 3):
+            raise AssertionError(f"ControlNet training: {summary}")
+        del model, handler, straight, resumed, init
+        return totals, by_shape, summary
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+PAR_BATCH = 2  # phase 43's SD1.5 LoRA step at 512²
+
+
+def phase_parallel_world1(smi):
+    """Phase 43: the parallel paths over a 1-rank NCCL process group
+    (``parallel/mesh.maybe_initialize_distributed`` from torchrun's variables,
+    set here; a 1 x 1 ``DeviceMesh``): one ``SDLoRATrainer`` step of the
+    full-width SD1.5 model at 512² (batch 2, UNet and CLIP LoRA) meshless,
+    then under DP, ZeRO-1 and FSDP, each from the same seed: the factors,
+    loss and grad norm bit for bit the meshless run's (every collective runs
+    and returns its input; ZeRO's norm sums the leaves in ``global_norm``'s
+    order), the launches the same.  FSDP runs the UNet's blocks as
+    checkpoint regions (each gathers its weights whole there, and again in
+    the backward), so it is held against the meshless step under
+    ``remat_policy="full"``, and its whole copies (``zero.gather_stats``) and
+    the card's peak against that step's: at most the text tower, the VAE,
+    the LoRA factors, the UNet outside its blocks and one block over it.  Each meshed path runs
+    twice: the first run holds the set-up (NCCL's communicator at the first
+    collective), the second is the step whose wall, beside the meshless one,
+    is the path's overhead.  Then one SD1.5 request through a
+    ``Handler(mesh=...)``, bit for bit and with the meshless launches."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from stablediffusion_tpu_torch.parallel import make_mesh, zero
+    from stablediffusion_tpu_torch.parallel.mesh import maybe_initialize_distributed
+    from stablediffusion_tpu_torch.serve.handler import Handler
+    from stablediffusion_tpu_torch.train.optim import tree_leaves
+    from stablediffusion_tpu_torch.train.train_step import REMAT_UNITS
+    from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
+    from stablediffusion_tpu_torch.utils.testing import random_full_model, write_image_folder
+
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        if not maybe_initialize_distributed("cuda") or dist.get_backend() != "nccl":
+            raise AssertionError("no NCCL process group")
+        mesh = make_mesh(data=1, tensor=1)
+        model = random_full_model("sd15", device="cuda", seed=43)
+        model.vae.float()
+        data = write_image_folder(os.path.join(root, "img"), PAR_BATCH, 512, seed=8,
+                                  caption=TRAIN_PROMPT)
+        size = lambda m: sum(p.numel() * p.element_size() for p in m.parameters())  # noqa: E731
+        units = [size(m) for m in model.unet.modules() if isinstance(m, REMAT_UNITS)]
+        bound = {"span": size(model.vae) + size(model.text_encoder),
+                 "unet_root": size(model.unet) - sum(units), "unit_max": max(units)}
+        counters = _train_counters()
+        runs = {}
+        # a first meshless step warms cuDNN's choices and the allocator; each
+        # meshed path's first run ("<path>_first") holds its set-up
+        plan = [("warm", None, {}), ("meshless", None, {}),
+                ("meshless_full", None, dict(remat_policy="full"))]
+        for name, kw in (("dp", {}), ("zero1", dict(shard_opt_state=True)),
+                         ("fsdp", dict(shard_params=True))):
+            plan += [(f"{name}_first", mesh, kw), (name, mesh, kw)]
+        for name, m, kw in plan:
+            for c in counters.values():
+                c.reset()
+            args = SDTrainingArgs(train_batch_size=PAR_BATCH, resolution=512, max_train_steps=1,
+                                  lr_scheduler="constant", lr_warmup_steps=0, log_every=1,
+                                  report_to=None, output_dir=os.path.join(root, name), **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero.reset_gather_stats()
+            held_before = zero.gather_stats()["live"]  # an earlier run's returned factors
+            t = time.perf_counter()
+            trainer = SDLoRATrainer(model, args, data, mesh=m)
+            lora = trainer.train()
+            torch.cuda.synchronize()
+            runs[name] = {"wall_s": time.perf_counter() - t, "loss": trainer.history[0][1],
+                          "lora": dict(tree_leaves(lora)),
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "gathered_peak_bytes": zero.gather_stats()["peak"] - held_before,
+                          "launches": {n: c.count for n, c in counters.items()},
+                          "by_shape": {n: dict(c.by_shape) for n, c in counters.items()}}
+            del trainer, lora
+        rows = {}
+        for name in ("dp", "zero1", "fsdp"):
+            r, ref = runs[name], runs["meshless_full" if name == "fsdp" else "meshless"]
+            equal = sorted(r["lora"]) == sorted(ref["lora"]) and all(
+                torch.equal(r["lora"][p], ref["lora"][p]) for p in ref["lora"])
+            rows[name] = {"against": "meshless_full" if name == "fsdp" else "meshless",
+                          "equal_bitwise": equal, "loss": r["loss"], "wall_s": r["wall_s"],
+                          "overhead_s": r["wall_s"] - ref["wall_s"],
+                          "first_wall_s": runs[f"{name}_first"]["wall_s"],
+                          "setup_s": runs[f"{name}_first"]["wall_s"] - r["wall_s"],
+                          "peak_gib": r["peak_gib"], "launches": r["launches"],
+                          "launches_equal": r["by_shape"] == ref["by_shape"]}
+        fsdp, full = runs["fsdp"], runs["meshless_full"]
+        # the factors are made whole for the step (loss_fn's zero.whole_tree)
+        bound["factors"] = sum(t.numel() * t.element_size() for t in fsdp["lora"].values())
+        held = sum(bound.values())
+        memory = {"bound_bytes": bound, "fsdp_gathered_peak_bytes": fsdp["gathered_peak_bytes"],
+                  "fsdp_peak_gib": fsdp["peak_gib"], "meshless_full_peak_gib": full["peak_gib"],
+                  "meshless_peak_gib": runs["meshless"]["peak_gib"],
+                  "fsdp_over_full_bytes": (fsdp["peak_gib"] - full["peak_gib"]) * 2**30,
+                  "unet_bytes": size(model.unet)}
+        memory_ok = (fsdp["gathered_peak_bytes"] <= held
+                     and (fsdp["peak_gib"] - full["peak_gib"]) * 2**30 <= held)
+        # one request through a data = 1 handler against the meshless one
+        req = dict(prompt=TRAIN_PROMPT, seed=5, num_inference_steps=20, guidance_scale=7.5,
+                   height=512, width=512)
+        images, serve = {}, {}
+        for name, m in (("meshless", None), ("mesh_dp1", mesh)):
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = Handler(model=model, mesh=m)._generate(dict(req), output_type="uint8")
+            torch.cuda.synchronize()
+            images[name] = np.asarray(out.images)
+            serve[name] = {"wall_s": time.perf_counter() - t,
+                           "launches": {n: c.count for n, c in counters.items()}}
+        serve_equal = np.array_equal(images["meshless"], images["mesh_dp1"])
+        summary = {"parallel_world1": "1-rank NCCL group, SD1.5 512² LoRA trainer step "
+                                      "(batch 2, UNet + CLIP LoRA) and one 20-step request",
+                   "card": smi, "backend": dist.get_backend(), "world": dist.get_world_size(),
+                   "meshless_step_wall_s": runs["meshless"]["wall_s"],
+                   "meshless_full_step_wall_s": full["wall_s"],
+                   "meshless_launches": runs["meshless"]["launches"],
+                   "meshless_full_launches": full["launches"],
+                   "paths": rows, "fsdp_memory": memory, "fsdp_memory_within_bound": memory_ok,
+                   "serve": serve, "serve_equal_bitwise": serve_equal}
+        print(json.dumps(summary), flush=True)
+        if not (all(r["equal_bitwise"] and r["launches_equal"] for r in rows.values())
+                and memory_ok and serve_equal
+                and serve["meshless"]["launches"] == serve["mesh_dp1"]["launches"]):
+            raise AssertionError(f"parallel paths at world size 1: {summary}")
+        launches = {f"parallel_{n}": r["launches"] for n, r in rows.items()}
+        launches["parallel_serve_dp1"] = serve["mesh_dp1"]["launches"]
+        del model
+        return launches, summary
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+TOOL_STEPS = 20
+
+
+def _sdpa_attention():
+    """A context in which the port's attention routes call
+    ``F.scaled_dot_product_attention`` (for FlopCounterMode's count of the
+    same request)."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from stablediffusion_tpu_torch.ops import attention as att
+
+    def sdpa(q, k, v, scale=None, causal=False):
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                           v.transpose(1, 2), is_causal=causal, scale=scale)
+        return o.transpose(1, 2)
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = att.flash_fwd, att.flash_stream
+        att.flash_fwd = sdpa
+        att.flash_stream = lambda q, k, v, scale=None: sdpa(q, k, v, scale)
+        try:
+            yield
+        finally:
+            att.flash_fwd, att.flash_stream = orig
+
+    return ctx()
+
+
+def phase_tooling(smi, cold_build_s):
+    """Phase 44: the tooling on the card.  The convert CLI turns a seeded
+    full-width SD1.5 A1111 file into a folder, which loads and renders the
+    image the handler renders from the file itself, bit for bit; the build
+    cache: phase 1 built the kernels cold into a cache directory
+    (``core/compile_cache``), and a fresh process pointed at it loads them
+    warm; the native BPE loop tokenizes every word of the requests
+    (``clip_bpe.TOKENIZE_PATHS``); one request's "generate" span in a
+    ``profile_to`` trace; one ``inference_wandb`` request (wandb absent: the
+    config inline); ``bench_utils``' FLOPs of one 512² request (FlopCounterMode
+    plus the kernels' launch records) equal to FlopCounterMode's count of the
+    same request through SDPA, and its MFU."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from stablediffusion_tpu_torch.core import compile_cache
+    from stablediffusion_tpu_torch.io import convert_cli
+    from stablediffusion_tpu_torch.io.loader import load_sd_model
+    from stablediffusion_tpu_torch.serve.handler import Handler
+    from stablediffusion_tpu_torch.tokenizer import clip_bpe
+    from stablediffusion_tpu_torch.utils import bench_utils
+    from stablediffusion_tpu_torch.utils.observability import profile_to
+    from stablediffusion_tpu_torch.utils.testing import (
+        random_full_model,
+        save_ldm_single_file,
+        synthetic_clip_tokenizer,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    os.environ.setdefault("WANDB_MODE", "disabled")  # never a network call
+    try:
+        src = random_full_model("sd15", device="cuda", seed=44)
+        src.tokenizer = synthetic_clip_tokenizer()
+        path = os.path.join(root, "chip.safetensors")
+        save_ldm_single_file(src, path)
+        src.tokenizer.save_pretrained(os.path.join(root, "tokenizer"))
+        del src
+        t = time.perf_counter()
+        mtype = convert_cli.convert(path, os.path.join(root, "sd15_conv"))
+        convert_s = time.perf_counter() - t
+        src_tok = os.path.join(root, "tokenizer")
+        shutil.copytree(src_tok, os.path.join(root, "sd15_conv", "tokenizer"))
+        folder = load_sd_model(os.path.join(root, "sd15_conv"), model_type="sd15",
+                               device="cuda")
+        req = dict(prompt="a photograph of an astronaut riding a horse", seed=44,
+                   num_inference_steps=TOOL_STEPS, guidance_scale=7.5, height=512, width=512)
+        before = dict(clip_bpe.TOKENIZE_PATHS)
+        img_folder = np.asarray(Handler(model=folder)._generate(dict(req), "uint8").images)
+        by_file = Handler(model_dir=root, device="cuda")
+        by_file.maybe_reload_model({"type": "sd15", "name": "chip.safetensors"})
+        img_file = np.asarray(by_file._generate(dict(req), "uint8").images)
+        bpe = {k: clip_bpe.TOKENIZE_PATHS[k] - before[k] for k in before}
+        del by_file
+        convert_equal = np.array_equal(img_folder, img_file)
+
+        # the warm build in a fresh process over phase 1's cache
+        code = ("import time; "
+                "from stablediffusion_tpu_torch.core.compile_cache import "
+                "enable_compilation_cache; from stablediffusion_tpu_torch.ops import _build; "
+                "t = time.perf_counter(); "
+                "assert enable_compilation_cache(); _build.build(); "
+                "[_build.load(s) for s in _build.SOURCES]; "
+                "print(time.perf_counter() - t, _build.BUILD_LOGS == {})")
+        from stablediffusion_tpu_torch.ops import _build
+
+        if _build.BUILD_DIR != compile_cache.cache_dir():
+            raise AssertionError(f"the build directory moved: {_build.BUILD_DIR}")
+        env = dict(os.environ)  # SDTPU_COMPILE_CACHE: phase 1's cache
+        t = time.perf_counter()
+        warm = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              check=True).stdout.split()
+        warm_proc_s = time.perf_counter() - t
+        warm_build_s, nothing_built = float(warm[0]), warm[1] == "True"
+
+        # one request's spans
+        handler = Handler(model=folder)
+        with profile_to(os.path.join(root, "trace")) as prof:
+            handler._generate(dict(req, num_inference_steps=2), "uint8")
+        # the span's host range (the profiler also shows its device range)
+        spans = [e for e in prof.key_averages() if e.key == "generate"
+                 and e.device_type == DeviceType.CPU]
+        with open(os.path.join(root, "trace", "trace.json")) as f:
+            in_trace = sum(e.get("name") == "generate" for e in _json.load(f)["traceEvents"])
+        wandb = handler({"mode": "inference_wandb", **req}, "wandb")
+        if "error" in wandb:
+            raise AssertionError(f"inference_wandb: {wandb['traceback']}")
+
+        # FLOPs and MFU of one request
+        pipe_args = dict(req)
+
+        def request():
+            return handler._generate(dict(pipe_args), "uint8")
+
+        bench_utils.warmup(request)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        req_s = time.perf_counter() - t
+        _, flops, parts = bench_utils.flops(request)
+        with _sdpa_attention():
+            _, sdpa_flops, sdpa_parts = bench_utils.flops(request)
+        summary = {
+            "tooling": "convert CLI, build cache, native BPE, spans, inference_wandb, FLOPs",
+            "card": smi, "convert_type": mtype, "convert_s": convert_s,
+            "converted_image_equal_single_file": convert_equal,
+            "build_cold_s": cold_build_s, "build_warm_s_after_imports": warm_build_s,
+            "build_warm_process_s": warm_proc_s, "warm_built_nothing": nothing_built,
+            "bpe_words": bpe, "generate_spans": len(spans), "generate_in_trace": in_trace,
+            "wandb": {"url": wandb["wandb_url"], "config": wandb["config"]},
+            "request_s": req_s, "request_flops": flops, "request_flops_parts": parts,
+            "sdpa_flops": sdpa_flops, "sdpa_parts": sdpa_parts,
+            "flops_equal_sdpa": flops == sdpa_flops,
+            "mfu": bench_utils.mfu(flops, req_s),
+            "peak_flops_per_sec": bench_utils.peak_flops_per_sec(),
+            "hbm": bench_utils.hbm_stats()}
+        print(json.dumps(summary), flush=True)
+        if not (mtype == "sd15" and convert_equal and nothing_built and bpe["native"] > 0
+                and bpe["python"] == 0 and len(spans) == 1 and in_trace >= 1
+                and wandb["wandb_url"] is None and wandb["config"]["seed"] == 44
+                and flops == sdpa_flops and parts["flash_fwd"] > 0):
+            raise AssertionError(f"tooling: {summary}")
+        del handler, folder
+        return summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4734,9 +5242,22 @@ def main() -> int:
     print(smi, flush=True)
     print(f"max SM clock {_sm_clock_hz() / 1e6:.0f} MHz (the bound's exponential rate)",
           flush=True)
+    # the kernels build cold into a cache directory inside the checkout
+    # (core/compile_cache), which phase 44 loads warm from a fresh process
+    from stablediffusion_tpu_torch.core.compile_cache import enable_compilation_cache
+
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "stablediffusion_tpu_torch", "_kernels_build", "smoke_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    # the workers and CLIs the phases start enable the cache from the
+    # environment: they keep to this one, inside the checkout
+    os.environ["SDTPU_COMPILE_CACHE"] = cache
+    if not enable_compilation_cache():
+        raise AssertionError(f"the kernel build cache at {cache} is unavailable")
     t = time.perf_counter()
     _build.build()
-    print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t:.3f} s",
+    cold_build_s = time.perf_counter() - t
+    print(f"built {sorted(_build.SOURCES)} in {cold_build_s:.3f} s into {_build.BUILD_DIR}",
           flush=True)
     for source, log in sorted(_build.BUILD_LOGS.items()):
         usage = _build.ptxas_usage(log)
@@ -4836,6 +5357,20 @@ def main() -> int:
                                         if not k.startswith("ext_sdxl")},
                       "phases_39_41_s": time.perf_counter() - t_ext, "card": smi}), flush=True)
     serving_rest.update(ext_launches)
+    # the last slice: ControlNet training (42), the parallel paths on a
+    # 1-rank NCCL group (43), the tooling (44)
+    t_last = time.perf_counter()
+    held = {(r["kernel"], *r["shape"], r["skv"], r["causal"], r["dtype"]) for r in rows}
+    cn_launches, cn_by_shape, _ = phase_train_controlnet(smi)
+    more_training["train_controlnet"] = cn_launches
+    rows += phase_train_kernels_at(cn_by_shape, "train_controlnet", held)
+    t42 = time.perf_counter() - t_last
+    par_launches, _ = phase_parallel_world1(smi)
+    serving_rest.update(par_launches)
+    t43 = time.perf_counter() - t_last - t42
+    phase_tooling(smi, cold_build_s)
+    print(json.dumps({"phases_42_44_s": time.perf_counter() - t_last, "phase_42_s": t42,
+                      "phase_43_s": t43}), flush=True)
     # the masked route (T5's position bias) is no kernel: its count by path
     print(json.dumps({"attention_masked_launches_by_path": {
         p: n.get("attention_masked", 0) for p, n in sd3_launches.items()},
@@ -4868,6 +5403,13 @@ def main() -> int:
         "flash_bwd_dkv": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
         "flash_bwd_dq": dict(shape=[2, 4096, 10, 64], skv=4096, dtype="bfloat16"),
     }
+    # the ControlNet trainer's heaviest shape: batch 4 over 4096 tokens
+    # (held by this phase or, where an earlier path launched the same shape,
+    # by that one)
+    cn = dict(shape=[CN_TRAIN_BATCH, 4096, 8, 40], skv=4096, dtype="bfloat16")
+    train_cn_case = {"flash_fwd": cn, "flash_bwd_dkv": cn, "flash_bwd_dq": cn,
+                     "flash_stream": dict(shape=[CN_TRAIN_BATCH, 4096, 1, 512], skv=4096,
+                                          dtype="float32")}
     joint = dict(path="train_sd3", shape=[1, 4250, 24, 64], skv=4250, dtype="bfloat16")
     train_sd3_case = {
         "flash_fwd": joint, "flash_bwd_dkv": joint, "flash_bwd_dq": joint,
@@ -4933,6 +5475,13 @@ def main() -> int:
                                        "worst_over_limit", "kernel_ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")}
         train_sd3["launches"] = more_training["train_sd3"][name]
+        r = sorted((r for r in rows if r["kernel"] == name and not r["causal"]
+                    and all(r.get(k) == v for k, v in train_cn_case[name].items())),
+                   key=lambda r: r.get("path") != "train_controlnet")[0]
+        train_cn = {k: r[k] for k in ("shape", "skv", "dtype", "max_abs_err",
+                                      "worst_over_limit", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+        train_cn["launches"] = more_training["train_controlnet"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -4951,6 +5500,7 @@ def main() -> int:
             "train_sdxl_case": train_sdxl,
             "sd3_case": sd3,
             "train_sd3_case": train_sd3,
+            "train_controlnet_case": train_cn,
         })
     print(f"chip_smoke total command time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

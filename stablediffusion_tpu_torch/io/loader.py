@@ -646,7 +646,8 @@ def load_controlnet(path: str, device: torch.device, dtype: torch.dtype):
     return cfg, _load_component(path, ControlNetModel, cfg, device, dtype)
 
 
-def save_controlnet(controlnet: nn.Module, config: UNetConfig, path: str) -> None:
+def save_controlnet(controlnet: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    config: UNetConfig, path: str) -> None:
     """Write a diffusers-layout ControlNet folder (ControlNetModel's
     save_pretrained layout): the state dict in its dtypes and config.json,
     which :func:`load_controlnet` and the JAX package's ``load_controlnet``

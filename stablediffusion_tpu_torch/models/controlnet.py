@@ -159,6 +159,9 @@ def init_from_unet(unet: nn.Module, config: UNetConfig,
                     t.zero_()
                 else:
                     k, ci = t.shape[-1], t.shape[1]
-                    t.copy_(torch.randn(t.shape, generator=generator, dtype=torch.float32)
-                            .mul_(0.3 / (k * ci**0.5)).to(t))
+                    # drawn on the generator's device (a card's generator
+                    # draws on the card), then moved to the net's
+                    dev = generator.device if generator is not None else t.device
+                    t.copy_(torch.randn(t.shape, generator=generator, dtype=torch.float32,
+                                        device=dev).mul_(0.3 / (k * ci**0.5)).to(t))
     return net

@@ -29,6 +29,9 @@ from stablediffusion_tpu_torch.ops.quant import Int8Conv2d, Int8Linear, int8_con
 
 
 def lin(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    tp = m.__dict__.get("_tp")
+    if tp is not None:  # split over the tensor axis (parallel/tp.py)
+        return tp(m, x)
     if isinstance(m, Int8Linear):
         return int8_linear(m, x)
     return linear(x, m.weight, m.bias)

@@ -81,8 +81,10 @@ class _AdaLinear(nn.Module):
 
 
 def _heads(x: torch.Tensor, cfg: SD3Config) -> torch.Tensor:
+    """[B, S, heads * head_dim] -> [B, S, heads, head_dim], the heads counted
+    from the width (under tensor parallelism a rank holds a share of them)."""
     B, S, _ = x.shape
-    return x.reshape(B, S, cfg.num_attention_heads, cfg.attention_head_dim)
+    return x.reshape(B, S, -1, cfg.attention_head_dim)
 
 
 class JointAttention(nn.Module):

@@ -72,15 +72,19 @@ class Attention(nn.Module):
                 ip_ctx: Optional[torch.Tensor] = None, ip_scale=None) -> torch.Tensor:
         B, S, C = x.shape
         d = C // self.heads
-        q = lin(self.to_q, x).reshape(B, S, self.heads, d)
-        k = lin(self.to_k, ctx).reshape(B, ctx.shape[1], self.heads, d)
-        v = lin(self.to_v, ctx).reshape(B, ctx.shape[1], self.heads, d)
-        o = attention(q, k, v).reshape(B, S, C)
+        # the heads are counted from the projection's width: under tensor
+        # parallelism (parallel/tp.py) a rank holds heads / tensor of them
+        q = lin(self.to_q, x)
+        h = q.shape[-1] // d
+        q = q.reshape(B, S, h, d)
+        k = lin(self.to_k, ctx).reshape(B, ctx.shape[1], h, d)
+        v = lin(self.to_v, ctx).reshape(B, ctx.shape[1], h, d)
+        o = attention(q, k, v).reshape(B, S, h * d)
         if ip_ctx is not None and hasattr(self, "to_k_ip"):
             # the decoupled image stream, over the same queries
-            k_ip = lin(self.to_k_ip, ip_ctx).reshape(B, ip_ctx.shape[1], self.heads, d)
-            v_ip = lin(self.to_v_ip, ip_ctx).reshape(B, ip_ctx.shape[1], self.heads, d)
-            o_ip = attention(q, k_ip, v_ip).reshape(B, S, C)
+            k_ip = lin(self.to_k_ip, ip_ctx).reshape(B, ip_ctx.shape[1], h, d)
+            v_ip = lin(self.to_v_ip, ip_ctx).reshape(B, ip_ctx.shape[1], h, d)
+            o_ip = attention(q, k_ip, v_ip).reshape(B, S, h * d)
             # the scale rounded to the compute dtype first, as JAX casts it
             scale = float(torch.tensor(1.0 if ip_scale is None else float(ip_scale),
                                        dtype=o.dtype))

@@ -10,8 +10,9 @@ checks what the attention kernels take and lays out their C arguments.
 
 The library's file name carries a hash of its sources and flags, so an edited
 source rebuilds.  A file lock keeps concurrent processes from racing on the
-same build.  The build directory lies inside the package and is listed in
-``.gitignore``.  Nothing here runs at import time.
+same build.  The build directory (:data:`BUILD_DIR`) lies inside the
+package and is listed in ``.gitignore``, unless ``core/compile_cache``
+points it at a persistent cache.  Nothing here runs at import time.
 """
 
 from __future__ import annotations

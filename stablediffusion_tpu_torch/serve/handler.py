@@ -41,12 +41,25 @@ Port of ``stablediffusion_tpu/serve/handler.py:103-530``:
   * images come back as base64 JPEG, or as URLs through an upload sink;
   * every failure answers on the error channel ({"error", "traceback"}).
 
-Not ported here; each answers on the error channel and names its ROADMAP §1
-item: the "inference_wandb" mode (item 21) and a serving mesh (item 20); in
-the "train" mode, the trainer's options that ``train/trainer.check_args``
-refuses (item 20).  The "train" mode trains SD1.5 and SDXL models, as the
-JAX handler's does: an SD3 model is refused, with a pointer to
-``train/sd3_train.SD3LoRATrainer``.  An SD3 model has no
+The "inference_wandb" mode (``handler.py:422-470``) renders as
+"inference" and logs the run's config and images to wandb when it imports;
+without it (neither machine this port runs on has it) the answer carries
+the config inline, as JAX's does.  The "train" mode trains SD1.5 and SDXL
+models, as the JAX handler's does: an SD3 model is refused, with a pointer
+to ``train/sd3_train.SD3LoRATrainer``.
+
+A serving mesh (``parallel/mesh.py``, one process per GPU under torchrun):
+rank 0 owns HTTP and the batcher, and sends each request (with its seed
+drawn) and each merged call to every rank, which :meth:`Handler.follow`
+runs on the other ranks.  A call whose rows are per-sample (prompt and seed
+lists of one length, as the batcher's merged calls are) and divide by
+``data`` is split: each data group renders its rows (``parallel.mesh.rows``)
+and rank 0 gathers them in order; any other call stays whole on every rank,
+as JAX leaves such a batch replicated.  With ``tensor`` > 1 the denoiser's
+projections split over it (``parallel/tp.py``), marked again at each call,
+so that the model's state after any adapter, int8 or reload change is what
+splits.  Each pipeline call is one "generate" span
+(``utils/observability.trace``).  An SD3 model has no
 ``load_ip_adapter`` or ``load_textual_inversion``, so those keys answer "not
 supported", as they do in JAX.
 """
@@ -54,6 +67,7 @@ supported", as they do in JAX.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import inspect
 import io
@@ -77,6 +91,7 @@ from stablediffusion_tpu_torch.models.wrapper import SDModel
 from stablediffusion_tpu_torch.ops.quant import resolve_quant_mode
 from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model, StableDiffusion3Pipeline
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+from stablediffusion_tpu_torch.utils.observability import trace
 
 logger = logging.getLogger(__name__)
 
@@ -124,10 +139,6 @@ INFERENCE_ARG_KEYS = (
 )
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet, it comes with ROADMAP §1 item {item}")
-
-
 def encode_images_b64(images01: np.ndarray, fmt: str = "JPEG") -> list:
     """[B, H, W, 3] in [0, 1] float or uint8 -> base64 strings."""
     from PIL import Image
@@ -164,10 +175,20 @@ class Handler:
     ):
         from stablediffusion_tpu_torch.serve.upload import make_uploader
 
+        self.mesh = mesh
+        # this rank's part in a mesh over more than one process: the
+        # "leader" (rank 0) sends each call to the "follower" ranks
+        self.role = None
         if mesh is not None:
-            raise _later("a serving mesh", 20)
+            import torch.distributed as dist
+
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                self.role = "leader" if mesh.rank == 0 else "follower"
+        self._in_step = False  # inside a span every rank runs (see lockstep)
         self.device = model.device if model is not None and device is None \
             else resolve_device(device)
+        if mesh is not None and self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model
         self.model_dir = model_dir
         self.lora_dir = lora_dir or model_dir
@@ -252,9 +273,107 @@ class Handler:
             if q != self.model.quant_mode:
                 self.model.quantize(q)  # validates before it changes state
 
+    # -- the serving mesh -----------------------------------------------------
+    def _sends(self) -> bool:
+        """Whether a call made now must first go to the followers: on the
+        leader, outside a span that every rank runs already."""
+        return self.role == "leader" and not self._in_step
+
+    @staticmethod
+    def _send(msg) -> Any:
+        import torch.distributed as dist
+
+        box = [msg]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    @contextlib.contextmanager
+    def lockstep(self, msg=None):
+        """A span that every rank of the mesh runs at once, such as the
+        worker's set-up: nothing called inside it is sent again.  Given a
+        message (a call the followers run), the leader sends it first."""
+        if msg is not None and self._sends():
+            self._send(msg)
+        outer, self._in_step = self._in_step, True
+        try:
+            yield
+        finally:
+            self._in_step = outer
+
+    def follow(self) -> None:
+        """A follower's loop: run each request and call the leader sends,
+        until :meth:`stop_followers`."""
+        while True:
+            kind, payload = self._send(None)
+            if kind == "stop":
+                return
+            with self.lockstep():
+                try:
+                    if kind == "call":
+                        self(*payload)
+                    else:
+                        self._generate(*payload)
+                except Exception as e:  # the leader answers on the error channel
+                    logger.error("follower call failed: %s", e)
+
+    def stop_followers(self) -> None:
+        if self._sends():
+            self._send(("stop", None))
+
+    def _split_rows(self, args: Dict[str, Any]):
+        """(this rank's args, rows) when the call's rows are per-sample and
+        divide over ``data``; else None (the call stays whole)."""
+        from stablediffusion_tpu_torch.parallel.mesh import rows
+
+        mesh = self.mesh
+        if mesh is None or mesh.shape["data"] == 1:
+            return None
+        seed, prompt = args.get("seed"), args.get("prompt")
+        if not (isinstance(seed, list) and isinstance(prompt, list)
+                and len(seed) == len(prompt) and (args.get("num_images_per_prompt") or 1) == 1):
+            return None
+        B = len(seed)
+        per_row = ("prompt", "negative_prompt", "seed", "prompt_2", "negative_prompt_2",
+                   "prompt_3", "negative_prompt_3")
+        for k, v in args.items():
+            if (k not in per_row and isinstance(v, (list, np.ndarray, torch.Tensor))
+                    and len(v) == B):
+                return None  # another input with a row each: stays whole
+        sl = rows(mesh, B)
+        if sl == slice(None):
+            return None
+        local = dict(args)
+        for k in per_row:
+            if isinstance(local.get(k), list) and len(local[k]) == B:
+                local[k] = local[k][sl]
+        return local, B
+
+    def _gather_rows(self, out, B: int):
+        """Rank 0's whole output from every data group's rows."""
+        mesh = self.mesh
+        images = out.images.cpu().numpy() if isinstance(out.images, torch.Tensor) \
+            else np.asarray(out.images)
+        parts = mesh.all_gather_object((images, list(out.seed)), "data")
+        n = mesh.shape["data"]
+        whole = np.empty((B, *images.shape[1:]), images.dtype)
+        seeds = [None] * B
+        for d, (im, sd) in enumerate(parts):
+            whole[d::n] = im
+            seeds[d::n] = sd
+        return dataclasses.replace(out, images=whole, seed=seeds)
+
     # -- entry ----------------------------------------------------------------
     def __call__(self, request_input: Dict[str, Any], request_id: str = "") -> Dict:
         t0 = time.time()
+        if self._sends():
+            # the seed is drawn here, so that every rank renders with it
+            params = request_input.get("params") or {}
+            if request_input.get("seed") is None and params.get("seed") is None:
+                request_input = dict(request_input, seed=int(np.random.randint(0, int(1e9))))
+        with self.lockstep(("call", (request_input, request_id))):
+            return self._call(request_input, request_id, t0)
+
+    def _call(self, request_input: Dict[str, Any], request_id: str, t0: float) -> Dict:
         try:
             mode = request_input.get("mode", "inference")
             if "model" in request_input and request_input["model"]:
@@ -278,8 +397,8 @@ class Handler:
                 return self.constructor_mode(args, t0)
             if mode == "train":
                 return self.train_mode(request_input)
-            if mode in _LATER_MODES:
-                raise _later(f"mode {mode!r}", _LATER_MODES[mode])
+            if mode == "inference_wandb":
+                return self.inference_wandb_mode(args, t0)
             raise ValueError(f"unknown mode {mode!r}")
         except Exception as e:  # the error channel
             logger.error("request %s failed: %s", request_id, e)
@@ -291,7 +410,20 @@ class Handler:
     # -- modes ----------------------------------------------------------------
     def _generate(self, args: Dict[str, Any], output_type: str = "uint8"):
         """One pipeline call.  "uint8" quantizes on the card and copies; the
-        batcher passes "uint8_device" to copy on its postprocess thread."""
+        batcher passes "uint8_device" to copy on its postprocess thread.
+        Under a mesh, the call runs on every rank (see the module
+        docstring)."""
+        from stablediffusion_tpu_torch.parallel import tp
+
+        with self.lockstep(("generate", (args, output_type))):
+            split = self._split_rows(args)
+            denoisers = [getattr(self.model, n, None)
+                         for n in ("unet", "transformer", "refiner", "controlnet")]
+            with trace("generate"), tp.parallel(denoisers, self.mesh):
+                out = self._render(split[0] if split else args, output_type)
+            return self._gather_rows(out, split[1]) if split else out
+
+    def _render(self, args: Dict[str, Any], output_type: str):
         for key in ("image", "mask_image", "control_image", "ip_adapter_image"):
             if isinstance(args.get(key), str):
                 args = dict(args, **{key: decode_image_b64(args[key])})
@@ -338,6 +470,48 @@ class Handler:
         return {
             "images": images,
             "seed": out.seed,
+            "time_sec": round(time.time() - t0, 3),
+        }
+
+    def inference_wandb_mode(self, args: Dict[str, Any], t0: float) -> Dict:
+        """Generation and experiment logging (``handler.py:422-470``): the
+        run's config and images go to a wandb run when wandb imports, with
+        a per-image config table; without it the config comes back inline
+        (the reference crashes there, JAX fixed it)."""
+        out = self._generate(args)
+        config = {
+            "prompt": args.get("prompt"),
+            "negative_prompt": args.get("negative_prompt"),
+            "scheduler": self.model.scheduler_name,
+            "steps": args.get("num_inference_steps", 50),
+            "cfg": args.get("guidance_scale", 5.0),
+            "clip_skip": args.get("clip_skip"),
+            "seed": out.seed,
+            "adapters": self.model.get_list_adapters(),
+        }
+        run_url = None
+        try:
+            import wandb
+        except ImportError:
+            logger.info("wandb unavailable; returning config inline")
+        else:
+            run = wandb.init(project="sdtpu-inference", config=config)
+            columns = ["prompt", "negative_prompt", "scheduler", "steps", "cfg", "clip_skip",
+                       "seed", "adapters", "image"]
+            table = wandb.Table(columns=columns)
+            for im in out.images:
+                table.add_data(config["prompt"], config["negative_prompt"],
+                               config["scheduler"], config["steps"], config["cfg"],
+                               config["clip_skip"], config["seed"], str(config["adapters"]),
+                               wandb.Image(im))
+            run.log({"images": [wandb.Image(im) for im in out.images], "generations": table})
+            run_url = run.get_url()
+            run.finish()
+        return {
+            "images": encode_images_b64(out.images),
+            "seed": out.seed,
+            "config": config,
+            "wandb_url": run_url,
             "time_sec": round(time.time() - t0, 3),
         }
 
@@ -390,7 +564,7 @@ class Handler:
         if not data_dir:
             raise ValueError("train mode requires train.data_dir")
         args = SDTrainingArgs(**cfg)
-        trainer = SDLoRATrainer(self.model, args, data_dir)
+        trainer = SDLoRATrainer(self.model, args, data_dir, mesh=self.mesh)
         trainer.train()
         out: Dict[str, Any] = {"history": trainer.history}
         if args.full_finetune:
@@ -400,5 +574,3 @@ class Handler:
         return out
 
 
-# the JAX handler's other modes -> the ROADMAP §1 item that brings them
-_LATER_MODES = {"inference_wandb": 21}

@@ -24,7 +24,16 @@ its batcher are one object (``make_server``), so a program can run one in a
 thread and shut it down; ``trigger_fn`` goes through the server that
 ``make_server`` made last while it is open (its batcher, or the lock its serial
 requests share), else through ``get_handler()`` under that lock.
-``--mesh_dp``/``--mesh_tp`` (ROADMAP §1 item 20) raise.
+
+Under ``torchrun`` with ``--mesh_dp N [--mesh_tp K]`` (N x K processes, one
+per GPU; -1 takes every rank the tensor axis leaves) every rank builds the
+same handler and model; rank 0 serves HTTP and the batcher, and the other
+ranks follow its calls (``serve/handler.Handler.follow``): merged batches
+split over the data groups, the denoiser over the tensor ranks.  The
+kernels build into the persistent cache (``core/compile_cache``).
+
+    torchrun --nproc_per_node 2 -m stablediffusion_tpu_torch.serve.worker \
+        --model_dir D --model_name N --mesh_dp 2
 """
 
 from __future__ import annotations
@@ -177,8 +186,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--max_batch", type=int, default=8,
                    help="HTTP micro-batch cap; 1 = serial")
     p.add_argument("--batch_window_ms", type=float, default=25.0)
-    p.add_argument("--mesh_dp", type=int, default=0)
-    p.add_argument("--mesh_tp", type=int, default=1)
+    p.add_argument("--mesh_dp", type=int, default=0,
+                   help="split merged batches over N data ranks (torchrun processes); "
+                        "-1 = every rank the tensor axis leaves, 0 = off")
+    p.add_argument("--mesh_tp", type=int, default=1,
+                   help="split the denoiser's attention/MLP projections over K ranks "
+                        "(ranks used = dp*tp)")
     p.add_argument("--quantize", default=None,
                    help="int8 mode applied to the preloaded model before --warmup (auto | "
                         "w8 | w8a8 | w8a8:N); 'auto' picks by --max_batch "
@@ -191,37 +204,63 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def build_serving_mesh(dp: int, tp: int = 1, device=None):
+    """``--mesh_dp N [--mesh_tp K]``: the process group from torchrun's
+    environment and a data x tensor mesh over its ranks (JAX:
+    ``worker.build_serving_mesh``); None for a 1 x 1 mesh without torchrun."""
+    from stablediffusion_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+    if not maybe_initialize_distributed(device) and dp in (0, 1, -1) and tp == 1:
+        return None  # one process: no mesh overhead
+    return make_mesh(data=dp if dp else -1, tensor=tp)
+
+
 def build(args: argparse.Namespace) -> Server:
     """The server that ``main`` runs: the handler, the preloaded model, its
-    quantization, the warmup, the batcher."""
-    if args.mesh_dp or args.mesh_tp > 1:
-        raise NotImplementedError("--mesh_dp/--mesh_tp: not ported yet, they come with "
-                                  "ROADMAP §1 item 20")
-    handler = Handler(model_dir=args.model_dir, lora_dir=args.lora_dir, device=args.device)
-    # before --quantize, so that "auto" resolves for the merge batch
-    handler.expected_batch = max(1, int(args.max_batch))
-    if args.model_name:
-        handler.maybe_reload_model({"type": args.model_type, "name": args.model_name})
-    if args.quantize:
-        if handler.model is None:
-            logger.warning("--quantize ignored: no model preloaded")
-        else:
-            handler.maybe_reload_model({"quantize": args.quantize})
-    if args.warmup:
-        if handler.model is None:
-            logger.warning("--warmup ignored: no model preloaded")
-        else:
-            # the batcher pads merged groups to powers of two
-            batches = [1]
-            while batches[-1] * 2 <= args.max_batch:
-                batches.append(batches[-1] * 2)
-            handler.warmup(batches=tuple(batches))
-    return make_server(handler, args.host, args.port, args.max_batch, args.batch_window_ms)
+    quantization, the warmup, the batcher.  Under a mesh, call it on every
+    rank; the ranks but 0 then run ``server.handler.follow()``."""
+    from stablediffusion_tpu_torch.core.compile_cache import enable_compilation_cache
+
+    enable_compilation_cache()
+    mesh = (build_serving_mesh(args.mesh_dp, args.mesh_tp, args.device)
+            if (args.mesh_dp or args.mesh_tp > 1) else None)
+    if mesh is not None:
+        logger.info("serving mesh: %s", mesh.shape)
+    handler = Handler(model_dir=args.model_dir, lora_dir=args.lora_dir, device=args.device,
+                      mesh=mesh)
+    # every rank runs the same set-up in step, so none of it is sent
+    with handler.lockstep():
+        # before --quantize, so that "auto" resolves for the merge batch
+        handler.expected_batch = max(1, int(args.max_batch))
+        if args.model_name:
+            handler.maybe_reload_model({"type": args.model_type, "name": args.model_name})
+        if args.quantize:
+            if handler.model is None:
+                logger.warning("--quantize ignored: no model preloaded")
+            else:
+                handler.maybe_reload_model({"quantize": args.quantize})
+        if args.warmup:
+            if handler.model is None:
+                logger.warning("--warmup ignored: no model preloaded")
+            else:
+                # the batcher pads merged groups to powers of two
+                batches = [1]
+                while batches[-1] * 2 <= args.max_batch:
+                    batches.append(batches[-1] * 2)
+                handler.warmup(batches=tuple(batches))
+    # only rank 0 serves HTTP: the other ranks bind a free port they close
+    port = args.port if mesh is None or mesh.rank == 0 else 0
+    return make_server(handler, args.host, port, args.max_batch, args.batch_window_ms)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO)
     server = build(parse_args(argv))
+    mesh = server.handler.mesh
+    if mesh is not None and mesh.rank != 0:
+        server.server_close()  # rank 0 serves; this rank renders its share
+        server.handler.follow()
+        return
     try:
         try:
             import runpod  # the serverless job queue, when installed
@@ -231,6 +270,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         else:
             runpod.serverless.start({"handler": trigger_fn})
     finally:
+        server.handler.stop_followers()
         server.server_close()
 
 

@@ -1,13 +1,17 @@
-"""CLIP BPE tokenizer, pure Python.
+"""CLIP BPE tokenizer.
 
 Port of ``stablediffusion_tpu/tokenizer/clip_bpe.py`` (``CLIPTokenizer``
-:135, its pure-Python merge loop and text cleaning).  Word BPE over UTF-8
-bytes through the reversible byte table, the ``</w>`` end-of-word marker,
+:135, its merge loops and text cleaning).  Word BPE over UTF-8 bytes
+through the reversible byte table, the ``</w>`` end-of-word marker,
 vocab.json + merges.txt files (read and written), bos/eos wrapping,
 truncation and right padding, and textual-inversion triggers (``add_tokens``
 :235, ``clear_added_tokens``, the boundary-aware split of ``tokenize``
-:269-290).  The JAX package's native C++ merge loop (``native/bpe.cpp``) is
-not ported.
+:269-290).  Each word goes through the native C++ merge loop
+(``tokenizer/bpe_native.py`` over ``csrc/bpe.cpp``) when that builds and
+every symbol of the word is in the vocabulary, else through the
+pure-Python loop, as in JAX (:159-167, :300-308); the native table is built
+at the first word, not at construction.  :data:`TOKENIZE_PATHS` counts the
+words each path took.
 """
 
 from __future__ import annotations
@@ -109,6 +113,10 @@ def _bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, (chr(c) for c in cs)))
 
 
+# words tokenized by each merge loop, over every tokenizer of the process
+TOKENIZE_PATHS = {"native": 0, "python": 0}
+
+
 class CLIPTokenizer:
     def __init__(
         self,
@@ -130,6 +138,8 @@ class CLIPTokenizer:
         # textual-inversion triggers: lowercased whole-string match -> the
         # embedding-table ids it emits in place of BPE (one or more rows)
         self.added_tokens: Dict[str, List[int]] = {}
+        self._merges = merges
+        self._native = None  # built at the first word; False: unavailable
 
     @classmethod
     def from_files(cls, vocab_file: str, merges_file: str, **kw) -> "CLIPTokenizer":
@@ -236,8 +246,35 @@ class CLIPTokenizer:
                 continue
             for tok in _PATTERN.findall(part):
                 tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
-                ids.extend(self.vocab.get(piece, unk) for piece in self._bpe(tok))
+                native_ids = self._tokenize_native(tok)
+                if native_ids is not None:
+                    TOKENIZE_PATHS["native"] += 1
+                    ids.extend(native_ids)
+                else:
+                    TOKENIZE_PATHS["python"] += 1
+                    ids.extend(self.vocab.get(piece, unk) for piece in self._bpe(tok))
         return ids
+
+    def _tokenize_native(self, tok: str) -> Optional[List[int]]:
+        """The word's ids from the native loop, or None (no library, or a
+        symbol outside the vocabulary: the Python loop maps it to unk)."""
+        if self._native is None:
+            self._native = False
+            try:
+                from stablediffusion_tpu_torch.tokenizer.bpe_native import NativeBPE, available
+
+                if available():
+                    self._native = NativeBPE(self.vocab, self._merges)
+            except Exception:  # a merge whose result is not in the vocab
+                self._native = False
+        if self._native is False:
+            return None
+        try:
+            syms = [self.vocab[c] for c in tok[:-1]]
+            syms.append(self.vocab[tok[-1] + "</w>"])
+        except KeyError:
+            return None
+        return self._native.encode_word(syms)
 
     def __call__(
         self,

@@ -61,7 +61,9 @@ def _rebuild(template: Any, tensors: Mapping[str, torch.Tensor], scalars: Mappin
         if t.dtype != template.dtype or tuple(t.shape) != tuple(template.shape):
             raise ValueError(f"checkpoint tensor {path}: {t.dtype} {tuple(t.shape)} where "
                              f"the state holds {template.dtype} {tuple(template.shape)}")
-        return t.to(template.device)
+        t = t.to(template.device)
+        t.__dict__.update(template.__dict__)  # an FSDP slice's tags (parallel/zero.py)
+        return t
     return scalars[path]
 
 

@@ -13,15 +13,20 @@ made), then, with a ``--validation_prompt``, the validation render into
 after full fine-tuning or textual inversion, of the trained model itself
 (the JAX CLI loads a LoRA file there that those modes do not write).
 
-Not ported yet, and refused naming their ROADMAP §1 item: a device mesh or
-distributed launch (``--local_rank``, ``--shard_opt_state``,
-``--shard_params``: item 20).  ControlNet training, which has a CLI of its
-own in the JAX package (``controlnet_cli.py``), comes with item 19 after
-item 15's ControlNet model.
+Under ``torchrun`` (one process per GPU; ``--local_rank`` is read from its
+environment) the process group comes up from the environment
+(``parallel/mesh.maybe_initialize_distributed``) and the ranks form a data
+mesh over gcd(batch, world) of them, as JAX's CLI takes gcd(batch, device
+count) devices (a batch that does not divide runs whole on every rank);
+``--shard_opt_state`` (ZeRO-1) and ``--shard_params`` (FSDP) split the
+state over it.  The kernels build into the persistent cache
+(``core/compile_cache``).  ControlNet training has a CLI of its own,
+``train/controlnet_cli.py``, as in JAX.
 
 Usage:
     python -m stablediffusion_tpu_torch.train.cli --pretrained_model_name_or_path
         /path/to/diffusers-layout --train_data_dir /path/to/imgs --rank 16 ...
+    torchrun --nproc_per_node 2 -m stablediffusion_tpu_torch.train.cli ... --shard_opt_state
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import argparse
 import dataclasses
 import logging
 import os
+
+logger = logging.getLogger(__name__)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -131,9 +138,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "EMA is what gets saved")
     p.add_argument("--ema_decay", type=float, default=0.9999)
     p.add_argument("--shard_opt_state", action="store_true",
-                   help="ZeRO-1 (not ported yet: ROADMAP item 20)")
+                   help="ZeRO-1: split the Adam moments over the data ranks")
     p.add_argument("--shard_params", action="store_true",
-                   help="FSDP (not ported yet: ROADMAP item 20)")
+                   help="FSDP: split the trainable and frozen weights and the Adam moments "
+                        "over the data ranks; the UNet is gathered one block at a time, "
+                        "each block recomputed in the backward")
     p.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["no", "fp16", "bf16"])
     # checkpointing
@@ -172,19 +181,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 
-def _check_unported(args: argparse.Namespace) -> None:
-    later = {"--local_rank": (args.local_rank != -1, 20),
-             "--shard_opt_state": (args.shard_opt_state, 20),
-             "--shard_params": (args.shard_params, 20)}
-    for flag, (value, item) in later.items():
-        if value:
-            raise NotImplementedError(
-                f"{flag}: not ported yet, it comes with ROADMAP §1 item {item}")
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _check_unported(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     import numpy as np
@@ -205,7 +203,20 @@ def main(argv=None):
     from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
     from stablediffusion_tpu_torch.utils.images import to_uint8
 
+    import math
+
+    import torch.distributed as dist
+
+    from stablediffusion_tpu_torch.core.compile_cache import enable_compilation_cache
+    from stablediffusion_tpu_torch.parallel import make_mesh
+    from stablediffusion_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    enable_compilation_cache()
+    distributed = maybe_initialize_distributed(args.device)
+    world = dist.get_world_size() if distributed else 1
     device = resolve_device(args.device)
+    if distributed and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     model = load_sd_model(args.pretrained_model_name_or_path, model_type=args.model_type,
                           device=device)
     if args.pretrained_vae_model_name_or_path:
@@ -223,8 +234,8 @@ def main(argv=None):
         model._scheduler = None
 
     lr = args.learning_rate
-    if args.scale_lr:  # one device
-        lr *= args.gradient_accumulation_steps * args.train_batch_size
+    if args.scale_lr:
+        lr *= args.gradient_accumulation_steps * args.train_batch_size * world
 
     mixed = "bf16" if args.mixed_precision in ("bf16", "fp16") else "no"
     targs = SDTrainingArgs(
@@ -305,8 +316,21 @@ def main(argv=None):
             center_crop=args.center_crop,
             seed=args.seed,
         )
-    trainer = SDLoRATrainer(model, targs, args.train_data_dir, dataset=dataset)
+    mesh = None
+    if distributed:
+        n_data = math.gcd(args.train_batch_size, world)
+        if n_data < world:
+            logger.warning("batch %d not divisible by %d ranks: every rank trains the whole "
+                           "batch", args.train_batch_size, world)
+        # a mesh over every rank: n_data data groups would leave ranks out
+        mesh = make_mesh(data=world) if n_data == world else None
+    if mesh is None and (args.shard_opt_state or args.shard_params):
+        raise ValueError("--shard_opt_state/--shard_params need a data mesh: launch under "
+                         "torchrun with a batch that divides over the ranks")
+    trainer = SDLoRATrainer(model, targs, args.train_data_dir, dataset=dataset, mesh=mesh)
     trainer.train()
+    if distributed and dist.get_rank() != 0:
+        return trainer  # rank 0 writes the card and renders
 
     save_model_card(
         args.output_dir,

@@ -196,6 +196,10 @@ class AdamW:
     def __init__(self, lr_schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: Optional[float],
                  use_8bit: bool = False):
+        # the clipping norm of the gradient leaves; ZeRO-1
+        # (parallel/zero.ZeroOptimizer) sets the norm of the whole gradient
+        # from a rank's slices when it wraps this optimizer
+        self.norm_fn = global_norm
         self.lr_schedule = lr_schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -220,7 +224,7 @@ class AdamW:
         named = tree_leaves(params)
         g = [t.float() for _, t in tree_leaves(grads)]
         if self.max_grad_norm:
-            norm = global_norm(g)
+            norm = self.norm_fn(g)
             if not norm < self.max_grad_norm:
                 g = [t / norm * self.max_grad_norm for t in g]
         count = state["count"] + 1

@@ -27,7 +27,8 @@ The trainer runs ``trainer.train_loop``: its checkpoints are the port's
 (``train/checkpoint.py``) with the generator's state, and a resumed run
 skips the batches the saved steps consumed, so that it continues the
 straight run exactly; the JAX trainer restarts its key and data stream.
-A device mesh and sharded state (ROADMAP §1 item 20) raise.
+With a mesh, as ``trainer.SDLoRATrainer`` (``trainer.MeshPlan``: data
+ranks, ZeRO-1, FSDP; the MM-DiT's projections split over ``tensor``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ from stablediffusion_tpu_torch.core.config import (
     SD3Config,
     VAEConfig,
 )
-from stablediffusion_tpu_torch.lora.core import apply_lora_for_training, init_lora
+from stablediffusion_tpu_torch.lora.core import init_lora
+from stablediffusion_tpu_torch.parallel import zero
 from stablediffusion_tpu_torch.lora.formats import save_lora_file
 from stablediffusion_tpu_torch.models.vae import normalize_latents, sample_latent
 from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
@@ -58,11 +60,14 @@ from stablediffusion_tpu_torch.train.optim import make_lr_schedule, make_optimiz
 from stablediffusion_tpu_torch.train.train_step import (
     _draw,
     _resolve_remat,
+    lora_weights,
     make_train_step,
+    mesh_draws,
     remat,
     vae_moments,
 )
-from stablediffusion_tpu_torch.train.trainer import train_loop
+from stablediffusion_tpu_torch.train.trainer import MeshPlan, train_loop
+from stablediffusion_tpu_torch.utils.observability import trace
 
 logger = logging.getLogger(__name__)
 
@@ -196,12 +201,12 @@ def sd3_lora_loss_fn(
     else:
         embeds, pooled = _encode_prompts_train(statics, frozen, batch)
 
-    fused = apply_lora_for_training(transformer, lora["transformer"])
+    fused = lora_weights(transformer, zero.whole_tree(lora)["transformer"])
 
     dt = statics.compute_dtype
-    with remat(transformer, fused, _resolve_remat(statics)):
-        pred = functional_call(transformer, fused, (noisy.to(dt), timesteps, embeds.to(dt),
-                                                    pooled.to(dt)), strict=False).float()
+    with remat(transformer, fused, _resolve_remat(statics)) as w:
+        pred = functional_call(transformer, w, (noisy.to(dt), timesteps, embeds.to(dt),
+                                                pooled.to(dt)), strict=False).float()
     target = noise - latents  # the flow velocity
     per_sample = ((pred - target) ** 2).mean(dim=(1, 2, 3))
     if statics.weighting_scheme == "sigma_sqrt":
@@ -244,7 +249,7 @@ class SD3TrainingArgs:
     checkpointing_steps: Optional[int] = None
     checkpoints_total_limit: Optional[int] = None
     resume_from_checkpoint: Optional[str] = None
-    # not ported yet (ROADMAP §1 item 20): state sharded over a mesh
+    # ZeRO memory levers on a data mesh (parallel/zero.py)
     shard_opt_state: bool = False
     shard_params: bool = False
     output_dir: str = "sd3-lora-out"
@@ -268,12 +273,7 @@ class SD3LoRATrainer:
         {"down", "up"}}}) replaces the seeded initial factors and `draws`
         (step -> draws, see :func:`sd3_lora_loss_fn`) the generator's draws:
         both for parity tests."""
-        for name, value in (("mesh", mesh is not None),
-                            ("shard_opt_state", args.shard_opt_state),
-                            ("shard_params", args.shard_params)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}: not ported yet, it comes with ROADMAP §1 item 20")
+        self.plan = MeshPlan(mesh, args.shard_opt_state, args.shard_params)
         if data_dir is None and dataset is None:
             raise ValueError("need a data_dir or a dataset")
         self.model = model
@@ -283,7 +283,7 @@ class SD3LoRATrainer:
         self.initial = initial
         self.draws = draws
         self.metrics = None
-        if args.report_to == "tensorboard":
+        if args.report_to == "tensorboard" and self.plan.main:
             from stablediffusion_tpu_torch.utils.observability import Metrics
 
             self.metrics = Metrics(tensorboard_dir=f"{args.output_dir}/logs")
@@ -312,10 +312,11 @@ class SD3LoRATrainer:
 
         schedule = make_lr_schedule(args.lr_scheduler, args.learning_rate,
                                     args.lr_warmup_steps, total_steps)
-        optimizer = make_optimizer(
+        plan = self.plan
+        optimizer = plan.optimizer(make_optimizer(
             schedule, args.adam_beta1, args.adam_beta2, args.adam_epsilon,
             args.adam_weight_decay, args.max_grad_norm, args.gradient_accumulation_steps,
-            use_8bit=args.use_8bit_adam, accum_dtype=args.accum_dtype)
+            use_8bit=args.use_8bit_adam, accum_dtype=args.accum_dtype))
         opt_state = optimizer.init(lora)
 
         scheduler = FlowMatchEulerScheduler(model.scheduler_config)
@@ -334,15 +335,18 @@ class SD3LoRATrainer:
             vae_microbatch=args.vae_microbatch,
             remat_policy=args.remat_policy,
         )
-        step_fn = make_train_step(statics, scheduler, optimizer, loss=sd3_lora_loss_fn)
+        step_fn = make_train_step(statics, scheduler, optimizer, loss=sd3_lora_loss_fn,
+                                  mesh=plan.mesh, shard_params=args.shard_params)
         encode_fn = make_sd3_encode_fn(statics) if args.cache_latents else None
 
         frozen = {"transformer": model.transformer, "vae": model.vae,
                   "text_encoder": model.text_encoder, "text_encoder_2": model.text_encoder_2}
         if model.text_encoder_3 is not None:
             frozen["text_encoder_3"] = model.text_encoder_3
+        modules = list(frozen.values())
+        plan.split_modules(modules)
 
-        run = {"lora": lora, "opt_state": opt_state}
+        run = {"lora": plan.split(lora), "opt_state": opt_state}
 
         def state():
             return {**run, "rng": generator.get_state()}
@@ -354,10 +358,12 @@ class SD3LoRATrainer:
         def step_once(step, batch):
             tb = self._prepare_batch(batch)
             draws = self.draws(step) if self.draws is not None else None
-            if encode_fn is not None:
-                tb = encode_fn(frozen, tb, generator, draws)
-            run["lora"], run["opt_state"], metrics = step_fn(
-                run["lora"], run["opt_state"], frozen, tb, generator, draws=draws)
+            with trace("train_step", self.metrics):
+                if encode_fn is not None:
+                    with plan.gathered(modules):
+                        tb = encode_fn(frozen, tb, generator, mesh_draws(draws, plan.mesh))
+                run["lora"], run["opt_state"], metrics = step_fn(
+                    run["lora"], run["opt_state"], frozen, tb, generator, draws=draws)
             return metrics
 
         def logged(step, loss, batch, s_per_it):
@@ -365,11 +371,15 @@ class SD3LoRATrainer:
             if self.metrics is not None:
                 self.metrics.observe("train/loss", loss, step=step)
 
-        self.history = train_loop(args, dataset, total_steps, state, load, step_once, logged)
-        lora = run["lora"]
+        self.history = train_loop(args, dataset, total_steps, state, load, step_once, logged,
+                                  plan=plan)
+        plan.unsplit_modules(modules)
+        lora = plan.whole(run["lora"])
         self.lora = lora
         if self.metrics is not None:
             self.metrics.flush()
+        if not plan.main:
+            return lora
         os.makedirs(args.output_dir, exist_ok=True)
         save_lora_file(lora, f"{args.output_dir}/pytorch_lora_weights.safetensors",
                        metadata={"format": "pt", "rank": str(args.rank)})

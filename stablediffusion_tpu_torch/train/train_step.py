@@ -5,14 +5,16 @@ Port of ``stablediffusion_tpu/train/train_step.py`` (``compute_snr``,
 ``min_snr_weight``, ``TrainStatics``, ``encode_prompt_train``,
 ``_resolve_remat``, ``_prepare_diffusion``, ``make_encode_fn``,
 ``_prediction_loss``, ``loss_fn``, ``full_finetune_loss_fn``,
-``ti_loss_fn``, ``make_train_step``): VAE encode -> noise and random
+``controlnet_loss_fn``, ``ti_loss_fn``, ``make_train_step``): VAE encode -> noise and random
 timesteps -> add_noise -> text encode (SDXL: both towers' penultimate
 states and bigG's projected pooled) -> SDXL micro-conditioning -> UNet
 forward -> epsilon or velocity MSE with optional Min-SNR weighting and the
 DreamBooth prior-loss split -> gradients to the trainable tree -> the
 optimizer of ``train/optim.py``.  The trainable tree is the LoRA factors
-(``loss_fn``), the whole UNet as fp32 masters (``full_finetune_loss_fn``)
-or the placeholder token's embedding rows (``ti_loss_fn``).
+(``loss_fn``), the whole UNet as fp32 masters (``full_finetune_loss_fn``),
+a whole ControlNet as fp32 masters over the frozen UNet
+(``controlnet_loss_fn``) or the placeholder token's embedding rows
+(``ti_loss_fn``).
 
 Where the JAX step is one jitted function, this one runs eagerly:
 
@@ -57,8 +59,20 @@ Where the JAX step is one jitted function, this one runs eagerly:
 
 Layouts: the batch keeps the JAX package's public NHWC (``pixel_values``
 [B, H, W, 3] in [-1, 1], ``latents`` [B, h, w, 4]); the draws are NCHW, the
-layout the step computes in.  ControlNet training raises, naming its
-ROADMAP item.
+layout the step computes in.
+
+With a mesh (``parallel/mesh.py``) each rank holds its rows of the global
+batch (``parallel.shard_batch``).  The draws do not depend on the world
+size: each rank draws the global batch's from the same generator (or takes
+the injected global draws) and keeps its rows, so a run over any number of
+data ranks equals a 1-rank run on the same global batch.  The trainable
+gradients are averaged over ``data`` before the optimizer, and, for the
+leaves that feed the denoiser's tensor-split weights (``parallel/tp.py``),
+summed over ``tensor``.  Under ``shard_params`` (FSDP, ``parallel/zero.py``)
+the trainable tree and the frozen modules stay split: :func:`remat` gathers
+a denoiser's weights one block at a time (the block's checkpoint region
+gathers them again in the backward), the text towers and the VAE are held
+whole for the step, and the optimizer updates the slices.
 """
 
 from __future__ import annotations
@@ -80,23 +94,14 @@ from stablediffusion_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
 )
-from stablediffusion_tpu_torch.lora.core import apply_lora_for_training
+from stablediffusion_tpu_torch.lora.core import _fused, apply_lora_for_training, delta_w
 from stablediffusion_tpu_torch.models.layers import ResnetBlock2D
 from stablediffusion_tpu_torch.models.mmdit import JointTransformerBlock
 from stablediffusion_tpu_torch.models.unet import BasicTransformerBlock
 from stablediffusion_tpu_torch.models.vae import sample_latent
+from stablediffusion_tpu_torch.parallel import zero
 from stablediffusion_tpu_torch.schedulers.common import BaseScheduler
 from stablediffusion_tpu_torch.train.optim import global_norm, tree_leaves, unflatten
-
-# what the port does not train yet -> the ROADMAP §1 item that brings it
-_LATER = {
-    "ControlNet training": "item 19 (after item 15's ControlNet model)",
-}
-
-
-def later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP §1 {_LATER[what]}")
-
 
 def compute_snr(alphas_cumprod, timesteps: torch.Tensor) -> torch.Tensor:
     """SNR(t) = alpha_bar / (1 - alpha_bar), fp32, on timesteps' device."""
@@ -115,8 +120,7 @@ def min_snr_weight(snr: torch.Tensor, gamma: float, prediction_type: str) -> tor
 @dataclass(frozen=True)
 class TrainStatics:
     """Static settings of the step, with the JAX package's field names and
-    defaults.  ``controlnet_config`` must keep its default (its path
-    raises)."""
+    defaults."""
 
     unet_config: UNetConfig
     vae_config: VAEConfig
@@ -152,10 +156,7 @@ class TrainStatics:
 
 
 def check_supported(statics) -> None:
-    """Raise on settings whose path the port does not have (the SD3 step's
-    statics have no ControlNet field)."""
-    if getattr(statics, "controlnet_config", None) is not None:
-        raise later("ControlNet training")
+    """Raise on an unknown remat policy."""
     _resolve_remat(statics)
 
 
@@ -229,8 +230,8 @@ class _Region:
     They are held here because the recompute runs in the backward, after
     ``functional_call`` has put the module's own weights back."""
 
-    def __init__(self, unit: torch.nn.Module, weights: Mapping[str, torch.Tensor], kw):
-        self.unit, self.weights, self.kw = unit, weights, kw
+    def __init__(self, unit: torch.nn.Module, weights: Mapping[str, Any], kw, split: bool):
+        self.unit, self.weights, self.kw, self.split = unit, weights, kw, split
         self.inside = False
 
     def __call__(self, *args, **kwargs):
@@ -241,20 +242,45 @@ class _Region:
     def _run(self, *args, **kwargs):
         self.inside = True
         try:
-            return functional_call(self.unit, self.weights, args, kwargs, strict=False)
+            weights = _whole_weights(self.unit, self.weights) if self.split else self.weights
+            return functional_call(self.unit, weights, args, kwargs, strict=False)
         finally:
             self.inside = False
 
 
+def _whole_weights(module: torch.nn.Module, weights: Mapping[str, Any], skip=()) -> dict:
+    """FSDP: `weights` made whole for a call of `module` (a callable called,
+    a split slice gathered), with the whole of each split parameter of
+    `module` that they do not replace, but for those under the prefixes
+    `skip`."""
+    out = {k: v() if callable(v) else zero.whole(v) for k, v in weights.items()}
+    for n, p in module.named_parameters():
+        if n not in out and zero.is_split(p) and not n.startswith(skip):
+            out[n] = zero.whole(p)
+    return out
+
+
 @contextlib.contextmanager
-def remat(model: torch.nn.Module, weights: Mapping[str, torch.Tensor], policy: str):
+def remat(model: torch.nn.Module, weights: Mapping[str, Any], policy: str):
     """Within the block, each of `model`'s :data:`REMAT_UNITS` runs as one
     checkpoint region under `policy` (one of :data:`REMAT_POLICIES`), so
     that the backward holds the regions' inputs and one region's
     activations at a time.  `weights` are those the caller substitutes for
-    the model's through ``functional_call`` ({} for none)."""
+    the model's through ``functional_call`` ({} for none); the block
+    yields those to substitute in the call of `model` itself.
+
+    FSDP (`model`'s parameters or `weights`' entries split by
+    ``parallel/zero``, and entries that may then be callables making a
+    weight): every unit runs as a region ("full" for the policy "none"),
+    which makes its weights whole at its start and again in the
+    backward's recompute, so that the whole copies of one unit are alive at
+    a time; the call of `model` itself gets the rest whole."""
+    split = zero.is_split_module(model) or any(callable(v) or zero.is_split(v)
+                                                for v in weights.values())
+    if policy == "none" and split:
+        policy = "full"
     if policy == "none":
-        yield
+        yield weights
         return
     kw = {}
     if policy == "dots":
@@ -265,9 +291,14 @@ def remat(model: torch.nn.Module, weights: Mapping[str, torch.Tensor], policy: s
     units = [(name, m) for name, m in model.named_modules() if isinstance(m, REMAT_UNITS)]
     for name, unit in units:
         sub = {k[len(name) + 1:]: v for k, v in weights.items() if k.startswith(name + ".")}
-        unit.forward = _Region(unit, sub, kw)
+        unit.forward = _Region(unit, sub, kw, split)
     try:
-        yield
+        if split:
+            inside = tuple(name + "." for name, _ in units)
+            yield _whole_weights(model, {k: v for k, v in weights.items()
+                                         if not k.startswith(inside)}, inside)
+        else:
+            yield weights
     finally:
         for _, unit in units:
             del unit.forward
@@ -319,14 +350,42 @@ def vae_moments(vae, pixels: torch.Tensor, vae_dtype: torch.dtype, microbatch: i
     return torch.cat([m for m, _ in moments]), torch.cat([lv for _, lv in moments])
 
 
+class MeshDraws(dict):
+    """A mesh rank's draws: the injected global ones (if any), and its
+    ``rows`` (data ranks, data index) of the global batch, which
+    :func:`_draw` keeps of every draw."""
+
+    def __init__(self, draws: Optional[Mapping[str, torch.Tensor]], rows: tuple):
+        super().__init__(draws or {})
+        self.rows = rows
+
+
+def mesh_draws(draws: Optional[Mapping[str, torch.Tensor]], mesh):
+    """`draws` for a rank of `mesh` (:class:`MeshDraws`), so that its draws
+    are its rows of the global batch's and do not depend on the world size;
+    `draws` as they are without a mesh."""
+    from stablediffusion_tpu_torch.parallel.mesh import DATA_AXIS
+
+    if mesh is None or (mesh.shape[DATA_AXIS] == 1 and mesh.groups[DATA_AXIS] is None):
+        return draws
+    return MeshDraws(draws, (mesh.shape[DATA_AXIS], mesh.data_index))
+
+
 def _draw(draws, generator, device, name, shape, make=None):
     """draws[name] on `device` when given, else a fresh standard normal of
-    `shape` from `generator` (or `make(shape)`)."""
+    `shape` from `generator` (or `make(shape)`).  A mesh rank's draws
+    (:class:`MeshDraws`) are the global batch's, of which this rank's rows
+    are kept."""
+    rows = getattr(draws, "rows", None)
+    if rows is not None:
+        shape = (shape[0] * rows[0], *shape[1:])
     if draws is not None and name in draws:
-        return draws[name].to(device)
-    if make is not None:
-        return make(shape)
-    return torch.randn(shape, generator=generator, device=device)
+        x = draws[name].to(device)
+    elif make is not None:
+        x = make(shape)
+    else:
+        x = torch.randn(shape, generator=generator, device=device)
+    return x if rows is None else x[rows[1]::rows[0]]
 
 
 def _prepare_diffusion(
@@ -445,6 +504,20 @@ def _prediction_loss(pred, latents, noise, timesteps, statics: TrainStatics,
     return per_sample.mean()
 
 
+def lora_weights(module, factors) -> dict:
+    """``apply_lora_for_training``'s fused weights; of an FSDP-split module,
+    callables that :func:`remat` calls inside each weight's block, where the
+    base weight is gathered whole."""
+    if not zero.is_split_module(module):
+        return apply_lora_for_training(module, factors)
+    return {f"{path}.weight": functools.partial(_fuse_whole, module.get_submodule(path), f)
+            for path, f in factors.items()}
+
+
+def _fuse_whole(m: torch.nn.Module, factors) -> torch.Tensor:
+    return _fused(zero.whole(m.weight), delta_w(factors))
+
+
 def _fused_tower(module, factors) -> Callable:
     """`module` with its LoRA-fused weights, differentiable in `factors`."""
     fused = apply_lora_for_training(module, factors)
@@ -469,9 +542,9 @@ def _unet_pred(unet, weights: Mapping[str, torch.Tensor], noisy, timesteps, embe
     """The UNet's prediction, fp32, with `weights` substituted for its own
     ({} for none), in the compute dtype, under the remat policy."""
     dt = statics.compute_dtype
-    with remat(unet, weights, _resolve_remat(statics)):
-        pred = functional_call(unet, weights, (noisy.to(dt), timesteps, embeds.to(dt),
-                                               added_cond), strict=False)
+    with remat(unet, weights, _resolve_remat(statics)) as w:
+        pred = functional_call(unet, w, (noisy.to(dt), timesteps, embeds.to(dt), added_cond),
+                               strict=False)
     return pred.float()
 
 
@@ -489,6 +562,7 @@ def loss_fn(
     ``lora["text_encoder"]`` / ``lora["text_encoder_2"]``.  `frozen` holds
     the modules "unet", "vae", "text_encoder" (and "text_encoder_2")."""
     check_supported(statics)
+    lora = zero.whole_tree(lora)
     te = te2 = None
     if statics.train_text_encoder:
         if "text_encoder" in lora:
@@ -499,8 +573,8 @@ def loss_fn(
         frozen, batch, generator, statics, scheduler, draws, te=te, te2=te2
     )
     unet = frozen["unet"]
-    fused = apply_lora_for_training(unet, lora["unet"])
-    pred = _unet_pred(unet, fused, noisy, timesteps, embeds, added_cond, statics)
+    pred = _unet_pred(unet, lora_weights(unet, lora["unet"]), noisy, timesteps, embeds,
+                      added_cond, statics)
     return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
 
 
@@ -525,6 +599,63 @@ def full_finetune_loss_fn(
     return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
 
 
+def _controlnet_remat(statics) -> str:
+    """JAX's ControlNet step (:446-452) takes ``remat_policy`` when set; its
+    legacy ``gradient_checkpointing`` flag there means "dots"
+    (``dots_with_no_batch_dims_saveable``), not "full"."""
+    if statics.remat_policy:
+        return _resolve_remat(statics)
+    return "dots" if statics.gradient_checkpointing else "none"
+
+
+def control_image_for(cond: torch.Tensor, latent_hw) -> torch.Tensor:
+    """The NHWC conditioning batch in [0, 1] as NCHW at latent x 8
+    (:427-433): resized only when it differs, bilinear with antialiasing,
+    which equals ``jax.image.resize(..., "bilinear")`` both ways (that
+    antialiases a downscale; ``F.interpolate`` without it would not)."""
+    cond = cond.permute(0, 3, 1, 2)
+    h8, w8 = latent_hw[0] * 8, latent_hw[1] * 8
+    if tuple(cond.shape[-2:]) != (h8, w8):
+        cond = torch.nn.functional.interpolate(cond.float(), size=(h8, w8), mode="bilinear",
+                                               align_corners=False, antialias=True)
+    return cond
+
+
+def controlnet_loss_fn(
+    controlnet: Mapping[str, torch.Tensor],
+    frozen: Mapping[str, Any],
+    batch: Mapping[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    statics: TrainStatics,
+    scheduler: BaseScheduler,
+    draws: Optional[Mapping[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The loss of ControlNet training (:404-462): the trainable tree is a
+    whole ControlNet, {parameter name: fp32 master}, in place of every
+    weight of ``frozen["controlnet"]`` (which only lends its structure),
+    cast to the compute dtype at each use; its residuals go into the
+    frozen UNet.  The batch adds ``conditioning_pixel_values`` [B, H, W, 3]
+    in [0, 1].  The UNet's down and mid blocks take no gradient: the
+    residuals join after them (the skips and the mid-block's output), so
+    only the ControlNet and the UNet's up blocks run their backward."""
+    check_supported(statics)
+    dt = statics.compute_dtype
+    latents, noise, timesteps, noisy, embeds, added_cond = _prepare_diffusion(
+        frozen, batch, generator, statics, scheduler, draws)
+    cond = control_image_for(batch["conditioning_pixel_values"].to(noisy.device),
+                             noisy.shape[-2:])
+    net, unet = frozen["controlnet"], frozen["unet"]
+    policy = _controlnet_remat(statics)
+    with remat(net, controlnet, policy) as w_net, remat(unet, {}, policy) as w_unet:
+        down_res, mid_res = functional_call(
+            net, w_net, (noisy.to(dt), timesteps, embeds.to(dt), cond.to(dt)),
+            {"added_cond": added_cond}, strict=False)
+        pred = functional_call(unet, w_unet, (noisy.to(dt), timesteps, embeds.to(dt), added_cond),
+                               {"down_block_residuals": down_res, "mid_block_residual": mid_res},
+                               strict=False)
+    return _prediction_loss(pred.float(), latents, noise, timesteps, statics, scheduler)
+
+
 def ti_loss_fn(
     ti: Mapping[str, torch.Tensor],
     frozen: Mapping[str, Any],
@@ -540,6 +671,7 @@ def ti_loss_fn(
     tables at ``statics.ti_rows`` (``ti_rows_2``); the UNet and every other
     row stay frozen, so the gradients reach those rows only."""
     check_supported(statics)
+    ti = zero.whole_tree(ti)
     te = _spliced_tower(frozen["text_encoder"], statics.ti_rows, ti["embeddings"])
     te2 = None
     if statics.is_sdxl:
@@ -550,34 +682,116 @@ def ti_loss_fn(
     return _prediction_loss(pred, latents, noise, timesteps, statics, scheduler)
 
 
-def make_train_step(statics, scheduler: BaseScheduler, optimizer, loss=loss_fn):
+def _tp_partial(path: str, marked: Mapping[str, Mapping[str, str]]) -> bool:
+    """Whether the trainable leaf `path` feeds a tensor-split weight of the
+    component a prefix of `marked` names ({prefix: {module: "col"|"row"}}):
+    its gradient is then this rank's part, summed over ``tensor``.  A
+    row-parallel bias is added after the all-reduce, whole on every rank."""
+    for prefix, names in marked.items():
+        if prefix:
+            if not path.startswith(prefix + "."):
+                continue
+            path = path[len(prefix) + 1:]
+        mod, _, leaf = path.rpartition(".")
+        if mod in names and (leaf in ("down", "up", "weight")
+                             or (leaf == "bias" and names[mod] == "col")):
+            return True
+    return False
+
+
+# elements of one all-reduce of the gradients (64 MB of fp32)
+_BUCKET = 1 << 24
+
+
+def _mean_over_data(mesh, grads):
+    """The gradients averaged over ``data``: consecutive leaves of one dtype
+    flattened into buckets of up to :data:`_BUCKET` elements, one
+    all-reduce each (a collective a leaf would cost one launch a leaf)."""
+    from stablediffusion_tpu_torch.parallel.mesh import DATA_AXIS
+
+    n = mesh.shape[DATA_AXIS]
+    out, i = list(grads), 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and grads[j].dtype == grads[i].dtype and (
+                j == i or size + grads[j].numel() <= _BUCKET):
+            size += grads[j].numel()
+            j += 1
+        flat = torch.cat([g.reshape(-1) for g in grads[i:j]])
+        mesh.all_reduce_(flat, DATA_AXIS).div_(n)
+        for k, part in zip(range(i, j), flat.split([g.numel() for g in grads[i:j]])):
+            out[k] = part.view_as(grads[k])
+        i = j
+    return out
+
+
+def make_train_step(statics, scheduler: BaseScheduler, optimizer, loss=loss_fn, mesh=None,
+                    shard_params: bool = False):
     """The train step ``step(trainable, opt_state, frozen, batch, generator,
     draws=None) -> (trainable, opt_state, {"loss", "grad_norm"})``.  `loss`
     picks the mode, as in JAX: :func:`loss_fn` with `trainable` {"unet":
     lora[, "text_encoder": lora, "text_encoder_2": lora]},
-    :func:`full_finetune_loss_fn` with the UNet's masters, :func:`ti_loss_fn`
+    :func:`full_finetune_loss_fn` with the UNet's masters,
+    :func:`controlnet_loss_fn` with the ControlNet's, :func:`ti_loss_fn`
     with the placeholder's rows (``train/sd3_train.sd3_lora_loss_fn`` with
     its statics).  The trainable tensors are updated in place (see
     ``train/optim.py``) and returned.  ``grad_norm`` is the global norm of
     the gradients before clipping, as ``optax.global_norm(grads)`` is in the
-    JAX step; both metrics are 0-d fp32 tensors on the device."""
+    JAX step; both metrics are 0-d fp32 tensors on the device.
+
+    With a `mesh` the batch holds this rank's rows and the step runs as the
+    module docstring says; a ZeRO-1 optimizer is the caller's
+    (``parallel/zero.ZeroOptimizer`` around `optimizer`).  With
+    `shard_params` (which needs that optimizer, and a mesh whose
+    ``tensor`` is 1), `trainable` is this rank's slices
+    (``zero.shard_tree``) and the frozen modules are split
+    (``zero.shard_modules_``)."""
     check_supported(statics)
+    from stablediffusion_tpu_torch.parallel import tp
+    from stablediffusion_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
+
+    if shard_params:
+        if mesh is None:
+            raise ValueError("shard_params splits state over the data axis: pass a mesh")
+        if not isinstance(optimizer, zero.ZeroOptimizer):
+            raise ValueError("shard_params updates split masters: wrap the optimizer in "
+                             "parallel.zero.ZeroOptimizer")
+        if mesh.shape[TENSOR_AXIS] > 1:
+            raise ValueError("shard_params splits over data only: not on a tensor > 1 mesh")
+    grad_norm = optimizer.grad_norm if shard_params else global_norm
 
     def step(trainable, opt_state, frozen, batch, generator, draws=None):
+        denoisers = [frozen.get("unet"), frozen.get("transformer")]
+        # FSDP: remat gathers a denoiser block by block, the rest is whole
+        # for the step
+        spans = [m for k, m in frozen.items()
+                 if k not in ("unet", "transformer", "controlnet")] if shard_params else []
         leaves = [t for _, t in tree_leaves(trainable)]
-        for t in leaves:
-            t.requires_grad_(True)
-        loss_val = loss(trainable, frozen, batch, generator, statics, scheduler, draws)
-        # a factor no path reaches (CLIP-L's last layer under SDXL) gets a
-        # zero gradient, as jax.grad gives it
-        grads = torch.autograd.grad(loss_val, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        for t in leaves:
-            t.requires_grad_(False)
-        grad_tree = unflatten(trainable, grads)
-        trainable, opt_state = optimizer.update(grad_tree, opt_state, trainable)
-        return trainable, opt_state, {"loss": loss_val.detach(),
-                                      "grad_norm": global_norm(list(grads))}
+        with zero.gathered(spans), tp.parallel(denoisers, mesh) as marked:
+            for t in leaves:
+                t.requires_grad_(True)
+            loss_val = loss(trainable, frozen, batch, generator, statics, scheduler,
+                            mesh_draws(draws, mesh))
+            # a factor no path reaches (CLIP-L's last layer under SDXL) gets a
+            # zero gradient, as jax.grad gives it
+            grads = list(torch.autograd.grad(loss_val, leaves, allow_unused=True,
+                                             materialize_grads=True))
+            for t in leaves:
+                t.requires_grad_(False)
+        loss_val = loss_val.detach()
+        if mesh is not None:
+            split = {"": marked.get(0, {})} if loss is full_finetune_loss_fn else \
+                {"unet": marked.get(0, {}), "transformer": marked.get(1, {})}
+            # a split leaf's gradient comes averaged from zero.whole's backward
+            whole = [i for i, t in enumerate(leaves) if not zero.is_split(t)]
+            for i, g in zip(whole, _mean_over_data(mesh, [grads[i] for i in whole])):
+                grads[i] = g
+            for (p, _), g in zip(tree_leaves(trainable), grads):
+                if _tp_partial(p, split):
+                    mesh.all_reduce_(g, TENSOR_AXIS)
+            loss_val = mesh.all_reduce_(loss_val.clone(), DATA_AXIS).div_(mesh.shape[DATA_AXIS])
+        trainable, opt_state = optimizer.update(unflatten(trainable, grads), opt_state,
+                                                trainable)
+        return trainable, opt_state, {"loss": loss_val, "grad_norm": grad_norm(grads)}
 
     return step
-

@@ -48,7 +48,15 @@ Where it differs from the JAX trainer:
     last bit.
   * A combination of options the JAX trainer refuses in ``train()`` is
     refused when the trainer is built, before its log writer opens.
-  * A device mesh or sharded state (ROADMAP §1 item 20) raises.
+  * With a mesh (``parallel/mesh.py``, one process per GPU under
+    torchrun), ``train_batch_size`` is the global batch: each data rank
+    reads its rows (``batches(shard_index=, num_shards=)``), the step
+    averages the gradients (``train_step.make_train_step``), and
+    ``shard_opt_state`` (ZeRO-1) / ``shard_params`` (FSDP) split the state
+    over ``data`` (``parallel/zero.py``).  Rank 0 logs, renders and saves;
+    over more than one rank each rank checkpoints its own state under
+    ``{output_dir}/rank-{r}``, where JAX's orbax writes one global
+    checkpoint.
 
 Like the JAX trainer, tower 2 is tokenized from the dataset's captions
 (``trainer.py:759``), not from the instance prompt or the template.
@@ -77,6 +85,7 @@ from stablediffusion_tpu_torch.train import checkpoint as ckpt
 from stablediffusion_tpu_torch.train.dataset import DreamBoothDataset, SDLoRADataset
 from stablediffusion_tpu_torch.train.optim import make_lr_schedule, make_optimizer
 from stablediffusion_tpu_torch.train.ti_templates import OBJECT_TEMPLATES, STYLE_TEMPLATES
+from stablediffusion_tpu_torch.utils.observability import trace
 from stablediffusion_tpu_torch.train.train_step import (
     TOKEN_TABLE,
     TrainStatics,
@@ -84,6 +93,7 @@ from stablediffusion_tpu_torch.train.train_step import (
     loss_fn,
     make_encode_fn,
     make_train_step,
+    mesh_draws,
     ti_loss_fn,
 )
 
@@ -147,7 +157,8 @@ class SDTrainingArgs:
     full_finetune: bool = False
     use_ema: bool = False
     ema_decay: float = 0.9999
-    # not ported yet (ROADMAP §1 item 20): state sharded over a mesh
+    # ZeRO memory levers on a data mesh (parallel/zero.py): split the Adam
+    # moments (ZeRO-1), and the trainable and frozen weights (FSDP)
     shard_opt_state: bool = False
     shard_params: bool = False
     # "peft" (diffusers load_lora_weights) | "kohya" (A1111/kohya-ss)
@@ -171,24 +182,90 @@ class SDTrainingArgs:
     sample_batch_size: int = 4
 
 
-def check_args(args: SDTrainingArgs, mesh=None) -> None:
-    """Raise, naming the ROADMAP §1 item, on an option the port does not
-    have."""
-    later = {
-        "mesh": (mesh is not None, 20),
-        "shard_opt_state": (args.shard_opt_state, 20),
-        "shard_params": (args.shard_params, 20),
-    }
-    for name, (value, item) in later.items():
-        if value:
-            raise NotImplementedError(
-                f"{name}: not ported yet, it comes with ROADMAP §1 item {item}")
+class MeshPlan:
+    """A trainer's use of a mesh (None: this process alone): the optimizer
+    (ZeRO-1 wrapped), where the state lives (FSDP), which rank writes, and
+    where each rank checkpoints."""
+
+    def __init__(self, mesh=None, shard_opt_state: bool = False, shard_params: bool = False):
+        if (shard_opt_state or shard_params) and mesh is None:
+            raise ValueError("shard_opt_state/shard_params split state over the data axis — "
+                             "pass a mesh (or --mesh_dp on the CLI)")
+        self.mesh = mesh
+        self.shard_opt_state, self.shard_params = shard_opt_state, shard_params
+
+    @property
+    def main(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def world(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_world_size() if self.mesh is not None and dist.is_initialized() else 1
+
+    def data(self):
+        """(data ranks, this rank's data index)."""
+        if self.mesh is None:
+            return 1, 0
+        return self.mesh.shape["data"], self.mesh.data_index
+
+    def optimizer(self, optimizer):
+        """ZeRO-1 around `optimizer` (FSDP's slices need it too)."""
+        if not (self.shard_opt_state or self.shard_params):
+            return optimizer
+        from stablediffusion_tpu_torch.parallel.zero import ZeroOptimizer
+
+        return ZeroOptimizer(optimizer, self.mesh)
+
+    def split(self, tree):
+        """This rank's slices of a trainable tree under FSDP."""
+        if not self.shard_params:
+            return tree
+        from stablediffusion_tpu_torch.parallel import zero
+
+        return zero.shard_tree(tree, self.mesh)
+
+    def split_modules(self, modules) -> None:
+        if self.shard_params:
+            from stablediffusion_tpu_torch.parallel import zero
+
+            zero.shard_modules_(modules, self.mesh)
+
+    def whole(self, tree):
+        """The whole trainable tree from the ranks' slices (a collective)."""
+        if not self.shard_params:
+            return tree
+        from stablediffusion_tpu_torch.parallel import zero
+
+        return zero.gather_tree(tree)
+
+    def unsplit_modules(self, modules) -> None:
+        if self.shard_params:
+            from stablediffusion_tpu_torch.parallel import zero
+
+            zero.unshard_modules_(modules)
+
+    def gathered(self, modules):
+        """A block with the frozen modules whole (every rank enters it)."""
+        import contextlib
+
+        if not self.shard_params:
+            return contextlib.nullcontext()
+        from stablediffusion_tpu_torch.parallel import zero
+
+        return zero.gathered(modules)
+
+    def ckpt_dir(self, output_dir: str) -> str:
+        return output_dir if self.world == 1 else os.path.join(output_dir,
+                                                               f"rank-{self.mesh.rank}")
 
 
 def train_loop(args, dataset, total_steps: int, state: Callable[[], dict],
                load: Callable[[dict], None], step_once: Callable[[int, Mapping], Mapping],
                logged: Callable[[int, float, Mapping, float], None],
-               after: Optional[Callable[[int], None]] = None):
+               after: Optional[Callable[[int], None]] = None,
+               plan: Optional[MeshPlan] = None):
     """The loop of both trainers (this one and ``sd3_train.SD3LoRATrainer``):
     resume from ``args.resume_from_checkpoint`` (the checkpoint's tree is
     ``state()``, handed back to ``load``) and skip the batches the saved
@@ -196,11 +273,18 @@ def train_loop(args, dataset, total_steps: int, state: Callable[[], dict],
     then per step ``step_once(step, batch)`` (0-based, the collated batch)
     -> metrics, ``logged(step, loss, batch, seconds per step)`` every
     ``log_every`` steps and at the last, ``after(step)``, and a checkpoint
-    of ``state()`` every ``checkpointing_steps``.  Returns the logged
-    (step, loss) pairs."""
+    of ``state()`` every ``checkpointing_steps``.  Under a mesh (`plan`)
+    each data rank reads its rows of each global batch, and only rank 0
+    logs.  Returns the logged (step, loss) pairs."""
+    plan = plan or MeshPlan()
+    n_data, d = plan.data()
+    if args.train_batch_size % n_data:
+        raise ValueError(f"train_batch_size {args.train_batch_size} does not divide over "
+                         f"{n_data} data ranks")
+    ckpt_dir = plan.ckpt_dir(args.output_dir)
     start_step = 0
     if args.resume_from_checkpoint:
-        found = ckpt.resolve_resume(args.resume_from_checkpoint, args.output_dir)
+        found = ckpt.resolve_resume(args.resume_from_checkpoint, ckpt_dir)
         if found:
             start_step, path = found
             load(ckpt.load_checkpoint(path, state()))
@@ -208,7 +292,8 @@ def train_loop(args, dataset, total_steps: int, state: Callable[[], dict],
     step = start_step
     t0 = time.time()
     history = []
-    batch_iter = dataset.batches(args.train_batch_size, epochs=None)
+    batch_iter = dataset.batches(args.train_batch_size // n_data, epochs=None,
+                                 shard_index=d, num_shards=n_data)
     try:
         for _ in range(start_step):  # the batches the saved steps consumed
             next(batch_iter)
@@ -220,12 +305,12 @@ def train_loop(args, dataset, total_steps: int, state: Callable[[], dict],
             if step % args.log_every == 0 or step == total_steps:
                 loss = float(metrics["loss"])
                 history.append((step, loss))
-                logged(step, loss, batch, (time.time() - t0) / max(step - start_step, 1))
+                if plan.main:
+                    logged(step, loss, batch, (time.time() - t0) / max(step - start_step, 1))
             if after is not None:
                 after(step)
             if args.checkpointing_steps and step % args.checkpointing_steps == 0:
-                ckpt.save_checkpoint(args.output_dir, step, state(),
-                                     args.checkpoints_total_limit)
+                ckpt.save_checkpoint(ckpt_dir, step, state(), args.checkpoints_total_limit)
     finally:
         batch_iter.close()
     return history
@@ -247,7 +332,7 @@ class SDLoRATrainer:
         {"down", "up"}}}) replaces the seeded initial factors and `draws`
         (step -> NCHW draws, see ``train_step._prepare_diffusion``) the
         generator's draws: both for parity tests."""
-        check_args(args, mesh)
+        self.plan = MeshPlan(mesh, args.shard_opt_state, args.shard_params)
         if data_dir is None and dataset is None:
             raise ValueError("need a data_dir or a dataset")
         self.model = model
@@ -258,7 +343,7 @@ class SDLoRATrainer:
         self.draws = draws
         self._check_modes()
         self.metrics = None
-        if args.report_to == "tensorboard":
+        if args.report_to == "tensorboard" and self.plan.main:
             from stablediffusion_tpu_torch.utils.observability import Metrics
 
             self.metrics = Metrics(tensorboard_dir=args.logging_dir
@@ -396,11 +481,12 @@ class SDLoRATrainer:
 
         schedule = make_lr_schedule(args.lr_scheduler, args.learning_rate,
                                     args.lr_warmup_steps, total_steps)
-        optimizer = make_optimizer(
+        plan = self.plan
+        optimizer = plan.optimizer(make_optimizer(
             schedule, args.adam_beta1, args.adam_beta2, args.adam_epsilon,
             args.adam_weight_decay, args.max_grad_norm, args.gradient_accumulation_steps,
             use_8bit=args.use_8bit_adam, accum_dtype=args.accum_dtype,
-        )
+        ))
         opt_state = optimizer.init(trainable)
 
         scheduler = DDPMScheduler(model.scheduler_config)
@@ -423,10 +509,12 @@ class SDLoRATrainer:
             prior_loss_weight=(float(args.prior_loss_weight)
                                if args.with_prior_preservation else None),
         )
-        step_fn = make_train_step(statics, scheduler, optimizer, loss=loss)
+        step_fn = make_train_step(statics, scheduler, optimizer, loss=loss, mesh=plan.mesh,
+                                  shard_params=args.shard_params)
         ema = None
         if args.use_ema:  # starts at the initial weights
-            ema = {n: t.clone() for n, t in trainable.items()}
+            ema = plan.split({n: t.clone() for n, t in trainable.items()})
+        trainable = plan.split(trainable)
         encode_fn = None
         if args.cache_latents:
             if args.train_text_encoder:
@@ -436,6 +524,8 @@ class SDLoRATrainer:
         frozen = {"unet": model.unet, "vae": model.vae, "text_encoder": model.text_encoder}
         if model.is_sdxl:
             frozen["text_encoder_2"] = model.text_encoder_2
+        modules = list(frozen.values())
+        plan.split_modules(modules)
 
         run = {ckpt_key: trainable, "opt_state": opt_state}
         if ema is not None:
@@ -455,9 +545,14 @@ class SDLoRATrainer:
 
         def step_once(step, batch):
             tb = self._prepare_batch(batch)
+            with trace("train_step", self.metrics):
+                return _step(step, tb)
+
+        def _step(step, tb):
             draws = self.draws(step) if self.draws is not None else None
             if encode_fn is not None:
-                tb = encode_fn(frozen, tb, generator, draws)
+                with plan.gathered(modules):
+                    tb = encode_fn(frozen, tb, generator, mesh_draws(draws, plan.mesh))
             run[ckpt_key], run["opt_state"], metrics = step_fn(
                 run[ckpt_key], run["opt_state"], frozen, tb, generator, draws=draws)
             # the EMA follows optimizer updates, not data steps: under
@@ -484,20 +579,28 @@ class SDLoRATrainer:
             if (args.validation_prompt
                     and step % (steps_per_epoch * args.validation_epochs) == 0):
                 epoch = step // steps_per_epoch
-                if args.textual_inversion:
-                    self._set_ti_rows(run[ckpt_key])
-                    self._log_validation_full(None, epoch, step)
-                elif full:
-                    self._log_validation_full(run[ckpt_key], epoch, step)
-                else:
-                    self._log_validation(run[ckpt_key], epoch, step)
+                current = plan.whole(run[ckpt_key])
+                with plan.gathered(modules):
+                    if not plan.main:
+                        return
+                    if args.textual_inversion:
+                        self._set_ti_rows(current)
+                        self._log_validation_full(None, epoch, step)
+                    elif full:
+                        self._log_validation_full(current, epoch, step)
+                    else:
+                        self._log_validation(current, epoch, step)
 
         self.history = train_loop(args, dataset, total_steps, state, load, step_once, logged,
-                                  after)
-        trainable, ema = run[ckpt_key], run.get("ema")
+                                  after, plan)
+        plan.unsplit_modules(modules)
+        trainable = plan.whole(run[ckpt_key])
+        ema = plan.whole(run["ema"]) if "ema" in run else None
         self.lora = trainable
         if self.metrics is not None:
             self.metrics.flush()
+        if not plan.main:
+            return trainable
         os.makedirs(args.output_dir, exist_ok=True)
         if args.textual_inversion:
             # the rows into the live towers (the trigger is registered) and

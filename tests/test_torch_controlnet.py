@@ -25,6 +25,7 @@ from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPi
 from stablediffusion_tpu_torch.utils.testing import random_controlnet, write_controlnet_folder
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
+    jitted,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
@@ -81,7 +82,8 @@ def test_controlnet_and_unet_residuals_match_jax(models, family):
     x, ctx, cond, added = _inputs(tm, 1)
     jadded = None if added is None else {k: jnp.asarray(v) for k, v in added.items()}
     tadded = None if added is None else {k: _t(v) for k, v in added.items()}
-    jdown, jmid = jcontrolnet.apply(jm.controlnet_params, jm.controlnet_config, jnp.asarray(x),
+    jdown, jmid = jitted(jcontrolnet.apply, static_argnames=("conditioning_scale",))(
+        jm.controlnet_params, jm.controlnet_config, jnp.asarray(x),
                                     jnp.asarray(400), jnp.asarray(ctx), jnp.asarray(cond),
                                     conditioning_scale=0.7, added_cond=jadded)
     with torch.no_grad():
@@ -91,7 +93,7 @@ def test_controlnet_and_unet_residuals_match_jax(models, family):
     for d, jd in zip(down, jdown):
         _close(d.permute(0, 2, 3, 1), jd)
     _close(mid.permute(0, 2, 3, 1), jmid)
-    ref = junet.apply(jm.unet_params, jm.unet_config, jnp.asarray(x), jnp.asarray(400),
+    ref = jitted(junet.apply)(jm.unet_params, jm.unet_config, jnp.asarray(x), jnp.asarray(400),
                       jnp.asarray(ctx), added_cond=jadded, down_block_residuals=jdown,
                       mid_block_residual=jmid)
     with torch.no_grad():

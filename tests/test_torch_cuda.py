@@ -664,3 +664,127 @@ def test_extensions_on_card_match_cpu(cuda, extra, tmp_path):
         outs[str(d)] = pipe(m, output_type="np", **req).images
     err = float(np.abs(outs["cpu"] - outs["cuda"]).max())
     assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err
+
+
+def test_controlnet_init_and_loss_on_card_match_cpu(cuda):
+    """ControlNet training on the card: ``init_from_unet`` draws from a
+    card generator (it once drew on the CPU with the card's generator and
+    raised), and ``controlnet_loss_fn``'s loss and ControlNet gradients
+    through the kernels (forward with lse, both backward kernels) against
+    the CPU's plain attention, fp32, the same draws."""
+    import copy
+
+    import numpy as np
+
+    from stablediffusion_tpu_torch.models.controlnet import init_from_unet
+    from stablediffusion_tpu_torch.schedulers import DDPMScheduler
+    from stablediffusion_tpu_torch.train.train_step import TrainStatics, controlnet_loss_fn
+    from stablediffusion_tpu_torch.utils.testing import random_controlnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = _tiny_model("cpu")
+    card = copy.deepcopy(cpu)
+    for c in ("unet", "vae", "text_encoder"):
+        setattr(card, c, getattr(card, c).to(cuda))
+    fresh = init_from_unet(card.unet, card.unet_config, torch.Generator(cuda).manual_seed(0))
+    assert next(fresh.parameters()).device.type == "cuda"
+    net = random_controlnet(cpu.unet_config, device="cpu", dtype=torch.float32, seed=3)
+    statics = TrainStatics(unet_config=cpu.unet_config, vae_config=cpu.vae_config,
+                           text_config=cpu.text_encoder_config, text_config_2=None,
+                           scheduler_config=cpu.scheduler_config, train_text_encoder=False,
+                           snr_gamma=5.0, compute_dtype=torch.float32,
+                           controlnet_config=cpu.unet_config)
+    r = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype("f4")),
+             "conditioning_pixel_values": torch.from_numpy(
+                 r.uniform(0, 1, (2, 32, 32, 3)).astype("f4")),
+             "input_ids": torch.from_numpy(r.integers(0, 50, (2, 77)))}
+    draws = {"latent_eps": torch.randn(2, 4, 16, 16), "noise": torch.randn(2, 4, 16, 16),
+             "timesteps": torch.tensor([10, 700])}
+    out = {}
+    for d, m in (("cpu", cpu), ("cuda", card)):
+        n = net.to(d)
+        masters = {k: p.detach().clone().requires_grad_(True) for k, p in n.named_parameters()}
+        frozen = {"unet": m.unet, "vae": m.vae, "text_encoder": m.text_encoder, "controlnet": n}
+        loss = controlnet_loss_fn(masters, frozen, {k: v.to(d) for k, v in batch.items()},
+                                  None, statics, DDPMScheduler(statics.scheduler_config), draws)
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        out[d] = (loss.item(), [g.cpu() for g in grads])
+    assert abs(out["cpu"][0] - out["cuda"][0]) <= 1e-4 * max(1.0, abs(out["cpu"][0]))
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert (a - b).abs().max() <= 1e-3 * max(a.abs().max().item(), 1e-6)
+
+
+def test_world_size_one_nccl_step_equals_meshless(cuda):
+    """A 1-rank NCCL group: the data-parallel LoRA step of the narrow model
+    (all-reduced gradients, the global batch's draws) bit for bit the
+    meshless step."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from stablediffusion_tpu_torch.parallel import dryrun, make_mesh
+    from stablediffusion_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    det = torch.backends.cudnn.deterministic
+    # the same algorithms in both runs: cuDNN picks its convolutions' per call
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        assert maybe_initialize_distributed("cuda") and dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        batch = {k: v.to(cuda) for k, v in dryrun.make_inputs(2)["batch"].items()}
+        runs = []
+        for m in (None, mesh):
+            model = dryrun.tiny_model()
+            for c in ("unet", "vae", "text_encoder"):
+                setattr(model, c, getattr(model, c).to(cuda))
+            runs.append(dryrun.run_step(model, m, False, batch))
+        for p, t in runs[0]["after"].items():
+            assert torch.equal(t, runs[1]["after"][p]), p
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+
+def test_request_flops_equal_the_sdpa_count(cuda):
+    """bench_utils.flops of a narrow request on the card (FlopCounterMode
+    plus the kernels' launch records) equals FlopCounterMode's count of the
+    same request with every attention through SDPA."""
+    import torch.nn.functional as F
+
+    from stablediffusion_tpu_torch.ops import attention as att
+    from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
+    from stablediffusion_tpu_torch.utils import bench_utils
+
+    model = _tiny_model(cuda)
+    pipe = StableDiffusionUnifiedPipeline(device=cuda)
+
+    def run():
+        return pipe(model, prompt="a cat", num_inference_steps=3, seed=1, height=64, width=64)
+
+    _, ours, parts = bench_utils.flops(run)
+    assert parts["flash_fwd"] > 0
+
+    def sdpa(q, k, v, scale=None, causal=False):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=causal,
+                                              scale=scale).transpose(1, 2)
+
+    orig = att.flash_fwd, att.flash_stream
+    att.flash_fwd, att.flash_stream = sdpa, (lambda q, k, v, scale=None: sdpa(q, k, v, scale))
+    try:
+        _, theirs, _ = bench_utils.flops(run)
+    finally:
+        att.flash_fwd, att.flash_stream = orig
+    assert ours == theirs

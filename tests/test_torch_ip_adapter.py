@@ -50,6 +50,7 @@ from torch_port_helpers import (  # noqa: F401
     _init,
     capture_jax_draws,
     jax_tree,
+    jitted,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
@@ -161,7 +162,7 @@ def test_decoupled_attention_matches_jax(pair, family):
         pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
         added = {"text_embeds": rng.standard_normal((2, pooled)).astype(np.float32),
                  "time_ids": np.tile(np.float32([32, 32, 0, 0, 32, 32]), (2, 1))}
-    ref = junet.apply(jm.unet_params, jm.unet_config, jnp.asarray(x), jnp.asarray(300),
+    ref = jitted(junet.apply)(jm.unet_params, jm.unet_config, jnp.asarray(x), jnp.asarray(300),
                       jnp.asarray(ctx), added_cond=None if added is None else
                       {k: jnp.asarray(v) for k, v in added.items()},
                       ip_hidden_states=jnp.asarray(ip), ip_scale=jnp.float32(0.6))

@@ -277,11 +277,15 @@ def test_cache_latents_and_resume(models, data_dir, tmp_path):
 
 
 def test_mesh_and_sharding_refused(models):
+    """A mesh is taken (the multi-process paths are test_torch_parallel.py's);
+    sharded state without one is refused, as in JAX."""
+    from stablediffusion_tpu_torch.parallel import make_mesh
+
     tm, _ = models
-    for kw, args in ((dict(mesh=object()), tsd3.SD3TrainingArgs()),
-                     ({}, tsd3.SD3TrainingArgs(shard_params=True))):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            tsd3.SD3LoRATrainer(tm, args, "unused", **kw)
+    trainer = tsd3.SD3LoRATrainer(tm, tsd3.SD3TrainingArgs(), "unused", mesh=make_mesh())
+    assert trainer.plan.mesh is not None
+    with pytest.raises(ValueError, match="pass a mesh"):
+        tsd3.SD3LoRATrainer(tm, tsd3.SD3TrainingArgs(shard_params=True), "unused")
 
 
 def test_args_and_statics_match_jax():

@@ -79,7 +79,10 @@ def test_scheduler_swap_via_model_block(handler):
 # the ids are those the cases had before the constructor mode, LoRAs and
 # textual inversion were ported (their cases moved to tests of their own)
 @pytest.mark.parametrize("request_input, item", [
-    pytest.param({"mode": "inference_wandb"}, "item 21", id="request_input0-item 21"),
+    # the inference_wandb mode is ported: it answers a bad request on the
+    # error channel as the inference mode does
+    pytest.param({"mode": "inference_wandb", "hires_scale": 2.0, "denoising_end": 0.5},
+                 "cannot combine", id="request_input0-item 21"),
     # the train mode is ported with its textual-inversion option, which
     # refuses to train the text towers (their LoRA is on by default), as
     # in JAX, before it reads the folder
@@ -202,9 +205,11 @@ def test_http_worker_roundtrip(handler):
 def test_worker_flags_for_unported_features():
     from stablediffusion_tpu_torch.serve.worker import build
 
-    for flags, item in ((["--mesh_dp", "2"], "item 20"),):
-        with pytest.raises(NotImplementedError, match=item):
-            build(parse_args(flags))
+    # --mesh_dp is ported: outside torchrun there is one rank, so a mesh of
+    # two data ranks fails JAX's make_mesh assert (parallel/mesh.py)
+    for flags, item in ((["--mesh_dp", "2"], "mesh 2x1 != 1 ranks"),):
+        with pytest.raises(AssertionError, match=item):
+            build(parse_args([*flags, "--device", "cpu"]))
     # --quantize is ported: without a preloaded model it is ignored (the
     # quantized worker is test_torch_quant_checkpoint.py's), and "auto"
     # resolves against --max_batch

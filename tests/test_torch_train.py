@@ -22,8 +22,6 @@ import torch
 
 from stablediffusion_tpu.core import config as jcfg
 from stablediffusion_tpu.lora import core as jlora
-from stablediffusion_tpu.models import clip as jclip
-from stablediffusion_tpu.models import unet as junet
 from stablediffusion_tpu.models import vae as jvae
 from stablediffusion_tpu.schedulers import DDPMScheduler as JDDPM
 from stablediffusion_tpu.train import optim as joptim
@@ -37,7 +35,7 @@ from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.schedulers import DDPMScheduler, make_scheduler
 from stablediffusion_tpu_torch.train import optim as toptim
 from stablediffusion_tpu_torch.train import train_step as tts
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import jax_tree, tiny_port_model, torch_single_thread  # noqa: F401
 
 
 def _np(tree):
@@ -86,8 +84,10 @@ def test_ddpm_matches_jax(ptype):
 
 @pytest.fixture(scope="module")
 def tiny_unet():
-    params = _np(jax.jit(junet.init_params, static_argnums=1)(
-        jax.random.key(0), jcfg.tiny_unet_config()))
+    """A tiny UNet's JAX tree (torch weights at the JAX package's scales,
+    carried by ``torch_convert``; JAX's own init compiles for seconds) and
+    the port's module built from it by ``load_from_jax``."""
+    params = jax_tree(tiny_port_model(seed=0).unet)
     return params, load_from_jax(UNet2DConditionModel(tcfg.tiny_unet_config()), params)
 
 
@@ -210,10 +210,9 @@ def tiny_sd():
     LoRA with non-zero `up` factors (zeros would give zero `down`
     gradients), and a batch."""
     keys = jax.random.split(jax.random.key(0), 4)
-    ucfg, vcfg, ccfg = jcfg.tiny_unet_config(), jcfg.tiny_vae_config(), jcfg.tiny_clip_config()
-    jit_init = lambda m, k, c: _np(jax.jit(m.init_params, static_argnums=1)(k, c))  # noqa: E731
-    frozen = {"unet": jit_init(junet, keys[0], ucfg), "vae": jit_init(jvae, keys[1], vcfg),
-              "text_encoder": jit_init(jclip, keys[2], ccfg)}
+    tm = tiny_port_model(seed=1)
+    frozen = {"unet": jax_tree(tm.unet), "vae": jax_tree(tm.vae),
+              "text_encoder": jax_tree(tm.text_encoder)}
     lora = _np(jlora.init_lora(keys[3], frozen["unet"], 2, jlora.UNET_TARGET_SUFFIXES,
                                store_alpha=False))
     r = np.random.default_rng(5)
@@ -312,14 +311,12 @@ def test_train_steps_match_jax(tiny_sd):
 
 
 def test_unported_training_settings_raise():
-    """ControlNet training is the one setting the step refuses (ROADMAP
-    item 19, after item 15's model); textual inversion's rows and every
-    remat policy build a step; an unknown policy raises."""
+    """Every training setting of the JAX step builds a step now: ControlNet
+    training (test_torch_controlnet_train.py), textual inversion's rows and
+    every remat policy; an unknown policy raises."""
     base = _statics(tts, tcfg, torch.float32)
-    with pytest.raises(NotImplementedError, match="ControlNet.*item 19"):
-        tts.make_train_step(dataclasses.replace(base, controlnet_config=tcfg.tiny_unet_config()),
-                            DDPMScheduler(), None)
-    for kw in (dict(ti_rows=(1,)), dict(remat_policy="dots"), dict(remat_policy="offload")):
+    for kw in (dict(controlnet_config=tcfg.tiny_unet_config()), dict(ti_rows=(1,)),
+               dict(remat_policy="dots"), dict(remat_policy="offload")):
         assert callable(tts.make_train_step(dataclasses.replace(base, **kw), DDPMScheduler(),
                                             None))
     with pytest.raises(ValueError, match="remat_policy"):

@@ -285,14 +285,15 @@ def test_cli_and_handler_train_mode(data_dir, tmp_path):
     assert os.path.exists(resp["lora_path"])
 
 
-# the ids are those the cases had while item 19's options were refused too
+# the ids are those the cases had while item 19's options were refused too;
+# the options are ported (test_torch_parallel.py) and, as in JAX, need a mesh
 @pytest.mark.parametrize("kw, item", [
-    pytest.param(dict(shard_opt_state=True), "item 20", id="kw5-item 20"),
-    pytest.param(dict(shard_params=True), "item 20", id="kw6-item 20"),
+    pytest.param(dict(shard_opt_state=True), "pass a mesh", id="kw5-item 20"),
+    pytest.param(dict(shard_params=True), "pass a mesh", id="kw6-item 20"),
 ])
 def test_unported_options_raise(data_dir, tmp_path, kw, item):
     name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=f"{name}.*{item}|{kw[name]}.*{item}"):
+    with pytest.raises(ValueError, match=f"{name}.*{item}"):
         _port_run(tiny_port_model(), data_dir, tmp_path, **kw)
 
 
@@ -317,17 +318,24 @@ def test_item19_options_train(data_dir, tmp_path, kw):
 
 
 # the ids are those the cases had while --push_to_hub and the TI flag were
-# refused too
+# refused too.  The distributed flags are ported: --local_rank trains (one
+# process outside torchrun), --shard_params needs a data mesh
 @pytest.mark.parametrize("flags, item", [
-    pytest.param(["--local_rank", "0"], "item 20", id="flags1-item 20"),
-    pytest.param(["--shard_params"], "item 20", id="flags2-item 20"),
+    pytest.param(["--local_rank", "0"], None, id="flags1-item 20"),
+    pytest.param(["--shard_params"], "need a data mesh", id="flags2-item 20"),
 ])
 def test_cli_refuses_unported_flags(data_dir, tmp_path, flags, item):
     folder = str(tmp_path / "model")
     save_sd_model(tiny_port_model(), folder)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["--pretrained_model_name_or_path", folder, "--train_data_dir", data_dir,
-                  "--device", "cpu", "--max_train_steps", "1", *flags])
+    argv = ["--pretrained_model_name_or_path", folder, "--train_data_dir", data_dir,
+            "--device", "cpu", "--max_train_steps", "1", "--output_dir",
+            str(tmp_path / "out"), "--resolution", str(RES), "--train_batch_size", "2",
+            "--mixed_precision", "no", "--report_to", "none", *flags]
+    if item is None:
+        assert [s for s, _ in cli.main(argv).history] == [1]
+        return
+    with pytest.raises(ValueError, match=item):
+        cli.main(argv)
 
 
 class _FakeHub:
@@ -422,8 +430,16 @@ def test_handler_full_finetune_answers_model_path(data_dir, tmp_path):
 
 
 def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="mesh.*item 20"):
-        SDLoRATrainer(tiny_port_model(), SDTrainingArgs(), "unused", mesh=object())
+    """A mesh is taken (a 1 x 1 one outside torchrun; the multi-process
+    paths are test_torch_parallel.py's); sharded state without one is
+    refused, as in JAX."""
+    from stablediffusion_tpu_torch.parallel import make_mesh
+
+    trainer = SDLoRATrainer(tiny_port_model(), SDTrainingArgs(report_to=None), "unused",
+                            mesh=make_mesh())
+    assert trainer.plan.mesh.shape == {"data": 1, "tensor": 1}
+    with pytest.raises(ValueError, match="pass a mesh"):
+        SDLoRATrainer(tiny_port_model(), SDTrainingArgs(shard_opt_state=True), "unused")
 
 
 def test_trainer_defaults_match_jax():

@@ -284,6 +284,22 @@ def capture_jax_draws():
     draws.update(calls[0] if calls else {})
 
 
+_JITTED = {}
+
+
+def jitted(fn, static_argnums=(1,), static_argnames=()):
+    """``jax.jit(fn)`` with the config (argument 1) and the named Python
+    arguments static, made once per function: one compile of a tiny model
+    takes a fraction of the first eager call's per-primitive compiles."""
+    import jax
+
+    key = (fn, tuple(static_argnums), tuple(static_argnames))
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(fn, static_argnums=static_argnums,
+                               static_argnames=static_argnames)
+    return _JITTED[key]
+
+
 @pytest.fixture(scope="module", autouse=True)
 def torch_single_thread():
     """One torch CPU thread for the module's tests: the tiny models' ops are
