@@ -8,8 +8,13 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    CUDA sources of ``stablediffusion_tpu_torch/csrc`` (one nvcc each, all
    started together) into a fresh kernel build cache directory in the
    checkout (``core/compile_cache``), print each kernel's registers and spilled bytes
-   (``-Xptxas -v``; a spill in ``flash_bwd.cu`` fails the run), set and
-   print the TF32 switches.
+   (``-Xptxas -v``; a spill in ``flash_bwd.cu`` or in a bf16 instantiation
+   of ``flash_fwd.cu`` fails the run); compile ``flash_fwd.cu`` to PTX
+   beside the build (``nvcc -ptx``, the build's flags) and print the counts
+   of ``wgmma.mma_async`` and ``cp.async.bulk.tensor`` in each bf16
+   instantiation, and, where the toolkit has ``cuobjdump``, of ``HGMMA``
+   and ``UTMALDG`` in the built library's SASS (any of them 0 fails the
+   run); set and print the TF32 switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
    three 512x512, 20-step DDIM, CFG 7.5 requests through the pipeline call
    (batch 1, batch 1 with another seed, a two-prompt batch).  Outputs must be
@@ -21,8 +26,9 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    VAE length, each in fp32 and bf16, against the plain version evaluated in
    fp32 on the same inputs under the per-element limit of
    ``utils/testing.KERNEL_TOL`` (the bf16 ``flash_fwd``, which rounds p to
-   bf16, against ``attention_p_rounded``, the same 64-key online softmax with
-   the same rounding, plus ``P_FLIP_RTOL`` times its p near a rounding
+   bf16, against ``attention_p_rounded``, the same online softmax over the
+   kernel's key tiles (``ops/attention.flash_fwd_key_tile``) with the same
+   rounding, plus ``P_FLIP_RTOL`` times its p near a rounding
    midpoint); at [2,4096,8,40] bf16 three wrong forwards (no accumulator
    rescale, the scale applied twice, the accumulator kept in bf16 between
    tiles) must break that limit.  Each kernel's device time (its own kernel events under
@@ -462,6 +468,7 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     import torch
     import torch.nn.functional as F
 
+    from stablediffusion_tpu_torch.ops.attention import flash_fwd_key_tile
     from stablediffusion_tpu_torch.utils.testing import (
         attention_p_rounded,
         attention_wrong_variants,
@@ -476,22 +483,24 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     out = kernel(q, k, v, **kw)
     torch.cuda.synchronize()
     # the plain version in fp32 on the same input values; the bf16 flash_fwd
-    # rounds p to bf16 from the running max of its 64-key tiles, and its
+    # rounds p to bf16 from the running max of its key tiles (128 keys up to
+    # head dim 128, 64 above: ops/attention.flash_fwd_key_tile), and its
     # plain version does the same
     dname = str(dtype).replace("torch.", "")
     if B * H * Sq * Skv >= 2**32:
         # fp32 logits of 16 GiB and more (the hires pass's [2,16384,8,40]):
         # the same function on one head at a time
         plain = functools.partial(_per_head, plain)
-    if (name, dname) == ("flash_fwd", "bfloat16"):
-        ref, flips = attention_p_rounded(q, k, v, causal)
+    tile = flash_fwd_key_tile(D)[1] if (name, dname) == ("flash_fwd", "bfloat16") else None
+    if tile is not None:
+        ref, flips = attention_p_rounded(q, k, v, causal, block=tile)
     else:
         ref, flips = plain(q.float(), k.float(), v.float(), **kw), None
     err = kernel_error(out, ref, flips)
     teeth = None
     if (name, B, Sq, H, D, Skv, dname) in TEETH_CASES:
         teeth = {n: kernel_error(w, ref, flips)["worst_over_limit"]
-                 for n, w in attention_wrong_variants(q, k, v, causal).items()}
+                 for n, w in attention_wrong_variants(q, k, v, causal, block=tile).items()}
         print(json.dumps({"p_round_rule_teeth": "wrong bf16 forwards against "
                           "attention_p_rounded", "shape": [B, Sq, H, D], "skv": Skv,
                           "worst_over_limit": teeth}), flush=True)
@@ -843,19 +852,18 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def _profile(label, fn, host=True):
+def _profile(label, fn):
     """Device time by kernel group over one call of `fn` under
     torch.profiler, and the device's busy share of the call's wall time (the
-    profiler's own host cost lowers that share).  Without `host` only the
-    device's activity is traced: less host cost, and events that take
-    seconds, not tens, to read back after a whole request."""
+    profiler's own host cost lowers that share a little).  Only the device's
+    activity is traced: the host's events of a whole request took tens of
+    seconds to read back, for numbers no phase reads."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU] if host else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4310,7 +4318,7 @@ class _ExtRequests:
             for key, v in c.by_shape.items():
                 self.by_shape[n][key] = self.by_shape[n].get(key, 0) + v
         again = []
-        prof = _profile(label, lambda: again.append(pipe(model, **kw).images), host=False)
+        prof = _profile(label, lambda: again.append(pipe(model, **kw).images))
         res = res or kw.get("height", EXT_RES)
         same = bool(np.array_equal(again[0], im))
         differs = None if plain is None else bool(not np.array_equal(plain, im))
@@ -4849,7 +4857,7 @@ def phase_train_controlnet(smi):
         totals = {n: c.count for n, c in counters.items()}
         by_shape = {n: dict(c.by_shape) for n, c in counters.items()}
         last = probe.last_call
-        prof = _profile("train_controlnet_step", lambda: last[0](*last[1:]), host=False)
+        prof = _profile("train_controlnet_step", lambda: last[0](*last[1:]))
         del last, probe
         # the resume: step 3 from checkpoint-2 equals the straight run's
         resumed = ControlNetTrainer(model, args("resumed", resume_from_checkpoint=os.path.join(
@@ -5224,6 +5232,60 @@ def phase_tooling(smi, cold_build_s):
         torch.cuda.empty_cache()
 
 
+# the bf16 flash_fwd kernel's symbol; _device_ms and the profile phases
+# find every flash_fwd kernel by "flash_fwd" in its name
+FWD_BF16_KERNEL = "flash_fwd_wgmma_kernel"
+
+
+def _start_ptx(_build, out_dir):
+    """nvcc -ptx of csrc/flash_fwd.cu with the build's flags, started in the
+    background: (process, ptx path)."""
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC",
+                                                        "-Xptxas", "-v")]
+    ptx = os.path.join(out_dir, "flash_fwd.ptx")
+    cmd = [_build._nvcc(), *flags, "-ptx", "-o", ptx, str(_build.CSRC / "flash_fwd.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), ptx
+
+
+def _check_fwd_isa(_build, ptx_job):
+    """The bf16 flash_fwd is Hopper's: in the PTX of each of its
+    instantiations, wgmma products and TMA tensor copies
+    (cp.async.bulk.tensor); where the toolkit has cuobjdump, the same in the
+    built library's SASS (HGMMA, UTMALDG).  Raises when an instantiation
+    lacks either, or when no instantiation is found."""
+    import re
+
+    proc, ptx = ptx_job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -ptx of flash_fwd.cu failed:\n{log}")
+    text = open(ptx).read()
+    rows = []
+    for entry in re.split(r"\.entry ", text)[1:]:
+        name = entry.split("(", 1)[0]
+        if FWD_BF16_KERNEL in name:
+            rows.append({"kernel": name, "wgmma.mma_async": entry.count("wgmma.mma_async"),
+                         "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")})
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = {}
+    if os.path.exists(cuobjdump):
+        dump = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("flash_fwd"))],
+                              capture_output=True, text=True, check=True).stdout
+        for fn in re.split(r"\n\s*Function : ", dump)[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            if FWD_BF16_KERNEL in name:
+                sass[name] = {"HGMMA": fn.count("HGMMA"), "UTMALDG": fn.count("UTMALDG")}
+    for r in rows:
+        r.update(sass.get(r["kernel"], {}))
+    print(json.dumps({"flash_fwd_bf16_isa": rows, "sass_read": bool(sass)}), flush=True)
+    if not rows or any(r["wgmma.mma_async"] == 0 or r["cp.async.bulk.tensor"] == 0
+                       for r in rows):
+        raise AssertionError(f"flash_fwd's bf16 kernel lacks wgmma or TMA copies: {rows}")
+    if sass and any(r.get("HGMMA", 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
+        raise AssertionError(f"flash_fwd's bf16 SASS lacks HGMMA or UTMALDG: {rows}")
+
+
 def main() -> int:
     import torch
 
@@ -5254,6 +5316,9 @@ def main() -> int:
     os.environ["SDTPU_COMPILE_CACHE"] = cache
     if not enable_compilation_cache():
         raise AssertionError(f"the kernel build cache at {cache} is unavailable")
+    ptx_dir = os.path.join(cache, "ptx")
+    os.makedirs(ptx_dir, exist_ok=True)
+    ptx_job = _start_ptx(_build, ptx_dir)  # beside the build, not part of it
     t = time.perf_counter()
     _build.build()
     cold_build_s = time.perf_counter() - t
@@ -5265,6 +5330,12 @@ def main() -> int:
         spilled = [u for u in usage if u["spill_bytes"]]
         if source == "flash_bwd" and spilled:
             raise AssertionError(f"flash_bwd kernels spill registers: {spilled}")
+        # the bf16 forward's instantiations (the fp32 scalar kernel's <64>
+        # spills 8 bytes, as it did before, off every bf16 path)
+        spilled_bf16 = [u for u in spilled if u["kernel"].startswith(FWD_BF16_KERNEL)]
+        if source == "flash_fwd" and spilled_bf16:
+            raise AssertionError(f"flash_fwd's bf16 kernels spill registers: {spilled_bf16}")
+    _check_fwd_isa(_build, ptx_job)
     if set(_build.SOURCES) - set(_build.BUILD_LOGS):
         print("ptxas: the libraries were built by an earlier run; no report", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False

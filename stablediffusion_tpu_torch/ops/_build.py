@@ -162,14 +162,17 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 def ptxas_usage(log: str) -> List[dict]:
     """Registers and spilled bytes (stores + loads) of each kernel in an
     nvcc log with ``-Xptxas -v``; kernels named like
-    ``flash_bwd_dq_tc_kernel<48>`` or ``flash_stream_kernel<bf16, 512>``."""
+    ``flash_bwd_dq_tc_kernel<48>``, ``flash_stream_kernel<bf16, 512>`` or
+    ``flash_fwd_wgmma_kernel<48, 64>``."""
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:(?!flash_)\w)*?_kernel)I(\w*?)Li(\d+)E", m.group(1))
+            k = re.search(r"(flash_(?:(?!flash_)\w)*?_kernel)I(\w*?)Li(\d+)E(?:Li(\d+)E)?",
+                          m.group(1))
             dtype = {"": "", "f": "float, "}.get(k.group(2), "bf16, ") if k else ""
-            name = f"{k.group(1)}<{dtype}{k.group(3)}>" if k else m.group(1)
+            ints = ", ".join(i for i in k.groups()[2:] if i) if k else ""
+            name = f"{k.group(1)}<{dtype}{ints}>" if k else m.group(1)
             spill = 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -248,6 +251,16 @@ def vector_loadable(t: torch.Tensor) -> bool:
             and all(s % 8 == 0 for s in t.stride()[:-1]))
 
 
+def tma_mappable(t: torch.Tensor) -> bool:
+    """Whether the bf16 flash_fwd's 4-D tensor map (D, H, S, B) can describe
+    `t` beyond what :func:`vector_loadable` asks: each dimension longer
+    than 1 steps by a positive stride whose byte size is below 2**40
+    (``cuTensorMapEncodeTiled``'s limit; a dimension of size 1 is given the
+    dense stride, since it is never stepped)."""
+    return all(s > 0 and s * t.element_size() < 2**40
+               for s, n in zip(t.stride(), t.shape) if n > 1)
+
+
 def strides3(t: torch.Tensor) -> List[int]:
     """(batch, sequence, head) strides of a [B, S, H, D] tensor."""
     return [t.stride(0), t.stride(1), t.stride(2)]
@@ -261,6 +274,14 @@ def attention_launch_args(
     return (out, ctypes arguments up to and excluding the scale).  Raises on
     anything the kernel does not take."""
     check_attention_inputs(name, q, k, v, d_min, d_max)
+    if name == "flash_fwd" and q.dtype == torch.bfloat16:
+        for t, tn in ((q, "q"), (k, "k"), (v, "v")):
+            if not tma_mappable(t):
+                raise ValueError(
+                    f"{name}: {tn} cannot be read through a TMA tensor map: every "
+                    "dimension longer than 1 needs a positive stride below 2**39 "
+                    "elements"
+                )
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     args = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]

@@ -55,6 +55,21 @@ ATTENTION_MASKED_LAUNCHES = _build.LaunchCounter("attention_masked")
 
 # head dims up to this go to flash_fwd, wider ones to flash_stream
 FLASH_FWD_MAX_D = 160
+# {padded head width: keys a pipeline stage holds} of the bf16 flash_fwd
+# kernel, as csrc/flash_fwd.cu's kBf16Tiles sets them
+FLASH_FWD_BF16_TILES = {64: 128, 128: 128, 192: 64}
+
+
+def flash_fwd_key_tile(D: int) -> Tuple[int, int]:
+    """(padded head width, key tile) of the bf16 flash_fwd kernel at head
+    dim D: D rounded up to whole 64-column swizzle atoms, and the keys of one
+    pipeline stage.  The kernel rounds p to bf16 from the running max of
+    these key tiles, so the tile is the `block` of its plain version
+    (utils/testing.attention_p_rounded)."""
+    if not 0 < D <= FLASH_FWD_MAX_D:
+        raise ValueError(f"flash_fwd takes head dims up to {FLASH_FWD_MAX_D}, not {D}")
+    dp = -(-D // 64) * 64
+    return dp, FLASH_FWD_BF16_TILES[dp]
 
 
 def _logits(q, k, scale, causal, mask=None):

@@ -61,7 +61,7 @@ from stablediffusion_tpu_torch.models.t5 import T5_XXL, T5Config, T5EncoderModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.models.wrapper import SDModel
-from stablediffusion_tpu_torch.ops.attention import _row_dot
+from stablediffusion_tpu_torch.ops.attention import _row_dot, flash_fwd_key_tile
 from stablediffusion_tpu_torch.pipelines.sd3 import SD3Model
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer, _bytes_to_unicode
 from stablediffusion_tpu_torch.tokenizer.sentencepiece_unigram import (
@@ -85,7 +85,8 @@ KERNEL_TOL = {
 
 # The bf16 flash_fwd also rounds each probability p to bf16 for its product
 # with v, as the JAX kernel does (`p.astype(v.dtype)`), p = exp(s - m) taken
-# from the running max m of its 64-key tiles.  Its plain version is therefore
+# from the running max m of its key tiles (ops/attention.flash_fwd_key_tile:
+# 128 keys up to head dim 128, 64 above).  Its plain version is therefore
 # that same online softmax in fp32 with the same rounding
 # (:func:`attention_p_rounded`), and the two compute each fp32 p to within
 # P_EPS of each other: the logits' fp32 sums run in another order, and the
@@ -123,11 +124,12 @@ def kernel_error(out: torch.Tensor, ref: torch.Tensor,
 
 
 def attention_p_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = False, block: int = 64,
+                        causal: bool = False, block: Optional[int] = None,
                         scale: Optional[float] = None, rescale: bool = True,
                         acc_dtype: torch.dtype = torch.float32):
     """The plain version of the bf16 flash_fwd, in fp32 on q/k/v's device:
-    online softmax over key tiles of `block`; each p = exp(s - m), m the
+    online softmax over key tiles of `block` (by default the kernel's own,
+    ``flash_fwd_key_tile`` of the head dim); each p = exp(s - m), m the
     running max, is rounded to bf16 for its product with v, and the
     denominator l sums the fp32 p.  Returns (out, flips), both fp32
     [B, Sq, H, D]; flips is the sum of p |v| / l over the p within
@@ -136,6 +138,7 @@ def attention_p_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rescales the accumulator when the running max grows (l still is);
     `acc_dtype=torch.bfloat16` keeps the accumulator in bf16 between tiles."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    block = flash_fwd_key_tile(q.shape[-1])[1] if block is None else block
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, S, D]
     B, H, Sq, D = qf.shape
     dev = q.device
@@ -164,12 +167,13 @@ def attention_p_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             causal: bool = False, block: int = 64) -> dict:
+                             causal: bool = False, block: Optional[int] = None) -> dict:
     """Three wrong bf16 attention forwards, each rounded to q's dtype as a
     kernel rounds its output: "no_rescale" (the accumulator is not rescaled
     when the running max grows), "scale_twice" (the logits scaled by
     scale**2) and "acc_bf16" (the accumulator kept in bf16 between tiles of
-    `block` keys); all otherwise :func:`attention_p_rounded`."""
+    `block` keys, by default the kernel's key tile); all otherwise
+    :func:`attention_p_rounded`."""
     scale = q.shape[-1] ** -0.5
     variants = {"no_rescale": dict(rescale=False), "scale_twice": dict(scale=scale * scale),
                 "acc_bf16": dict(acc_dtype=torch.bfloat16)}

@@ -26,10 +26,10 @@ from stablediffusion_tpu_torch.utils.testing import random_controlnet, write_con
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
     jitted,
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4

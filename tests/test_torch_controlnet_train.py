@@ -39,10 +39,10 @@ from stablediffusion_tpu_torch.train.controlnet_trainer import (
 )
 from stablediffusion_tpu_torch.utils.testing import write_controlnet_folder, write_image_folder
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4

@@ -20,6 +20,7 @@ from stablediffusion_tpu_torch.ops.attention import (
     flash_bwd,
     flash_bwd_plain,
     flash_fwd,
+    flash_fwd_key_tile,
 )
 from stablediffusion_tpu_torch.ops.flash_attention import (
     FLASH_STREAM_LAUNCHES,
@@ -47,10 +48,12 @@ def _within_limit(out, plain, q, k, v, p_rounded=False, **kw):
     """The kernel's output against the plain version evaluated in fp32 on the
     same input values, under the per-element limit of KERNEL_TOL (stated
     there with its reason); with `p_rounded` (the bf16 flash_fwd, which
-    rounds p to bf16) the plain version is attention_p_rounded, and the
-    limit takes its term for p near a rounding midpoint."""
+    rounds p to bf16) the plain version is attention_p_rounded over the
+    kernel's key tiles, and the limit takes its term for p near a rounding
+    midpoint."""
     if p_rounded:
-        err = kernel_error(out, *attention_p_rounded(q, k, v, **kw))
+        tile = flash_fwd_key_tile(q.shape[-1])[1]
+        err = kernel_error(out, *attention_p_rounded(q, k, v, block=tile, **kw))
     else:
         err = kernel_error(out, plain(q.float(), k.float(), v.float(), **kw))
     assert err["worst_over_limit"] <= 1.0, err
@@ -71,13 +74,22 @@ def _qkv(device, dtype, B, Sq, H, D, Skv):
      (2, 1101, 8, 64, 1101, False), (1, 1101, 4, 24, 77, False),
      (1, 200, 2, 40, 200, True), (2, 64, 8, 160, 77, False),
      (2, 4096, 10, 64, 4096, False), (2, 1024, 20, 64, 1024, False),
-     (2, 4096, 10, 64, 77, False), (2, 77, 20, 64, 77, True)],
+     (2, 4096, 10, 64, 77, False), (2, 77, 20, 64, 77, True),
+     # the bf16 instantiations not above (one per k16 count of the head dim:
+     # 8, 96, 104, 128, 136), over ragged Sq and Skv, and causal at a
+     # padded width of 128 and 192
+     (2, 300, 2, 8, 333, False), (1, 257, 3, 96, 4100, False),
+     (2, 1101, 4, 104, 1101, False), (1, 500, 2, 128, 129, True),
+     (1, 333, 2, 136, 77, False), (1, 700, 2, 160, 700, True),
+     (2, 4429, 4, 40, 4429, False)],
 )
 def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     """Every head-dim bucket of both kernels, with the bf16 tensor-core
     kernel's traps: D = 24 and 40 (the k16 steps read zero-filled columns up
-    to the next multiple of 16), Skv = 77 and 4100 (a ragged last key tile,
-    whose V rows must be zero in shared memory), ragged Sq = 1101, causal.
+    to the next multiple of 16, and the padding of a 64-column swizzle
+    atom), D = 80, 104 and 160 (two and three atoms), Skv = 77, 4100 and
+    4429 (a ragged last key tile, whose K and V rows TMA must zero-fill),
+    ragged Sq = 1101 and 4429 (a partial last query tile), causal.
     SDXL's head dim 64 at 1024² (its self-attention at [2,4096,10,64] and
     [2,1024,20,64], a x77 cross-attention, bigG's causal [2,77,20,64]).
     The lse written when a backward follows is finite on every row (every
@@ -124,6 +136,29 @@ def test_strided_inputs(cuda, dtype):
                   p_rounded=dtype == torch.bfloat16)
 
 
+@pytest.mark.parametrize("D", [40, 64, 80])
+def test_strided_views_the_models_pass(cuda, D):
+    """The bf16 kernel's tensor maps take each tensor's own strides: the
+    MM-DiT's torch.cat of the image and text streams (models/mmdit.py),
+    head-split views of one projection ([B, S, H * D] -> [B, S, H, D]), and
+    q/k/v sliced out of a fused [B, S, 3 * H * D] projection, at a ragged
+    joint length; each equals the kernel on contiguous copies bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, C, H = 2, 1101, 77, 6
+    img = torch.randn(B, S, 3 * H * D, device=cuda, generator=g).to(torch.bfloat16)
+    ctx = torch.randn(B, C, 3 * H * D, device=cuda, generator=g).to(torch.bfloat16)
+    heads = lambda t, i: t[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))  # noqa: E731
+    q, k, v = (torch.cat([heads(img, i), heads(ctx, i)], 1) for i in range(3))
+    out = flash_fwd(q, k, v)
+    _within_limit(out, attention_plain, q, k, v, p_rounded=True)
+    fused = [heads(img, i) for i in range(3)]
+    assert not fused[0].is_contiguous()
+    out_fused = flash_fwd(*fused)
+    torch.cuda.synchronize()
+    assert torch.equal(out_fused, flash_fwd(*(t.contiguous() for t in fused)))
+    _within_limit(out_fused, attention_plain, *fused, p_rounded=True)
+
+
 def test_refusals(cuda):
     q = torch.randn(1, 16, 1, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -133,6 +168,23 @@ def test_refusals(cuda):
     odd = torch.randn(1, 16, 1, 65, device=cuda)[..., :64]  # rows 65 elements apart
     with pytest.raises(ValueError, match="16-byte"):
         flash_fwd(odd, odd, odd)
+
+
+def test_flash_fwd_refuses_what_a_tensor_map_cannot_take(cuda):
+    """Inputs the bf16 kernel's TMA tensor maps cannot describe raise
+    ValueError in the wrapper and launch nothing: a view at a 2-byte offset
+    (the map's base must be 16-byte aligned) and a key tensor broadcast
+    along the sequence (stride 0)."""
+    base = torch.randn(1, 16 * 64 + 1, device=cuda).to(torch.bfloat16)
+    shifted = base[:, 1:].view(1, 16, 1, 64)  # 2 bytes past an aligned start
+    ok = torch.randn(1, 16, 1, 64, device=cuda).to(torch.bfloat16)
+    broadcast = ok[:, :1].expand(1, 16, 1, 64)
+    before = FLASH_FWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd(shifted, ok, ok)
+    with pytest.raises(ValueError, match="tensor map"):
+        flash_fwd(ok, broadcast, ok)
+    assert FLASH_FWD_LAUNCHES.count == before
     with pytest.raises(NotImplementedError):
         wide = torch.randn(1, 16, 1, 512, device=cuda)
         attention(wide, wide, wide, causal=True)
@@ -439,13 +491,17 @@ def test_masked_route_counts_its_calls(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B, S, H", [(1, 333, 3), (2, 1357, 24), (2, 4429, 24)])
-def test_flash_fwd_ragged_joint_length(cuda, dtype, B, S, H):
+@pytest.mark.parametrize("B, S, H, D", [
+    (1, 333, 3, 64), (2, 1357, 24, 64), (2, 4429, 24, 64), (1, 4250, 24, 64),
+    (2, 4429, 2, 24), (2, 4429, 2, 40), (1, 4429, 2, 80), (1, 4429, 2, 104),
+    (1, 4429, 2, 160)])
+def test_flash_fwd_ragged_joint_length(cuda, dtype, B, S, H, D):
     """The MM-DiT's joint attention: one ragged length on both sides (4429
-    = 69 * 64 + 13 at 1024², 1357 at 512²), head dim 64.  The last query
-    tile's rows are written (the output starts uninitialised) and the keys
-    past Skv are masked."""
-    q, k, v = _qkv(cuda, dtype, B, S, H, 64, S)
+    = 34 * 128 + 77 at 1024² with T5, 4250 in training, 1357 at 512²), at
+    head dim 64 and at every other padded width of the bf16 kernel.  The
+    last query tile's rows are written (the output starts uninitialised)
+    and the keys past Skv are masked."""
+    q, k, v = _qkv(cuda, dtype, B, S, H, D, S)
     before = FLASH_FWD_LAUNCHES.count
     out = flash_fwd(q, k, v)
     torch.cuda.synchronize()

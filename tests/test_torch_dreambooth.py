@@ -32,9 +32,9 @@ from stablediffusion_tpu_torch.train.optim import tree_leaves
 from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArgs
 from stablediffusion_tpu_torch.utils.testing import write_image_folder
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 REL_TOL = 1e-4

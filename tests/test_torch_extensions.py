@@ -30,10 +30,10 @@ from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPi
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
     jax_tree,
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4
@@ -96,22 +96,27 @@ def _unet_inputs(cfg, B=2, seed=0):
     return x, ctx, added
 
 
+def _port(tm, x, ctx, added, **kw):
+    """The port's UNet on NHWC numpy inputs (its output NCHW)."""
+    tadded = None if added is None else {k: torch.from_numpy(v) for k, v in added.items()}
+    if "deep_cache" in kw:
+        kw = dict(kw, deep_cache=torch.from_numpy(np.array(kw["deep_cache"])).permute(0, 3, 1, 2))
+    with torch.no_grad():
+        return tm.unet(torch.from_numpy(x).permute(0, 3, 1, 2), torch.tensor(500),
+                       torch.from_numpy(ctx), tadded, **kw)
+
+
 def _both(tm, x, ctx, added, **kw):
     """The port's and JAX's UNet on the same inputs: (port NHWC, JAX)."""
     cfg = tm.unet_config
     jadded = None if added is None else {k: jnp.asarray(v) for k, v in added.items()}
-    tadded = None if added is None else {k: torch.from_numpy(v) for k, v in added.items()}
-    jkw, tkw = dict(kw), dict(kw)
+    jkw = dict(kw)
     if "deep_cache" in kw:
         jkw["deep_cache"] = jnp.asarray(kw["deep_cache"])
-        tkw["deep_cache"] = torch.from_numpy(np.array(kw["deep_cache"])).permute(0, 3, 1, 2)
     ref = junet.apply(jax_tree(tm.unet), dataclasses.replace(
         jcfg.UNetConfig(**dataclasses.asdict(cfg))), jnp.asarray(x), jnp.asarray(500),
         jnp.asarray(ctx), added_cond=jadded, **jkw)
-    with torch.no_grad():
-        got = tm.unet(torch.from_numpy(x).permute(0, 3, 1, 2), torch.tensor(500),
-                      torch.from_numpy(ctx), tadded, **tkw)
-    return got, ref
+    return _port(tm, x, ctx, added, **kw), ref
 
 
 @pytest.mark.parametrize("family", ["sd15", "sdxl"])
@@ -125,8 +130,7 @@ def test_unet_pag_and_freeu_match_jax(sd15, sdxl, family, kw):
     x, ctx, added = _unet_inputs(tm.unet_config, seed=1)
     got, ref = _both(tm, x, ctx, added, **kw)
     _close(got.permute(0, 2, 3, 1), ref)
-    plain, _ = _both(tm, x, ctx, added)
-    assert not torch.allclose(got, plain, atol=1e-3)
+    assert not torch.allclose(got, _port(tm, x, ctx, added), atol=1e-3)
 
 
 @pytest.mark.parametrize("family", ["sd15", "sdxl"])

@@ -7,7 +7,7 @@ the JAX draws injected, within TOL of max(1, max |ref|).
 import pytest
 
 from test_torch_extensions import PIPELINE_CASES, PIPELINE_IDS, pipeline_case_matches_jax
-from torch_port_helpers import tiny_sdxl_port_model, to_jax_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module, tiny_sdxl_port_model, to_jax_model  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,7 @@ from stablediffusion_tpu_torch.utils.testing import (
     attention_bwd_wrong_variants,
     grad_error,
 )
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module  # noqa: F401
 
 # fp32 gradients of O(1) through sums over up to 512 keys on both sides
 ATOL = 1e-4

@@ -47,14 +47,14 @@ from stablediffusion_tpu_torch.utils.testing import (
     write_ip_adapter_file,
 )
 from torch_port_helpers import (  # noqa: F401
-    _init,
     capture_jax_draws,
+    _init,
     jax_tree,
     jitted,
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4
@@ -346,8 +346,9 @@ def test_load_from_jax_fills_the_vision_tower_and_resampler():
 
     from stablediffusion_tpu_torch.io.from_jax import load_from_jax
 
-    jtree = jclip_vision.init_params(jax.random.key(3), jcfg.CLIPVisionConfig(
-        **dataclasses.asdict(VCFG)))
+    # init under jit: one compile in place of the eager init's per-op ones
+    jtree = jax.jit(jclip_vision.init_params, static_argnums=1)(
+        jax.random.key(3), jcfg.CLIPVisionConfig(**dataclasses.asdict(VCFG)))
     with torch.device("meta"):
         enc = CLIPVisionModel(VCFG)
     enc = load_from_jax(enc.to_empty(device="cpu"), jax.device_get(jtree))

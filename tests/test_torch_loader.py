@@ -36,10 +36,10 @@ from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPi
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 from stablediffusion_tpu_torch.utils.testing import synthetic_clip_tokenizer
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 COMPONENTS = ("unet", "vae", "text_encoder")

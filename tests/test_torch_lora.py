@@ -26,10 +26,10 @@ from stablediffusion_tpu_torch.lora import core, formats
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

@@ -2,8 +2,11 @@
 unet.apply, vae.decode, vae.encode and vae.sample_latent on the tiny
 configs, in fp32 on the CPU.
 
-Weights are JAX-initialised and carried into the port's modules by
-io/from_jax.py; inputs are made with numpy from a seed.
+Weights are made in torch at the JAX package's scales
+(tests/torch_port_helpers.py), carried to the JAX package's param trees by its
+io/torch_convert.py, and from there into fresh port modules by the port's
+io/from_jax.py (JAX's own initialisation of even the tiny models costs more
+than the comparisons); inputs are made with numpy from a seed.
 """
 
 import jax
@@ -21,27 +24,23 @@ from stablediffusion_tpu_torch.io.from_jax import load_from_jax
 from stablediffusion_tpu_torch.models.clip import CLIPTextModel
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.models.vae import AutoencoderKL, sample_latent
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import _init as _init_torch
+from torch_port_helpers import jax_tree, port_test_module  # noqa: F401
 
 # fp32 on both sides through a few layers of GEMMs/convs and norms: only the
 # order of the sums differs; 1e-4 absolute on O(1) outputs
 ATOL = 1e-4
 
 
-def _np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _init(module, cfg, seed=0):
-    """JAX init under jit: eager init of even the tiny UNet takes ~16 s."""
-    init = jax.jit(module.init_params, static_argnums=1)
-    return _np_tree(init(jax.random.key(seed), cfg))
+def _init(port_module, seed=0):
+    """A JAX param tree in `port_module`'s layout, of random weights."""
+    return jax_tree(_init_torch(port_module, torch.Generator().manual_seed(seed)))
 
 
 @pytest.mark.parametrize("with_projection", [False, True])
 def test_clip_matches_jax(with_projection):
     jc = jcfg.tiny_clip_config(with_projection=with_projection)
-    params = _init(jclip, jc)
+    params = _init(CLIPTextModel(tcfg.tiny_clip_config(with_projection)))
     model = load_from_jax(CLIPTextModel(tcfg.tiny_clip_config(with_projection)), params)
     rng = np.random.default_rng(1)
     ids = rng.integers(0, 990, (2, 77)).astype(np.int32)
@@ -67,7 +66,7 @@ def test_clip_matches_jax(with_projection):
 
 def test_unet_matches_jax():
     jc = jcfg.tiny_unet_config()
-    params = _init(junet, jc)
+    params = _init(UNet2DConditionModel(tcfg.tiny_unet_config()))
     model = load_from_jax(UNet2DConditionModel(tcfg.tiny_unet_config()), params)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 16, 16, 4)).astype(np.float32)
@@ -117,7 +116,7 @@ def test_unet_rejects_unported_config():
 
 def test_vae_decode_matches_jax():
     jc = jcfg.tiny_vae_config()
-    params = _init(jvae, jc)
+    params = _init(AutoencoderKL(tcfg.tiny_vae_config()))
     model = load_from_jax(AutoencoderKL(tcfg.tiny_vae_config()), params)
     z = np.random.default_rng(3).standard_normal((2, 8, 8, 4)).astype(np.float32)
     ref = jax.jit(jvae.decode, static_argnums=1)(params, jc, jnp.asarray(z))
@@ -132,7 +131,7 @@ def test_vae_encode_matches_jax():
     quant_conv, the logvar clip) and sample_latent with the epsilon that
     jax.random draws for the same key, injected."""
     jc = jcfg.tiny_vae_config()
-    params = _init(jvae, jc)
+    params = _init(AutoencoderKL(tcfg.tiny_vae_config()))
     model = load_from_jax(AutoencoderKL(tcfg.tiny_vae_config()), params)
     img = np.random.default_rng(4).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     mean, logvar = jax.jit(jvae.encode, static_argnums=1)(params, jc, jnp.asarray(img))
@@ -151,7 +150,7 @@ def test_vae_encode_matches_jax():
 
 def test_from_jax_is_strict():
     jc = jcfg.tiny_vae_config()
-    params = _init(jvae, jc)
+    params = _init(AutoencoderKL(tcfg.tiny_vae_config()))
     model = AutoencoderKL(tcfg.tiny_vae_config())
     extra = dict(params, extra_conv={"weight": np.zeros((1, 1, 4, 4), np.float32)})
     with pytest.raises(KeyError, match="unexpected"):

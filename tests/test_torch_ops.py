@@ -24,7 +24,7 @@ from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
 )
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module  # noqa: F401
 
 # fp32 elementwise/normalisation ops on both sides: only evaluation order and
 # libm differ (a few ulp); 1e-5 absolute at O(1) values
@@ -234,11 +234,12 @@ def test_bf16_p_rounding_rule_has_teeth(r, B, Sq, H, D, Skv, block):
     mode, lies within it against its own key blocks, where the plain
     version in fp32 without the rounding rejects it; forwards that
     skip the accumulator's rescale, scale the logits twice, or keep the
-    accumulator in bf16 between 64-key tiles all break it by a large
-    factor."""
+    accumulator in bf16 between key tiles all break it by a large factor,
+    at the CUDA kernel's key tile (ops/attention.flash_fwd_key_tile)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from stablediffusion_tpu.ops.attention import _lib_flash
+    from stablediffusion_tpu_torch.ops.attention import flash_fwd_key_tile
     from stablediffusion_tpu_torch.utils.testing import (
         attention_p_rounded,
         attention_wrong_variants,
@@ -253,6 +254,7 @@ def test_bf16_p_rounding_rule_has_teeth(r, B, Sq, H, D, Skv, block):
     assert kernel_error(lib, *attention_p_rounded(q, k, v, block=block))["worst_over_limit"] <= 1.0
     assert kernel_error(lib, attention_plain(q.float(), k.float(), v.float()))[
         "worst_over_limit"] > 1.0
-    ref, flips = attention_p_rounded(q, k, v)
-    for name, wrong in attention_wrong_variants(q, k, v).items():
+    tile = flash_fwd_key_tile(D)[1]
+    ref, flips = attention_p_rounded(q, k, v, block=tile)
+    for name, wrong in attention_wrong_variants(q, k, v, block=tile).items():
         assert kernel_error(wrong, ref, flips)["worst_over_limit"] > 10.0, name

@@ -24,7 +24,7 @@ import torch
 
 from stablediffusion_tpu.train import optim as joptim
 from stablediffusion_tpu_torch.train import optim as toptim
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module  # noqa: F401
 
 TOL = 1e-6
 

@@ -19,6 +19,8 @@ ranks' sums (the gradients' mean, the row-parallel products) change fp32
 summation orders only.
 """
 
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +37,8 @@ from stablediffusion_tpu_torch.models.unet import GEGLU, Attention
 from stablediffusion_tpu_torch.parallel import dryrun, make_mesh, tp, zero
 from stablediffusion_tpu_torch.parallel.mesh import Mesh, rows, shard_batch
 from stablediffusion_tpu_torch.serve.handler import Handler
-from torch_port_helpers import jax_tree, to_jax_model, torch_single_thread  # noqa: F401
+from stablediffusion_tpu_torch.train.optim import tree_leaves
+from torch_port_helpers import jax_tree, port_test_module, to_jax_model  # noqa: F401
 
 REL_TOL = 1e-5
 B, RES = 4, 32  # the global batch: two rows per data rank
@@ -84,21 +87,29 @@ def _jax_step(jm, trainable, full, batch, key):
 @pytest.fixture(scope="module")
 def spawned():
     """The spawn's results, and JAX's two steps (LoRA, whole UNet) from the
-    same initial trees, batch and draws."""
+    same initial trees, batch and draws.  The spawn's two processes run
+    while this one takes the JAX steps: the LoRA step starts from the
+    seeded factors of ``dryrun.initial_trainable``, which the spawn's DP
+    step must start from too (held bit for bit)."""
     tm = dryrun.tiny_model()
     jm = to_jax_model(tm)
     key = jax.random.key(7)
     inputs = dryrun.make_inputs(B, RES)
     inputs["draws"] = _draws(key, tm)
-    res = dryrun.dryrun_multichip(2, inputs)
-    lora0 = res["dp"]["before"]
-    jlora = {}
-    for p, t in lora0.items():
-        comp, path, name = p.split(".", 1)[0], p.split(".", 1)[1].rsplit(".", 1)[0], \
-            p.rsplit(".", 1)[1]
-        jlora.setdefault(comp, {}).setdefault(path, {})[name] = jnp.asarray(t.numpy())
-    ref_lora = _jax_step(jm, jlora, False, inputs["batch"], key)
-    ref_full = _jax_step(jm, jm.unet_params, True, inputs["batch"], key)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        spawn = pool.submit(dryrun.dryrun_multichip, 2, inputs)
+        lora0 = dict(tree_leaves(dryrun.initial_trainable(tm, False)))
+        jlora = {}
+        for p, t in lora0.items():
+            comp, path, name = p.split(".", 1)[0], p.split(".", 1)[1].rsplit(".", 1)[0], \
+                p.rsplit(".", 1)[1]
+            jlora.setdefault(comp, {}).setdefault(path, {})[name] = jnp.asarray(t.numpy())
+        ref_lora = _jax_step(jm, jlora, False, inputs["batch"], key)
+        ref_full = _jax_step(jm, jm.unet_params, True, inputs["batch"], key)
+        res = spawn.result()
+    before = res["dp"]["before"]
+    assert sorted(before) == sorted(lora0)
+    assert all(torch.equal(before[p], t) for p, t in lora0.items())
     flat_lora = {f"{c}.{p}.{n}": a for c, tree in ref_lora[0].items()
                  for p, f in tree.items() for n, a in f.items()}
     flat_full = {k: to_torch_layout(k, a) for k, a in flatten(ref_full[0]).items()}

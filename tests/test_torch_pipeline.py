@@ -2,8 +2,10 @@
 against the JAX package, in fp32 on the CPU.
 
 The end-to-end test runs the tiny SD1.5 model through both pipelines with
-the same JAX-initialised weights (carried across by io/from_jax.py), the same
-char-level vocab and the same injected latents: 4 DDIM steps, CFG 7.5.
+the same weights (random torch weights at the JAX package's scales, carried
+to JAX by its io/torch_convert.py and back into the port by io/from_jax.py),
+the same char-level vocab and the same injected latents: 4 DDIM steps, CFG
+7.5.
 """
 
 import dataclasses
@@ -16,10 +18,6 @@ import torch
 
 from helpers import tiny_tokenizer
 from stablediffusion_tpu.core import config as jcfg
-from stablediffusion_tpu.models import clip as jclip
-from stablediffusion_tpu.models import unet as junet
-from stablediffusion_tpu.models import vae as jvae
-from stablediffusion_tpu.models.wrapper import SDModel as JSDModel
 from stablediffusion_tpu.pipelines.unified import (
     StableDiffusionUnifiedPipeline as JPipeline,
 )
@@ -36,7 +34,7 @@ from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPi
 from stablediffusion_tpu_torch.schedulers import make_scheduler
 from stablediffusion_tpu_torch.tokenizer.clip_bpe import CLIPTokenizer
 from stablediffusion_tpu_torch.utils import images as timages
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module, tiny_port_model, to_jax_model  # noqa: F401
 
 
 # -- DDIM ---------------------------------------------------------------------
@@ -124,23 +122,14 @@ def test_images_match_jax():
 # -- end to end ---------------------------------------------------------------
 
 
-def _init(module, cfg, key):
-    return jax.tree_util.tree_map(
-        np.asarray, jax.jit(module.init_params, static_argnums=1)(key, cfg)
-    )
-
-
 @pytest.fixture(scope="module")
 def models():
-    keys = jax.random.split(jax.random.key(0), 3)
-    ju, jv, jt = jcfg.tiny_unet_config(), jcfg.tiny_vae_config(), jcfg.tiny_clip_config()
-    up, vp, tp = _init(junet, ju, keys[0]), _init(jvae, jv, keys[1]), _init(jclip, jt, keys[2])
-    jtok = tiny_tokenizer()
-    jmodel = JSDModel(
-        model_type="sd15", unet_config=ju, unet_params=up, vae_config=jv,
-        vae_params=vp, text_encoder_config=jt, text_encoder_params=tp,
-        tokenizer=jtok,
-    )
+    """The JAX model of the tiny port model's random weights (built without
+    JAX's slow initialisation, tests/torch_port_helpers.py), and the port's
+    model loaded back from those JAX trees by io/from_jax.py."""
+    jmodel = to_jax_model(tiny_port_model())
+    up, vp, tp = jmodel.unet_params, jmodel.vae_params, jmodel.text_encoder_params
+    jtok = jmodel.tokenizer
     uc, vc, tc = tcfg.tiny_unet_config(), tcfg.tiny_vae_config(), tcfg.tiny_clip_config()
     merges = [m for m, _ in sorted(jtok.bpe_ranks.items(), key=lambda kv: kv[1])]
     tmodel = SDModel(

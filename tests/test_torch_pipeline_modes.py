@@ -28,9 +28,9 @@ from stablediffusion_tpu_torch.models.vae import tiled_decode, tiled_encode
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
+    port_test_module,
     tiny_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4

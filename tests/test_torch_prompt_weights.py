@@ -26,13 +26,13 @@ from stablediffusion_tpu_torch.utils import prompt_weights as pw
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
     capture_jax_sd3_draws,
+    port_test_module,
     port_tokenizer,
     tiny_port_model,
     tiny_sd3_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
 TOL = 1e-4

@@ -32,14 +32,18 @@ from stablediffusion_tpu_torch.serve.handler import Handler
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
     capture_jax_sd3_draws,
+    port_test_module,
     tiny_port_model,
     tiny_sd3_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
+# the int8 codes and scales are held to the JAX package's bit for bit, so
+# its programs here are compiled with XLA's optimizations, as it runs them
+# (tests/torch_port_helpers.port_test_module)
+JAX_OPTIMIZED = True
 ATOL = 1e-4
 REQ = dict(prompt="a cat", negative_prompt="dog", num_inference_steps=2, guidance_scale=7.5,
            height=32, width=32, seed=3, output_type="np")

@@ -30,12 +30,12 @@ from stablediffusion_tpu_torch.ops import quant
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from stablediffusion_tpu_torch.serve.handler import Handler
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_port_model,
     tiny_sd3_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
 REQ = dict(prompt="a cat", negative_prompt="dog", num_inference_steps=2, guidance_scale=7.5,

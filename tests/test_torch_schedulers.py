@@ -22,7 +22,7 @@ from stablediffusion_tpu.schedulers import make_scheduler as jmake
 from stablediffusion_tpu_torch.core import config as tcfg
 from stablediffusion_tpu_torch.schedulers import SCHEDULER_NAMES, make_scheduler
 from stablediffusion_tpu_torch.schedulers.common import step_noise
-from torch_port_helpers import torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module  # noqa: F401
 
 SHAPE = (2, 8, 8, 4)
 RTOL = 1e-5  # of max |ref| over the trajectory

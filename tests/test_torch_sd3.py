@@ -47,14 +47,14 @@ from stablediffusion_tpu_torch.serve.handler import (
     encode_images_b64,
 )
 from torch_port_helpers import (  # noqa: F401
+    capture_jax_sd3_draws,
     _init,
     _jax_cfg,
     _jax_noise,
-    capture_jax_sd3_draws,
     jax_tree,
+    port_test_module,
     tiny_sd3_port_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

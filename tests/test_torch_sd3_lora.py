@@ -28,9 +28,9 @@ from stablediffusion_tpu_torch.train import sd3_train
 from stablediffusion_tpu_torch.utils.testing import write_image_folder
 from torch_port_helpers import (  # noqa: F401
     capture_jax_sd3_draws,
+    port_test_module,
     tiny_sd3_port_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

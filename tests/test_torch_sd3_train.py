@@ -35,9 +35,9 @@ from stablediffusion_tpu_torch.train import sd3_train as tsd3
 from stablediffusion_tpu_torch.train.optim import tree_leaves
 from stablediffusion_tpu_torch.utils.testing import write_image_folder
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_sd3_port_model,
     to_jax_sd3_model,
-    torch_single_thread,
 )
 
 REL_TOL = 1e-4

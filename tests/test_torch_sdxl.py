@@ -30,14 +30,14 @@ from stablediffusion_tpu_torch.io.from_jax import flatten, to_torch_layout
 from stablediffusion_tpu_torch.models.unet import UNet2DConditionModel
 from stablediffusion_tpu_torch.pipelines.unified import StableDiffusionUnifiedPipeline
 from torch_port_helpers import (  # noqa: F401
+    capture_jax_draws,
     _init,
     _jax_cfg,
-    capture_jax_draws,
     jax_tree,
+    port_test_module,
     tiny_sdxl_port_model,
     tiny_sdxl_unet_config,
     to_jax_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

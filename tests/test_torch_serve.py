@@ -27,9 +27,9 @@ from stablediffusion_tpu_torch.serve.handler import (
 )
 from stablediffusion_tpu_torch.serve.worker import make_server, parse_args
 from torch_port_helpers import (  # noqa: F401
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
-    torch_single_thread,
 )
 
 ARGS = dict(prompt="a cat", height=32, width=32, num_inference_steps=2)

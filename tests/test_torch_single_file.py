@@ -43,12 +43,12 @@ from stablediffusion_tpu_torch.utils.testing import (
 )
 from test_a1111 import _unet_to_ldm, _vae_to_ldm
 from torch_port_helpers import (  # noqa: F401
-    _init,
     capture_jax_draws,
+    _init,
+    port_test_module,
     port_tokenizer,
     tiny_port_model,
     tiny_sdxl_port_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

@@ -28,7 +28,7 @@ from stablediffusion_tpu_torch.tokenizer.sentencepiece_unigram import (
 )
 from stablediffusion_tpu_torch.utils.testing import bench_t5_tokenizer
 from test_t5_tokenizer import CORPUS, _write_spiece_model, make_vocab
-from torch_port_helpers import _init, _jax_cfg, jax_tree, torch_single_thread  # noqa: F401
+from torch_port_helpers import _init, _jax_cfg, jax_tree, port_test_module  # noqa: F401
 
 ATOL = 1e-4
 

@@ -24,11 +24,11 @@ from stablediffusion_tpu_torch.serve.handler import Handler
 from stablediffusion_tpu_torch.utils.testing import random_lora, random_textual_inversion
 from torch_port_helpers import (  # noqa: F401
     capture_jax_draws,
+    port_test_module,
     port_tokenizer,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 ATOL = 1e-4

@@ -37,10 +37,10 @@ from stablediffusion_tpu_torch.train.trainer import SDLoRATrainer, SDTrainingArg
 from stablediffusion_tpu_torch.utils.testing import write_image_folder
 from torch_port_helpers import (  # noqa: F401
     _jax_cfg,
+    port_test_module,
     tiny_port_model,
     tiny_sdxl_port_model,
     to_jax_model,
-    torch_single_thread,
 )
 
 REL_TOL = 1e-4

@@ -35,7 +35,7 @@ from stablediffusion_tpu_torch.utils.testing import (
     save_ldm_single_file,
     write_controlnet_folder,
 )
-from torch_port_helpers import port_tokenizer, tiny_port_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module, port_tokenizer, tiny_port_model  # noqa: F401
 
 
 def _folder_tensors(root):

@@ -35,7 +35,7 @@ from stablediffusion_tpu_torch.models.vae import AutoencoderKL
 from stablediffusion_tpu_torch.schedulers import DDPMScheduler, make_scheduler
 from stablediffusion_tpu_torch.train import optim as toptim
 from stablediffusion_tpu_torch.train import train_step as tts
-from torch_port_helpers import jax_tree, tiny_port_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import jax_tree, port_test_module, tiny_port_model  # noqa: F401
 
 
 def _np(tree):

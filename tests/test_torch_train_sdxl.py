@@ -31,8 +31,8 @@ from stablediffusion_tpu_torch.train import train_step as tts
 from torch_port_helpers import (  # noqa: F401
     _jax_cfg,
     jax_tree,
+    port_test_module,
     tiny_sdxl_port_model,
-    torch_single_thread,
 )
 
 # fp32 through the VAE encode, both towers, the UNet and their backward on

@@ -19,7 +19,7 @@ import pytest
 from stablediffusion_tpu.serve import webapp as jwebapp
 from stablediffusion_tpu_torch.serve import webapp, worker
 from stablediffusion_tpu_torch.serve.handler import Handler
-from torch_port_helpers import tiny_port_model, torch_single_thread  # noqa: F401
+from torch_port_helpers import port_test_module, tiny_port_model  # noqa: F401
 
 IMG = np.zeros((64, 64, 3), np.uint8)
 UI_CASES = [

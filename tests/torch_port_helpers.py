@@ -5,6 +5,9 @@ stores the torch layouts that diffusers files hold)."""
 
 import contextlib
 import dataclasses
+import os
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -300,12 +303,55 @@ def jitted(fn, static_argnums=(1,), static_argnames=()):
     return _JITTED[key]
 
 
+# JAX's persistent compilation cache, shared by the port's test modules of
+# one pytest run (all its xdist workers): the tiny models' denoise loops,
+# train steps, draws and eager ops compile to the same programs in many of
+# these files, and each worker would compile them again (a module's end
+# drops the in-memory executables, tests/conftest.py).  A hit loads the same
+# executable a compile would give.  Inside the checkout, one directory per
+# run; a run removes the directories of earlier runs.  The references are
+# also compiled with XLA's backend optimizations off
+# (``jax_disable_most_optimizations``): on these tiny models compiling
+# costs far more than running, and the programs compute the same functions,
+# rounded apart by an ulp here and there.  A module that holds the JAX
+# package bit for bit sets ``JAX_OPTIMIZED = True`` and keeps them on.
+_JAX_CACHE_ROOT = Path(__file__).resolve().parent / ".jax_compile_cache"
+
+
 @pytest.fixture(scope="module", autouse=True)
-def torch_single_thread():
-    """One torch CPU thread for the module's tests: the tiny models' ops are
-    too small to share out, and with several test workers on one machine
-    each worker's full thread pool would contend for the same cores."""
+def port_test_module(request):
+    """What each port test module runs under: one torch CPU thread (the tiny
+    models' ops are too small to share out, and with several test workers on
+    one machine each worker's full thread pool would contend for the same
+    cores), and JAX compiles read from and written to this run's cache
+    directory, made with few optimizations (the JAX package's own test
+    modules run with neither)."""
+    import jax
+    from jax._src import compilation_cache, compiler
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID") or f"pid{os.getpid()}"
+    path = _JAX_CACHE_ROOT / run
+    if not path.exists():
+        for old in _JAX_CACHE_ROOT.glob("*"):
+            if old.name != run:
+                shutil.rmtree(old, ignore_errors=True)
+        path.mkdir(parents=True, exist_ok=True)
+    options = {"jax_compilation_cache_dir": str(path),
+               "jax_persistent_cache_min_compile_time_secs": 0.0}
+    saved = {k: getattr(jax.config, k) for k in options}
+    # a flag that jax.config updates but does not expose: read where the
+    # compiler reads it
+    saved["jax_disable_most_optimizations"] = compiler._DISABLE_MOST_OPTIMIZATIONS.value
+    optimized = getattr(request.module, "JAX_OPTIMIZED", False)
+    for k, v in dict(options, jax_disable_most_optimizations=not optimized).items():
+        jax.config.update(k, v)
+    compilation_cache.reset_cache()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+        for k, v in saved.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
