@@ -9,12 +9,13 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    started together) into a fresh kernel build cache directory in the
    checkout (``core/compile_cache``), print each kernel's registers and spilled bytes
    (``-Xptxas -v``; a spill in ``flash_bwd.cu`` or in a bf16 instantiation
-   of ``flash_fwd.cu`` fails the run); compile ``flash_fwd.cu`` to PTX
-   beside the build (``nvcc -ptx``, the build's flags) and print the counts
-   of ``wgmma.mma_async`` and ``cp.async.bulk.tensor`` in each bf16
-   instantiation, and, where the toolkit has ``cuobjdump``, of ``HGMMA``
-   and ``UTMALDG`` in the built library's SASS (any of them 0 fails the
-   run); set and print the TF32 switches.
+   of ``flash_fwd.cu`` fails the run); compile ``flash_fwd.cu`` and
+   ``flash_bwd.cu`` to PTX beside the build (``nvcc -ptx``, the build's
+   flags) and print the counts of ``wgmma.mma_async`` and
+   ``cp.async.bulk.tensor`` in each bf16 instantiation, and, where the
+   toolkit has ``cuobjdump``, of ``HGMMA`` and ``UTMALDG`` in the built
+   libraries' SASS (any of them 0 fails the run); set and print the TF32
+   switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
    three 512x512, 20-step DDIM, CFG 7.5 requests through the pipeline call
    (batch 1, batch 1 with another seed, a two-prompt batch).  Outputs must be
@@ -62,10 +63,12 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    ``attention_bwd_rounded`` (p and ds rounded to bf16 where the kernels and
    the JAX library round them) plus ``P_FLIP_RTOL`` times its flip term, in
    fp32 against ``flash_bwd_plain``; the forward's lse against
-   ``attention_plain_lse``; at [8,4096,8,40] bf16 four wrong backwards (di
+   ``attention_plain_lse``; at each ``BWD_TEETH_CASES`` shape (every bf16
+   head-dim instantiation the train paths launch) four wrong backwards (di
    = 0, dK/dV kept in bf16 between query tiles, ds unscaled, p from the row
-   max) must break the rule; kernel, plain and SDPA-backward times beside
-   the bound.
+   max) must break the rule; each kernel's device time as the median of 20
+   profiled launches after warm-up, with their min and max, the plain and
+   SDPA-backward times beside the bound.
 9. Train reference: a narrow SD1.5-layout model, card against CPU, fp32:
    loss and every LoRA gradient of one ``loss_fn`` + backward.
 10. Serving: a full-width SD1.5 folder written by ``save_sd_model`` (random
@@ -360,10 +363,16 @@ TEETH_CASES = {("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
                ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
                ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")}
 # the backward pairs (B, Sq, H, D, Skv, dtype) where four wrong backwards
-# must break the rule: SD1.5's heaviest, SD3's ragged joint stream in
-# training at 1024² (4250 = 66 * 64 + 26)
+# must break the rule: SD1.5's three self-attention widths (D = 40, 80 and
+# 160: every padded width of the bf16 kernels), SD3's ragged joint stream in
+# training at 1024² (4250 = 33 * 128 + 26) and the SDXL trainer's heaviest
 BWD_TEETH_CASES = {(TRAIN_BATCH, 4096, 8, 40, 4096, "bfloat16"),
-                   (1, 4250, 24, 64, 4250, "bfloat16")}
+                   (TRAIN_BATCH, 1024, 8, 80, 1024, "bfloat16"),
+                   (TRAIN_BATCH, 256, 8, 160, 256, "bfloat16"),
+                   (1, 4250, 24, 64, 4250, "bfloat16"),
+                   (2, 4096, 10, 64, 4096, "bfloat16")}
+# profiled launches a backward kernel's time is the median of, after warm-up
+BWD_TIMED_LAUNCHES = 20
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -409,6 +418,41 @@ def _device_ms(fn, key: str, reps: int) -> float:
     print(json.dumps({"device_ms_fallback": key, "event_ms": ms,
                       "why": "torch.profiler kept no kernel event in 3 runs"}), flush=True)
     return ms
+
+
+def _device_ms_spread(fn, key: str, reps: int) -> dict:
+    """Device time of one launch of the CUDA kernel whose name holds `key`
+    over `reps` calls after three warm-up calls, from torch.profiler's
+    kernel events: {"median", "min", "max", "n"} in ms (n: the events the
+    profiler kept).  The median holds still where a mean of a few launches
+    swung between runs; a profiling run that kept fewer than half the
+    events is repeated, and after three such runs the calls are timed with
+    CUDA events (the wrapper's host work included; every field the mean),
+    which a ``device_ms_fallback`` line says."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and key in e.name]
+        if 2 * len(us) >= reps:
+            return {"median": statistics.median(us), "min": min(us), "max": max(us),
+                    "n": len(us)}
+    ms = _time_ms(fn, reps)
+    print(json.dumps({"device_ms_fallback": key, "event_ms": ms,
+                      "why": "torch.profiler kept too few kernel events in 3 runs"}),
+          flush=True)
+    return {"median": ms, "min": ms, "max": ms, "n": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1098,10 +1142,10 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
         torch.cuda.empty_cache()
         fwd_lse_ms = _device_ms(lambda: _launch_fwd(q, k, v, scale, causal, with_lse=True),
                                 "flash_fwd", 5)
-        dkv_ms = _device_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, di, scale, causal),
-                            "flash_bwd_dkv", 5)
-        dq_ms = _device_ms(lambda: flash_bwd_dq(q, k, v, do, lse, di, scale, causal),
-                           "flash_bwd_dq", 5)
+        dkv_ms = _device_ms_spread(lambda: flash_bwd_dkv(q, k, v, do, lse, di, scale, causal),
+                                   "flash_bwd_dkv", BWD_TIMED_LAUNCHES)
+        dq_ms = _device_ms_spread(lambda: flash_bwd_dq(q, k, v, do, lse, di, scale, causal),
+                                  "flash_bwd_dq", BWD_TIMED_LAUNCHES)
         plain_ms = _time_ms(lambda: flash_bwd_plain(q, k, v, out, do, lse, scale, causal), 3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -1110,7 +1154,8 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
     fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot), 10)
     dname = str(dtype).replace("torch.", "")
     rows = []
-    for name, ms, outs in (("flash_bwd_dkv", dkv_ms, ("dk", "dv")), ("flash_bwd_dq", dq_ms, ("dq",))):
+    for name, spread, outs in (("flash_bwd_dkv", dkv_ms, ("dk", "dv")),
+                               ("flash_bwd_dq", dq_ms, ("dq",))):
         bound_ms, bound_by, terms = _bwd_bound(name, B, Sq, H, D, Skv, causal, dname,
                                                q.element_size())
         row = dict(kernel=name, shape=[B, Sq, H, D], skv=Skv, dtype=dname, causal=causal,
@@ -1121,7 +1166,9 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
                    atol=min(errs[o]["atol"] for o in outs), rtol=errs[outs[0]]["rtol"],
                    ref="attention_bwd_rounded" if rounded else "flash_bwd_plain",
                    lse_worst_over_limit=lse_err["worst_over_limit"], fwd_lse_ms=fwd_lse_ms,
-                   kernel_ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
+                   kernel_ms=spread["median"], kernel_ms_min=spread["min"],
+                   kernel_ms_max=spread["max"], kernel_ms_launches=spread["n"],
+                   plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bound_terms_ms=terms)
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -5235,55 +5282,64 @@ def phase_tooling(smi, cold_build_s):
 # the bf16 flash_fwd kernel's symbol; _device_ms and the profile phases
 # find every flash_fwd kernel by "flash_fwd" in its name
 FWD_BF16_KERNEL = "flash_fwd_wgmma_kernel"
+# the Hopper (bf16) kernels of each source whose PTX and SASS phase 1 reads
+HOPPER_KERNELS = {"flash_fwd": (FWD_BF16_KERNEL,),
+                  "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
 
 
 def _start_ptx(_build, out_dir):
-    """nvcc -ptx of csrc/flash_fwd.cu with the build's flags, started in the
-    background: (process, ptx path)."""
+    """nvcc -ptx of each source of HOPPER_KERNELS with the build's flags,
+    started in the background: {source: (process, ptx path)}."""
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC",
                                                         "-Xptxas", "-v")]
-    ptx = os.path.join(out_dir, "flash_fwd.ptx")
-    cmd = [_build._nvcc(), *flags, "-ptx", "-o", ptx, str(_build.CSRC / "flash_fwd.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), ptx
+    jobs = {}
+    for source in HOPPER_KERNELS:
+        ptx = os.path.join(out_dir, f"{source}.ptx")
+        cmd = [_build._nvcc(), *flags, "-ptx", "-o", ptx, str(_build.CSRC / f"{source}.cu")]
+        jobs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), ptx)
+    return jobs
 
 
-def _check_fwd_isa(_build, ptx_job):
-    """The bf16 flash_fwd is Hopper's: in the PTX of each of its
-    instantiations, wgmma products and TMA tensor copies
+def _check_hopper_isa(_build, ptx_jobs):
+    """The bf16 kernels are Hopper's: in the PTX of each instantiation of
+    each kernel of HOPPER_KERNELS, wgmma products and TMA tensor copies
     (cp.async.bulk.tensor); where the toolkit has cuobjdump, the same in the
     built library's SASS (HGMMA, UTMALDG).  Raises when an instantiation
-    lacks either, or when no instantiation is found."""
+    lacks either, or when a kernel has no instantiation."""
     import re
 
-    proc, ptx = ptx_job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise AssertionError(f"nvcc -ptx of flash_fwd.cu failed:\n{log}")
-    text = open(ptx).read()
-    rows = []
-    for entry in re.split(r"\.entry ", text)[1:]:
-        name = entry.split("(", 1)[0]
-        if FWD_BF16_KERNEL in name:
-            rows.append({"kernel": name, "wgmma.mma_async": entry.count("wgmma.mma_async"),
-                         "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")})
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = {}
-    if os.path.exists(cuobjdump):
-        dump = subprocess.run([cuobjdump, "-sass", str(_build._lib_path("flash_fwd"))],
-                              capture_output=True, text=True, check=True).stdout
-        for fn in re.split(r"\n\s*Function : ", dump)[1:]:
-            name = fn.split("\n", 1)[0].strip()
-            if FWD_BF16_KERNEL in name:
-                sass[name] = {"HGMMA": fn.count("HGMMA"), "UTMALDG": fn.count("UTMALDG")}
-    for r in rows:
-        r.update(sass.get(r["kernel"], {}))
-    print(json.dumps({"flash_fwd_bf16_isa": rows, "sass_read": bool(sass)}), flush=True)
-    if not rows or any(r["wgmma.mma_async"] == 0 or r["cp.async.bulk.tensor"] == 0
-                       for r in rows):
-        raise AssertionError(f"flash_fwd's bf16 kernel lacks wgmma or TMA copies: {rows}")
-    if sass and any(r.get("HGMMA", 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
-        raise AssertionError(f"flash_fwd's bf16 SASS lacks HGMMA or UTMALDG: {rows}")
+    for source, (proc, ptx) in ptx_jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc -ptx of {source}.cu failed:\n{log}")
+        kernels = HOPPER_KERNELS[source]
+        text = open(ptx).read()
+        rows = []
+        for entry in re.split(r"\.entry ", text)[1:]:
+            name = entry.split("(", 1)[0]
+            if any(kn in name for kn in kernels):
+                rows.append({"kernel": name, "wgmma.mma_async": entry.count("wgmma.mma_async"),
+                             "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")})
+        sass = {}
+        if os.path.exists(cuobjdump):
+            dump = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(source))],
+                                  capture_output=True, text=True, check=True).stdout
+            for fn in re.split(r"\n\s*Function : ", dump)[1:]:
+                name = fn.split("\n", 1)[0].strip()
+                if any(kn in name for kn in kernels):
+                    sass[name] = {"HGMMA": fn.count("HGMMA"), "UTMALDG": fn.count("UTMALDG")}
+        for r in rows:
+            r.update(sass.get(r["kernel"], {}))
+        print(json.dumps({f"{source}_bf16_isa": rows, "sass_read": bool(sass)}), flush=True)
+        missing = [kn for kn in kernels if not any(kn in r["kernel"] for r in rows)]
+        if missing or any(r["wgmma.mma_async"] == 0 or r["cp.async.bulk.tensor"] == 0
+                          for r in rows):
+            raise AssertionError(f"{source}'s bf16 kernels lack wgmma or TMA copies "
+                                 f"(no instantiation of {missing}): {rows}")
+        if sass and any(r.get("HGMMA", 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
+            raise AssertionError(f"{source}'s bf16 SASS lacks HGMMA or UTMALDG: {rows}")
 
 
 def main() -> int:
@@ -5318,7 +5374,7 @@ def main() -> int:
         raise AssertionError(f"the kernel build cache at {cache} is unavailable")
     ptx_dir = os.path.join(cache, "ptx")
     os.makedirs(ptx_dir, exist_ok=True)
-    ptx_job = _start_ptx(_build, ptx_dir)  # beside the build, not part of it
+    ptx_jobs = _start_ptx(_build, ptx_dir)  # beside the build, not part of it
     t = time.perf_counter()
     _build.build()
     cold_build_s = time.perf_counter() - t
@@ -5335,7 +5391,7 @@ def main() -> int:
         spilled_bf16 = [u for u in spilled if u["kernel"].startswith(FWD_BF16_KERNEL)]
         if source == "flash_fwd" and spilled_bf16:
             raise AssertionError(f"flash_fwd's bf16 kernels spill registers: {spilled_bf16}")
-    _check_fwd_isa(_build, ptx_job)
+    _check_hopper_isa(_build, ptx_jobs)
     if set(_build.SOURCES) - set(_build.BUILD_LOGS):
         print("ptxas: the libraries were built by an earlier run; no report", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False

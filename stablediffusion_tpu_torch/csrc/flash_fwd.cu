@@ -92,7 +92,7 @@
 #include <cuda.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -319,8 +319,6 @@ constexpr int kWsRows = kWgRows * kConsumerWGs;      // 128 query rows a block
 constexpr int kConsumerWarps = 4 * kConsumerWGs;
 constexpr int kWsThreads = 128 * (kConsumerWGs + 1);  // + the producer warpgroup
 constexpr int kStages = 2;                           // K/V ring depth
-constexpr int kAtomCols = 64;                        // bf16 columns of one 128-byte swizzle row
-constexpr int kAtomBytes = 128;
 // registers a thread after setmaxnreg, which counts them by warpgroup: the
 // producer warpgroup gives its share back and the two consumer warpgroups
 // take it.  Launched at 168 = 65536 / 384 rounded down to 8, and
@@ -331,14 +329,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // the -1e30 mask in the log2 domain of the scaled logits
 constexpr float kMaskLog2 = sdt::kNegInf * kLog2e;
-// a barrier wait that lasts this many SM clocks (seconds) traps instead of
-// hanging the card: every wait here is for a copy or a product of this block
-constexpr long long kWaitLimitClocks = 1LL << 33;
 
-using sdt::bf16;
-using sdt::exp2_approx;
-using sdt::pack_bf16;
-using sdt::smem_u32;
+using namespace sdt;
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base (the
 // 128-byte swizzle repeats every 8 rows = 1024 bytes, and wgmma's descriptors
@@ -360,196 +352,12 @@ struct WsLayout {
   static_assert(kBytes <= 232448, "shared memory of one block");
 };
 
-// --- mbarriers --------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWaitLimitClocks) __trap();
-}
-
-// --- TMA ----------------------------------------------------------------------
-
-// one box of a 4-D (D, H, S, B) tensor map into shared memory; completion
-// (its bytes) is reported to `bar`.  Elements outside the tensor read as zero.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d, int h, int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(h), "r"(s), "r"(b), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// --- wgmma --------------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a tile stored with the 128-byte swizzle
-// (layout type 1, bits 62-63).  Start address, leading and stride byte
-// offsets in 16-byte units.  sbo: the step between groups of 8 rows (1024
-// bytes here).  lbo: unused by the K-major layouts; for the MN-major V it is
-// the step to the next 64-column atom, which a 64-wide product never takes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma reads or writes across the fence, commit and wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// d = a b (accumulate == 0) or d += a b, m64n64k16: A and B from shared
-// memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d = a b (accumulate == 0) or d += a b, m64n128k16: A and B from shared
-// memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += a b, m64n64k16: A from registers, B from shared memory MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// q k^T for one warpgroup's 64 rows and a stage's BK keys: D16 / 16 k16
-// steps over the head dims (D16 = D rounded up to 16; columns D.. of the
-// last step are the zeros TMA filled in).  A k16 step is 32 bytes along a
-// swizzled row, so the descriptors advance by 32 bytes within an atom and by
-// a whole atom (rows * 128 bytes) from one 64-column atom to the next.
-template <int D16, int BK>
-__device__ __forceinline__ void qk_product(float (&s)[BK / 2], uint32_t q_tile,
-                                           uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < D16 / 16; ++kk) {
-    const uint32_t atom = kk / 4, off = (kk % 4) * 32;
-    const uint64_t da = smem_desc(q_tile + atom * kWsRows * kAtomBytes + off, 16, 1024);
-    const uint64_t db = smem_desc(k_tile + atom * BK * kAtomBytes + off, 16, 1024);
-    if constexpr (BK == 128)
-      wgmma_ss_n128(s, da, db, kk > 0);
-    else
-      wgmma_ss_n64(s, da, db, kk > 0);
-  }
-}
-
 // One block: 128 query rows of one (batch, head), head dims padded to D16
 // for q k^T and to DP (whole swizzle atoms) in shared memory.  Warps 0-7 are
 // two consumer warpgroups of 64 rows each; warps 8-11 are the producer
 // warpgroup, of which one warp (one thread of it) issues every TMA copy and
 // the other three only give their registers back.
-template <int D16, int DP = (D16 + kAtomCols - 1) / kAtomCols * kAtomCols>
+template <int D16, int DP = atom_width(D16)>
 __global__ void __launch_bounds__(kWsThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -595,21 +403,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       tma_prefetch(&tk);
       tma_prefetch(&tv);
       mbar_expect_tx(q_full, L::kQBytes);
-      for (int c = 0; c < NC; ++c)
-        tma_load(sQ + c * kWsRows * kAtomBytes, &tq, q_full, c * kAtomCols, h, q0, b);
+      tma_load_tile<NC>(sQ, &tq, q_full, kWsRows, h, q0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         const uint32_t parity = ((j / kStages) & 1) ^ 1;  // round 0 passes at once
         mbar_wait(k_empty(s), parity);
         mbar_expect_tx(k_full(s), L::kKVBytes);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sK + s * L::kKVBytes + c * BK * kAtomBytes, &tk, k_full(s), c * kAtomCols,
-                   h, j * BK, b);
+        tma_load_tile<NC>(sK + s * L::kKVBytes, &tk, k_full(s), BK, h, j * BK, b);
         mbar_wait(v_empty(s), parity);
         mbar_expect_tx(v_full(s), L::kKVBytes);
-        for (int c = 0; c < NC; ++c)
-          tma_load(sV + s * L::kKVBytes + c * BK * kAtomBytes, &tv, v_full(s), c * kAtomCols,
-                   h, j * BK, b);
+        tma_load_tile<NC>(sV + s * L::kKVBytes, &tv, v_full(s), BK, h, j * BK, b);
       }
     }
   } else {
@@ -648,7 +451,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(k_full(st), parity);
       reg_fence(s);
       wgmma_fence();
-      qk_product<D16, BK>(s, q_tile, sK + st * L::kKVBytes);
+      kmajor_product<D16, BK, kWsRows>(s, q_tile, sK + st * L::kKVBytes);
       wgmma_commit();
       wgmma_wait_all();
       reg_fence(s);
@@ -699,13 +502,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                   (part[2 * r + 4] + part[2 * r + 5]));
       // p rounded to bf16 straight from the accumulator: the C layout of the
       // two n8 tiles of k16 step kk is the A fragment of that step
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      acc_to_a<BK>(s, pa);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -714,21 +511,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // o += bf16(p) v: V's rows are the k16 steps (16 rows = 2048 bytes),
       // its 64-column atoms the n64 products
       mbar_wait(v_full(st), parity);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) reg_fence(o[c]);
+      reg_fence(o);
       reg_fence(pa);
       wgmma_fence();
-      const uint32_t v_tile = sV + st * L::kKVBytes;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          wgmma_rs_n64(o[c], pa[kk],
-                       smem_desc(v_tile + c * BK * kAtomBytes + kk * 16 * kAtomBytes, 1024, 1024));
+      mnmajor_product<NC, BK>(o, pa, sV + st * L::kKVBytes);
       wgmma_commit();
       wgmma_wait_all();
-#pragma unroll
-      for (int c = 0; c < NC; ++c) reg_fence(o[c]);
+      reg_fence(o);
       reg_fence(pa);
       __syncwarp();
       if (lane == 0) mbar_arrive(v_empty(st));
@@ -760,60 +549,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
-// libcuda); null where it is missing
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The 4-D map (D, H, S, B) of a bf16 [B, S, H, D] tensor with its own
-// element strides, read in boxes of 64 columns x `rows` rows of one (batch,
-// head), 128-byte swizzled.  Elements past S and past D read as zero.  A
-// dimension of size 1 takes the dense stride (its own is never stepped).
-bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
-                long long sh, long long ss, long long sb, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  long long st[3] = {sh, ss, sb};
-  long long dense = D;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i + 1] == 1) st[i] = dense;
-    dense = st[i] * static_cast<long long>(dims[i + 1]);
-  }
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(st[i]) * sizeof(bf16);
-  cuuint32_t box[4] = {kAtomCols, 1, static_cast<cuuint32_t>(rows), 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D16>
 cudaError_t launch_wgmma(const FwdParams& p, cudaStream_t stream) {
-  using L = WsLayout<(D16 + kAtomCols - 1) / kAtomCols * kAtomCols>;
+  using L = WsLayout<atom_width(D16)>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return attr;

@@ -162,8 +162,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 def ptxas_usage(log: str) -> List[dict]:
     """Registers and spilled bytes (stores + loads) of each kernel in an
     nvcc log with ``-Xptxas -v``; kernels named like
-    ``flash_bwd_dq_tc_kernel<48>``, ``flash_stream_kernel<bf16, 512>`` or
-    ``flash_fwd_wgmma_kernel<48, 64>``."""
+    ``flash_bwd_dq_wgmma_kernel<48>``, ``flash_stream_kernel<bf16, 512>``,
+    ``flash_fwd_wgmma_kernel<48, 64>`` or ``flash_bwd_dkv_wgmma_kernel<64, 1>``."""
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -252,13 +252,25 @@ def vector_loadable(t: torch.Tensor) -> bool:
 
 
 def tma_mappable(t: torch.Tensor) -> bool:
-    """Whether the bf16 flash_fwd's 4-D tensor map (D, H, S, B) can describe
+    """Whether the bf16 kernels' 4-D tensor map (D, H, S, B) can describe
     `t` beyond what :func:`vector_loadable` asks: each dimension longer
     than 1 steps by a positive stride whose byte size is below 2**40
     (``cuTensorMapEncodeTiled``'s limit; a dimension of size 1 is given the
     dense stride, since it is never stepped)."""
     return all(s > 0 and s * t.element_size() < 2**40
                for s, n in zip(t.stride(), t.shape) if n > 1)
+
+
+def check_tma_mappable(name: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise a ValueError naming the first of `tensors` (name -> tensor)
+    that a TMA tensor map cannot read (:func:`tma_mappable`)."""
+    for tn, t in tensors.items():
+        if not tma_mappable(t):
+            raise ValueError(
+                f"{name}: {tn} cannot be read through a TMA tensor map: every "
+                "dimension longer than 1 needs a positive stride below 2**39 "
+                "elements"
+            )
 
 
 def strides3(t: torch.Tensor) -> List[int]:
@@ -275,13 +287,7 @@ def attention_launch_args(
     anything the kernel does not take."""
     check_attention_inputs(name, q, k, v, d_min, d_max)
     if name == "flash_fwd" and q.dtype == torch.bfloat16:
-        for t, tn in ((q, "q"), (k, "k"), (v, "v")):
-            if not tma_mappable(t):
-                raise ValueError(
-                    f"{name}: {tn} cannot be read through a TMA tensor map: every "
-                    "dimension longer than 1 needs a positive stride below 2**39 "
-                    "elements"
-                )
+        check_tma_mappable(name, {"q": q, "k": k, "v": v})
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     args = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)]
@@ -297,7 +303,8 @@ def bwd_launch_args(
     dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
 ) -> List:
     """The backward entries' ctypes arguments up to and excluding the scale.
-    q/k/v/dO are checked as the forward checks q/k/v; lse and di must be
+    q/k/v/dO are checked as the forward checks q/k/v (in bf16 also that a
+    TMA map can read each, :func:`check_tma_mappable`); lse and di must be
     contiguous fp32 [B, H, Sq]; an output that is None is not written by the
     entry called (its pointer is null)."""
     check_attention_inputs("flash_bwd", q, k, v, 8, 160)
@@ -306,6 +313,8 @@ def bwd_launch_args(
         raise ValueError(f"flash_bwd: dO {tuple(do.shape)} {do.dtype} does not match q")
     if not vector_loadable(do):
         raise ValueError("flash_bwd: dO is not laid out for 16-byte row loads")
+    if q.dtype == torch.bfloat16:
+        check_tma_mappable("flash_bwd", {"q": q, "k": k, "v": v, "dO": do})
     for t, tn in ((lse, "lse"), (di, "di")):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):

@@ -243,18 +243,28 @@ def flash_bwd_dq(q, k, v, do, lse, di, scale: float, causal: bool = False):
     return dq
 
 
+def dout_for_kernels(do: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dO in `dtype`, made contiguous where its layout suits either the
+    kernels' 16-byte row loads or the bf16 kernels' TMA maps no more
+    (:func:`_build.vector_loadable`, :func:`_build.tma_mappable`): autograd
+    may hand in any view, such as the zero-stride expansion that the
+    gradient of a sum is."""
+    do = do.to(dtype)
+    if not (_build.vector_loadable(do) and _build.tma_mappable(do)):
+        do = do.contiguous()
+    return do
+
+
 def flash_bwd(q, k, v, o, do, lse, scale: Optional[float] = None, causal: bool = False):
     """(dq, dk, dv): di = rowsum(O * dO) in plain torch, as the JAX library
-    computes it outside its kernels, then the two backward kernels.  dO is
-    made contiguous where its layout does not suit the kernels' 16-byte
-    loads (autograd may hand in any layout).  CPU tensors take the plain
+    computes it outside its kernels, then the two backward kernels.  dO goes
+    through :func:`dout_for_kernels` first; q, k and v are taken as they lie,
+    and a layout the kernels cannot read raises.  CPU tensors take the plain
     version."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, scale, causal)
-    do = do.to(q.dtype)
-    if not _build.vector_loadable(do):
-        do = do.contiguous()
+    do = dout_for_kernels(do, q.dtype)
     di = _row_dot(o, do)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, scale, causal)
     dq = flash_bwd_dq(q, k, v, do, lse, di, scale, causal)
@@ -263,9 +273,11 @@ def flash_bwd(q, k, v, o, do, lse, scale: Optional[float] = None, causal: bool =
 
 class FlashAttnFn(torch.autograd.Function):
     """Attention whose forward is ``flash_fwd`` writing the row
-    log-sum-exp and whose backward is the two kernels of csrc/flash_bwd.cu:
-    the port of the library kernel's custom VJP (flash_attention.py:234-323).
-    Saves q, k, v, out and lse; no [Sq, Skv] tensor is kept."""
+    log-sum-exp and whose backward is the two kernels of csrc/flash_bwd.cu
+    (in bf16 TMA-fed wgmma, as the forward): the port of the library
+    kernel's custom VJP (flash_attention.py:234-323).  Saves q, k, v, out
+    and lse; no [Sq, Skv] tensor is kept.  The incoming dO may be any view:
+    :func:`flash_bwd` makes it contiguous where the kernels cannot read it."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool):

@@ -223,17 +223,27 @@ def _bwd_within_rule(grads, q, k, v, out, do, lse, causal):
      # (4096 image + 77 CLIP + 77 T5 tokens at 1024^2), 1178 = 1024 + 154
      # at 512^2, ragged on both sides
      (1, 4250, 24, 64, 4250, False), (2, 1178, 24, 64, 1178, False),
-     (2, 4250, 24, 64, 4250, False)],
+     (2, 4250, 24, 64, 4250, False),
+     # the Hopper kernels' traps: lse/di rows that start off a 16-byte
+     # boundary (Sq = 4250 at D = 40, Sq = 77 over 300 keys, B * H > 1); the
+     # SD1.5 cross shape, 77 keys at B * H = 64 (dkv's 64-key split blocks);
+     # causal across several 128-row tiles, with split blocks (24 < 132) and
+     # with 128-key blocks (160)
+     (3, 4250, 2, 40, 4250, False), (3, 77, 2, 64, 300, False),
+     (8, 4096, 8, 40, 77, False), (2, 300, 4, 64, 300, True),
+     (4, 600, 8, 64, 600, True)],
 )
 def test_flash_bwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     """Both backward kernels against their plain version (_bwd_within_rule)
-    at every head-dim bucket and at the tensor-core kernels' traps: D = 24,
-    40 and 136 (the k16 steps read zero-filled columns up to the next
-    multiple of 16, and no column past D is stored), D = 128 and up (dkv's
-    two warps per 16 keys), Skv = 77, 50 and 1101 (a ragged last key tile),
-    ragged Sq (100, 130, 1101, 300), the SD3 joint stream's 4250 and 1178
-    on both sides (the last query tile's rows and the last key tile's keys
-    live in part; the gradients start uninitialised, so a row left
+    at every head-dim bucket and at the Hopper kernels' traps: D = 24, 40
+    and 136 (the k16 steps read zero-filled columns up to the next multiple
+    of 16, and no column past D is stored), D = 80 and up (dkv's warpgroups
+    split by gradient), Skv = 77, 50 and 1101 (a ragged last key tile, and
+    dkv's 64-key blocks that split the query tiles where 128-key blocks
+    would not fill the card), ragged Sq (100, 130, 1101, 300, 77), the SD3
+    joint stream's 4250 and 1178 on both sides (the last query tile's rows
+    and the last key tile's keys live in part, and the lse/di rows start off
+    a 16-byte boundary; the gradients start uninitialised, so a row left
     unwritten shows), causal (CLIP's [8, 77, 12, 64], and tiles cut by the
     diagonal).  The forward's lse against attention_plain_lse."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
@@ -282,6 +292,45 @@ def test_flash_attn_fn_bf16_matches_rounded(cuda, B, Sq, H, D, Skv, causal):
         out_lse, lse = _fwd_with_lse(q, k, v, causal)
     assert torch.equal(out_lse, out.detach())
     _bwd_within_rule(grads, q, k, v, out.detach(), do, lse, causal)
+
+
+def test_flash_attn_fn_takes_an_expanded_dout(cuda):
+    """bf16 gradients through FlashAttnFn when autograd hands in dO expanded
+    along the sequence (the gradient of a sum over it: stride 0, which the
+    16-byte loads would take but no TMA map can), against
+    attention_bwd_rounded on the same dO, under the bf16 rule."""
+    from stablediffusion_tpu_torch.ops._build import tma_mappable, vector_loadable
+
+    B, S, H, D = 2, 300, 4, 64
+    q, k, v = _qkv(cuda, torch.bfloat16, B, S, H, D, S)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves)
+    g = torch.randn(B, H, D, device=cuda, dtype=torch.bfloat16)
+    do = g.unsqueeze(1).expand(B, S, H, D)
+    assert vector_loadable(do) and not tma_mappable(do)
+    grads = torch.autograd.grad(out.sum(dim=1), leaves, g)
+    with torch.no_grad():
+        _, lse = _fwd_with_lse(q, k, v, False)
+    _bwd_within_rule(grads, q, k, v, out.detach(), do, lse, False)
+
+
+def test_flash_bwd_refuses_what_a_tensor_map_cannot_take(cuda):
+    """A bf16 q broadcast along the sequence (stride 0) passes the 16-byte
+    load check but no TMA map can read it: the backward's wrapper raises a
+    ValueError that names q and launches neither kernel."""
+    from stablediffusion_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 2, 64, 64)
+    do = torch.randn_like(q)
+    with torch.no_grad():
+        out, lse = _fwd_with_lse(q, k, v, False)
+    di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    broadcast = q[:, :1].expand_as(q)
+    before = (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count)
+    for fn in (flash_bwd_dkv, flash_bwd_dq):
+        with pytest.raises(ValueError, match="flash_bwd: q cannot be read through a TMA"):
+            fn(broadcast, k, v, do, lse, di, 0.125)
+    assert (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count) == before
 
 
 def _fwd_with_lse(q, k, v, causal):

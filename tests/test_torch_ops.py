@@ -17,9 +17,14 @@ from stablediffusion_tpu_torch.ops import basic as T
 from stablediffusion_tpu_torch.ops.attention import (
     attention,
     attention_plain,
+    dout_for_kernels,
     flash_fwd,
 )
-from stablediffusion_tpu_torch.ops._build import attention_launch_args, ptxas_usage
+from stablediffusion_tpu_torch.ops._build import (
+    attention_launch_args,
+    check_tma_mappable,
+    ptxas_usage,
+)
 from stablediffusion_tpu_torch.ops.flash_attention import (
     flash_stream,
     flash_stream_plain,
@@ -202,9 +207,10 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_ptxas_usage_reads_registers_and_spills():
-    """chip_smoke.py's register report: nvcc's ``-Xptxas -v`` lines of two
-    kernels (a template instance with a spill, one with a type argument)
-    read back as name, registers and spilled bytes."""
+    """chip_smoke.py's register report: nvcc's ``-Xptxas -v`` lines of
+    three kernels (a template instance with a spill, one with a type
+    argument, one with two integer arguments) read back as name, registers
+    and spilled bytes."""
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a_12_flash_bwd_cu_2b"
         "23flash_bwd_dkv_tc_kernelILi80EEEvNS_9BwdParamsE' for 'sm_90a'",
@@ -215,11 +221,49 @@ def test_ptxas_usage_reads_registers_and_spills():
         "19flash_stream_kernelI13__nv_bfloat16Li512EEEvNS_12StreamParamsE' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 254 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a_12_flash_bwd_cu_2b"
+        "26flash_bwd_dkv_wgmma_kernelILi64ELi1EEEvN10CUtensorMap_stES2_S2_S2_NS_9BwdParamsE'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
     ])
     assert ptxas_usage(log) == [
         {"kernel": "flash_bwd_dkv_tc_kernel<80>", "registers": 255, "spill_bytes": 52},
         {"kernel": "flash_stream_kernel<bf16, 512>", "registers": 254, "spill_bytes": 0},
+        {"kernel": "flash_bwd_dkv_wgmma_kernel<64, 1>", "registers": 168, "spill_bytes": 0},
     ]
+
+
+def test_tma_check_names_the_tensor_it_refuses():
+    """The bf16 kernels' TMA maps need a positive stride on every dimension
+    longer than 1: the check the backward's wrapper runs on q, k, v and dO
+    (CPU tensors, since it reads only shapes and strides) passes views that
+    step by positive strides and names the one that does not, here a dO
+    expanded along the sequence (stride 0), as the gradient of a sum is."""
+    q = torch.zeros(2, 33, 3, 40, dtype=torch.bfloat16)
+    view = torch.zeros(2, 3, 33, 40, dtype=torch.bfloat16).transpose(1, 2)
+    check_tma_mappable("flash_bwd", {"q": q, "k": view, "v": view, "dO": q})
+    expanded = torch.zeros(2, 1, 3, 40, dtype=torch.bfloat16).expand(2, 33, 3, 40)
+    with pytest.raises(ValueError, match="flash_bwd: dO cannot be read through a TMA"):
+        check_tma_mappable("flash_bwd", {"q": q, "k": q, "v": q, "dO": expanded})
+
+
+def test_dout_for_kernels_repairs_what_the_maps_refuse():
+    """The backward's dO: cast to the inputs' dtype; a view the kernels can
+    read (a transpose) is kept as it lies, without a copy; a zero-stride
+    expansion, which the 16-byte loads would take but no TMA map can, is
+    made contiguous with the same values."""
+    g = torch.Generator().manual_seed(0)
+    view = torch.randn(2, 3, 33, 40, generator=g).to(torch.bfloat16).transpose(1, 2)
+    kept = dout_for_kernels(view, torch.bfloat16)
+    assert kept.data_ptr() == view.data_ptr() and kept.stride() == view.stride()
+    expanded = torch.randn(2, 1, 3, 40, generator=g).to(torch.bfloat16).expand(2, 33, 3, 40)
+    assert expanded.stride()[1] == 0
+    fixed = dout_for_kernels(expanded, torch.bfloat16)
+    assert fixed.is_contiguous() and torch.equal(fixed, expanded)
+    cast = dout_for_kernels(view.float(), torch.bfloat16)
+    assert cast.dtype == torch.bfloat16 and torch.equal(cast, view)
+    check_tma_mappable("flash_bwd", {"dO": fixed})
 
 
 # (B, Sq, H, D, Skv, the key block _lib_flash picks): more than one key
