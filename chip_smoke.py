@@ -8,14 +8,17 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    CUDA sources of ``stablediffusion_tpu_torch/csrc`` (one nvcc each, all
    started together) into a fresh kernel build cache directory in the
    checkout (``core/compile_cache``), print each kernel's registers and spilled bytes
-   (``-Xptxas -v``; a spill in ``flash_bwd.cu`` or in a bf16 instantiation
-   of ``flash_fwd.cu`` fails the run); compile ``flash_fwd.cu`` and
-   ``flash_bwd.cu`` to PTX beside the build (``nvcc -ptx``, the build's
-   flags) and print the counts of ``wgmma.mma_async`` and
-   ``cp.async.bulk.tensor`` in each bf16 instantiation, and, where the
-   toolkit has ``cuobjdump``, of ``HGMMA`` and ``UTMALDG`` in the built
-   libraries' SASS (any of them 0 fails the run); set and print the TF32
-   switches.
+   (``-Xptxas -v``; a spill in ``flash_bwd.cu``, in a bf16 instantiation
+   of ``flash_fwd.cu`` or in an fp32 (3xTF32) instantiation of
+   ``flash_stream.cu`` fails the run, and so does ptxas's notice that it
+   serialized the wgmma of a ``flash_stream`` instantiation); compile the
+   three sources to PTX beside the build (``nvcc -ptx``, the build's
+   flags) and print the counts of ``wgmma.mma_async`` (in ``flash_stream``
+   those with ``.tf32``, and ``mma.sync`` with ``.tf32``) and
+   ``cp.async.bulk.tensor`` in each Hopper instantiation, and, where the
+   toolkit has ``cuobjdump``, of ``HGMMA`` (``flash_stream``: with
+   ``TF32``) and ``UTMALDG`` in the built libraries' SASS (any of them 0
+   fails the run); set and print the TF32 switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
    three 512x512, 20-step DDIM, CFG 7.5 requests through the pipeline call
    (batch 1, batch 1 with another seed, a two-prompt batch).  Outputs must be
@@ -32,11 +35,15 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    rounding, plus ``P_FLIP_RTOL`` times its p near a rounding
    midpoint); at [2,4096,8,40] bf16 three wrong forwards (no accumulator
    rescale, the scale applied twice, the accumulator kept in bf16 between
-   tiles) must break that limit.  Each kernel's device time (its own kernel events under
-   torch.profiler; the event-timed call, which includes the wrapper's host
-   work, beside it), the plain version's and one library call's
-   (``F.scaled_dot_product_attention``, a yardstick the port never calls)
-   beside the card's bound.
+   tiles) must break that limit, and at [1,4096,1,512] fp32 two products
+   that are not fp32-accurate (``utils/testing.
+   flash_stream_tf32_wrong_variants``: TF32 operands rounded once, and
+   hi*hi + hi*lo) must break the fp32 limit that the 3xTF32 kernel keeps
+   (``TEETH_CASES`` names both).  Each kernel's device time (its own kernel
+   events under torch.profiler; the event-timed call, which includes the
+   wrapper's host work, beside it), the plain version's and one library
+   call's (``F.scaled_dot_product_attention``, a yardstick the port never
+   calls) beside the card's bound.
 4. Full width in bf16: one UNet forward at B=2 on the main path's weights,
    through the kernels and through the plain attention, each against an fp32
    copy with the plain attention.  The random weights' biases are ones, which
@@ -323,10 +330,14 @@ import time
 
 PEAK_FLOPS = {
     "bfloat16": 989e12,  # H100 SXM dense bf16 tensor-core rate
-    # fp32-exact attention cannot use TF32 tensor cores: the H100 SXM's
-    # fp32 rate outside the tensor cores
-    "float32": 67e12,
+    # fp32-accurate products on the tensor cores: 3xTF32 (each operand split
+    # into two TF32 parts, three products) at a third of the H100 SXM's
+    # dense TF32 rate, 495e12 / 3
+    "float32": 495e12 / 3,
 }
+# the H100 SXM's fp32 rate outside the tensor cores: the floor of exact fp32
+# products on FFMAs, reported beside an fp32 bound ("products_ffma")
+FFMA_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # reference check: card (kernels) vs CPU (plain) in fp32 with TF32 off; the
 # sums run in other orders through 4 DDIM steps of the UNet
@@ -353,15 +364,37 @@ TRAIN_REF_TOL = 1e-3
 MUFU_PER_CLOCK = 16
 FMA_EXP_PER_CLOCK = 128 / 4
 SMS = 132
-# the bf16 flash_fwd shapes where three wrong forwards must break the rule:
-# SD1.5's heaviest self-attention; SD3's ragged joint attention at 1024²
-# (served with T5 at 256 tokens, trained with 77), MMDiT-X's attn2 and
-# SD3.5-large's joint attention
-TEETH_CASES = {("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
-               ("flash_fwd", 2, 4429, 24, 64, 4429, "bfloat16"),
-               ("flash_fwd", 1, 4250, 24, 64, 4250, "bfloat16"),
-               ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
-               ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")}
+
+
+def _wrong_bf16_forwards(q, k, v, causal, tile):
+    """three wrong bf16 forwards against attention_p_rounded"""
+    from stablediffusion_tpu_torch.utils.testing import attention_wrong_variants
+
+    return attention_wrong_variants(q, k, v, causal, block=tile)
+
+
+def _wrong_fp32_products(q, k, v, causal, tile):
+    """products that are not fp32-accurate (1xTF32; hi*hi + hi*lo) against
+    the plain version"""
+    from stablediffusion_tpu_torch.utils.testing import flash_stream_tf32_wrong_variants
+
+    return flash_stream_tf32_wrong_variants(q, k, v)
+
+
+# (kernel, B, Sq, H, D, Skv, dtype) where wrong versions of a kernel must
+# break its rule -> the function that makes them.  bf16 flash_fwd: SD1.5's
+# heaviest self-attention; SD3's ragged joint attention at 1024² (served
+# with T5 at 256 tokens, trained with 77), MMDiT-X's attn2 and SD3.5-large's
+# joint attention.  fp32 flash_stream, whose rule 3xTF32 keeps: an SD1.5
+# request's decode.
+TEETH_CASES = {
+    **dict.fromkeys([("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
+                     ("flash_fwd", 2, 4429, 24, 64, 4429, "bfloat16"),
+                     ("flash_fwd", 1, 4250, 24, 64, 4250, "bfloat16"),
+                     ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
+                     ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")], _wrong_bf16_forwards),
+    ("flash_stream", 1, 4096, 1, 512, 4096, "float32"): _wrong_fp32_products,
+}
 # the backward pairs (B, Sq, H, D, Skv, dtype) where four wrong backwards
 # must break the rule: SD1.5's three self-attention widths (D = 40, 80 and
 # 160: every padded width of the bf16 kernels), SD3's ragged joint stream in
@@ -475,14 +508,16 @@ def _roofline(flops, nbytes, dtype, exps=0):
     / (SMs x their rate x the max SM clock), and bytes / HBM rate; products
     and exponentials are both "operations".  Each term alone is a floor, so
     their maximum is one.  ``exp_mufu`` (every exponential on the MUFU, as
-    the port's kernels compute them) is reported beside, not part of the
-    bound."""
+    the port's kernels compute them) and, in fp32, ``products_ffma`` (the
+    products on FFMAs) are reported beside, not part of the bound."""
     clock = SMS * _sm_clock_hz()
     terms = {"products": flops / PEAK_FLOPS[dtype] * 1e3,
              "exp": exps / (clock * (MUFU_PER_CLOCK + FMA_EXP_PER_CLOCK)) * 1e3,
              "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     bound = max(terms.values())
     terms["exp_mufu"] = exps / (clock * MUFU_PER_CLOCK) * 1e3
+    if dtype == "float32":
+        terms["products_ffma"] = flops / FFMA_FLOPS * 1e3
     return bound, ("bytes" if bound == terms["bytes"] else "operations"), terms
 
 
@@ -513,11 +548,7 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
     import torch.nn.functional as F
 
     from stablediffusion_tpu_torch.ops.attention import flash_fwd_key_tile
-    from stablediffusion_tpu_torch.utils.testing import (
-        attention_p_rounded,
-        attention_wrong_variants,
-        kernel_error,
-    )
+    from stablediffusion_tpu_torch.utils.testing import attention_p_rounded, kernel_error
 
     g = torch.Generator(device="cuda").manual_seed(1234)
     q = torch.randn(B, Sq, H, D, device="cuda", dtype=dtype, generator=g)
@@ -542,12 +573,13 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
         ref, flips = plain(q.float(), k.float(), v.float(), **kw), None
     err = kernel_error(out, ref, flips)
     teeth = None
-    if (name, B, Sq, H, D, Skv, dname) in TEETH_CASES:
+    wrong = TEETH_CASES.get((name, B, Sq, H, D, Skv, dname))
+    if wrong is not None:
         teeth = {n: kernel_error(w, ref, flips)["worst_over_limit"]
-                 for n, w in attention_wrong_variants(q, k, v, causal, block=tile).items()}
-        print(json.dumps({"p_round_rule_teeth": "wrong bf16 forwards against "
-                          "attention_p_rounded", "shape": [B, Sq, H, D], "skv": Skv,
-                          "worst_over_limit": teeth}), flush=True)
+                 for n, w in wrong(q, k, v, causal, tile).items()}
+        print(json.dumps({"rule_teeth": f"{name} {dname}: {' '.join(wrong.__doc__.split())}",
+                          "shape": [B, Sq, H, D], "skv": Skv, "worst_over_limit": teeth}),
+              flush=True)
     del ref, flips
     big = B * Sq * Skv * H >= 2**31  # plain logits of 8 GiB and up
     ms = _device_ms(lambda: kernel(q, k, v, **kw), name, 10)
@@ -568,7 +600,7 @@ def kernel_case(name, kernel, plain, B, Sq, H, D, Skv, dtype, causal,
         raise AssertionError(f"{name} {row['shape']} Skv={Skv} {dname}: max abs err "
                              f"{err['max_abs_err']}, {err['worst_over_limit']} x its limit")
     if teeth is not None and not min(teeth.values()) > 1.0:
-        raise AssertionError(f"the bf16 limit accepts a wrong forward: {teeth}")
+        raise AssertionError(f"the {dname} limit accepts a wrong forward: {teeth}")
     del q, k, v, out
     torch.cuda.empty_cache()
     return row
@@ -5282,9 +5314,22 @@ def phase_tooling(smi, cold_build_s):
 # the bf16 flash_fwd kernel's symbol; _device_ms and the profile phases
 # find every flash_fwd kernel by "flash_fwd" in its name
 FWD_BF16_KERNEL = "flash_fwd_wgmma_kernel"
-# the Hopper (bf16) kernels of each source whose PTX and SASS phase 1 reads
-HOPPER_KERNELS = {"flash_fwd": (FWD_BF16_KERNEL,),
-                  "flash_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")}
+# the fp32 (3xTF32) flash_stream kernel's symbol
+STREAM_TF32_KERNEL = "flash_stream_tf32_kernel"
+# the Hopper kernels of each source whose PTX and SASS phase 1 reads, and
+# the products each must hold: PTX (mnemonic, qualifier) pairs, of which any
+# one counts, and the words of one SASS line.  The bf16 kernels of flash_fwd
+# and flash_bwd: wgmma, HGMMA; the fp32 one of flash_stream: TF32 wgmma or
+# mma.sync, HGMMA with TF32.
+_BF16_PRODUCTS = dict(ptx=(("wgmma.mma_async", ""),), sass=("HGMMA",))
+HOPPER_KERNELS = {
+    "flash_fwd": dict(kernels=(FWD_BF16_KERNEL,), **_BF16_PRODUCTS),
+    "flash_bwd": dict(kernels=("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
+                      **_BF16_PRODUCTS),
+    "flash_stream": dict(kernels=(STREAM_TF32_KERNEL,),
+                         ptx=(("wgmma.mma_async", ".tf32"), ("mma.sync", ".tf32")),
+                         sass=("HGMMA", "TF32")),
+}
 
 
 def _start_ptx(_build, out_dir):
@@ -5302,11 +5347,12 @@ def _start_ptx(_build, out_dir):
 
 
 def _check_hopper_isa(_build, ptx_jobs):
-    """The bf16 kernels are Hopper's: in the PTX of each instantiation of
-    each kernel of HOPPER_KERNELS, wgmma products and TMA tensor copies
-    (cp.async.bulk.tensor); where the toolkit has cuobjdump, the same in the
-    built library's SASS (HGMMA, UTMALDG).  Raises when an instantiation
-    lacks either, or when a kernel has no instantiation."""
+    """The Hopper kernels are Hopper's: in the PTX of each instantiation of
+    each kernel of HOPPER_KERNELS, the products it names (lines that hold a
+    mnemonic and its qualifier) and TMA tensor copies (cp.async.bulk.tensor);
+    where the toolkit has cuobjdump, the same in the built library's SASS
+    (lines that hold all the words it names; UTMALDG).  Raises when an
+    instantiation lacks either, or when a kernel has no instantiation."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -5314,32 +5360,39 @@ def _check_hopper_isa(_build, ptx_jobs):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise AssertionError(f"nvcc -ptx of {source}.cu failed:\n{log}")
-        kernels = HOPPER_KERNELS[source]
+        spec = HOPPER_KERNELS[source]
+        products = {mn + qual: (mn, qual) for mn, qual in spec["ptx"]}
+        hgmma = ".".join(spec["sass"])
         text = open(ptx).read()
         rows = []
         for entry in re.split(r"\.entry ", text)[1:]:
             name = entry.split("(", 1)[0]
-            if any(kn in name for kn in kernels):
-                rows.append({"kernel": name, "wgmma.mma_async": entry.count("wgmma.mma_async"),
-                             "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")})
+            if any(kn in name for kn in spec["kernels"]):
+                lines = entry.splitlines()
+                row = {"kernel": name, "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")}
+                for key, (mn, qual) in products.items():
+                    row[key] = sum(mn in ln and qual in ln for ln in lines)
+                rows.append(row)
         sass = {}
         if os.path.exists(cuobjdump):
             dump = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(source))],
                                   capture_output=True, text=True, check=True).stdout
             for fn in re.split(r"\n\s*Function : ", dump)[1:]:
                 name = fn.split("\n", 1)[0].strip()
-                if any(kn in name for kn in kernels):
-                    sass[name] = {"HGMMA": fn.count("HGMMA"), "UTMALDG": fn.count("UTMALDG")}
+                if any(kn in name for kn in spec["kernels"]):
+                    sass[name] = {hgmma: sum(all(w in ln for w in spec["sass"])
+                                             for ln in fn.splitlines()),
+                                  "UTMALDG": fn.count("UTMALDG")}
         for r in rows:
             r.update(sass.get(r["kernel"], {}))
-        print(json.dumps({f"{source}_bf16_isa": rows, "sass_read": bool(sass)}), flush=True)
-        missing = [kn for kn in kernels if not any(kn in r["kernel"] for r in rows)]
-        if missing or any(r["wgmma.mma_async"] == 0 or r["cp.async.bulk.tensor"] == 0
+        print(json.dumps({f"{source}_isa": rows, "sass_read": bool(sass)}), flush=True)
+        missing = [kn for kn in spec["kernels"] if not any(kn in r["kernel"] for r in rows)]
+        if missing or any(sum(r[k] for k in products) == 0 or r["cp.async.bulk.tensor"] == 0
                           for r in rows):
-            raise AssertionError(f"{source}'s bf16 kernels lack wgmma or TMA copies "
-                                 f"(no instantiation of {missing}): {rows}")
-        if sass and any(r.get("HGMMA", 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
-            raise AssertionError(f"{source}'s bf16 SASS lacks HGMMA or UTMALDG: {rows}")
+            raise AssertionError(f"{source}'s Hopper kernels lack {' or '.join(products)} "
+                                 f"or TMA copies (no instantiation of {missing}): {rows}")
+        if sass and any(r.get(hgmma, 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
+            raise AssertionError(f"{source}'s SASS lacks {hgmma} or UTMALDG: {rows}")
 
 
 def main() -> int:
@@ -5391,6 +5444,15 @@ def main() -> int:
         spilled_bf16 = [u for u in spilled if u["kernel"].startswith(FWD_BF16_KERNEL)]
         if source == "flash_fwd" and spilled_bf16:
             raise AssertionError(f"flash_fwd's bf16 kernels spill registers: {spilled_bf16}")
+        # the fp32 flash_stream instantiations every path runs (3xTF32, D <= 512)
+        spilled_tf32 = [u for u in spilled if u["kernel"].startswith(STREAM_TF32_KERNEL)]
+        if source == "flash_stream" and spilled_tf32:
+            raise AssertionError(f"flash_stream's fp32 kernels spill registers: {spilled_tf32}")
+        serialized = [ln for ln in log.splitlines()
+                      if "wgmma.mma_async instructions are serialized" in ln]
+        print(json.dumps({"wgmma_serialized": source, "notices": len(serialized)}), flush=True)
+        if source == "flash_stream" and serialized:
+            raise AssertionError(f"ptxas serialized flash_stream's wgmma: {serialized}")
     _check_hopper_isa(_build, ptx_jobs)
     if set(_build.SOURCES) - set(_build.BUILD_LOGS):
         print("ptxas: the libraries were built by an earlier run; no report", flush=True)

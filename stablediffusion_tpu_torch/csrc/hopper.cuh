@@ -1,8 +1,10 @@
-// Hopper (sm_90a) pieces of the bf16 attention kernels, shared by
-// flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tensor copies and the maps
-// they read, wgmma with its shared-memory descriptors and fences, and
-// setmaxnreg.  Tiles live in shared memory as 64-column (128-byte) atoms,
-// [rows][64 columns] each, written by TMA with the 128-byte swizzle.
+// Hopper (sm_90a) pieces of the attention kernels, shared by flash_fwd.cu,
+// flash_bwd.cu and flash_stream.cu: mbarriers, TMA tensor copies and the
+// maps they read, wgmma with its shared-memory descriptors and fences,
+// setmaxnreg, named and cluster barriers, and the 3xTF32 pieces of the fp32
+// kernel (the TF32 split, TF32 wgmma, ldmatrix, distributed shared memory).
+// Tiles live in shared memory as 128-byte atoms, [rows][64 bf16 or 32 fp32
+// columns] each, written by TMA with the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>
@@ -12,7 +14,8 @@
 
 namespace sdt {
 
-constexpr int kAtomCols = 64;  // bf16 columns of one 128-byte swizzle row
+constexpr int kAtomCols = 64;     // bf16 columns of one 128-byte swizzle row
+constexpr int kF32AtomCols = 32;  // fp32 columns of one 128-byte swizzle row
 constexpr int kAtomBytes = 128;
 // a barrier wait that lasts this many SM clocks (seconds) traps instead of
 // hanging the card: every wait of these kernels is for a copy or a product
@@ -68,6 +71,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > kWaitLimitClocks) __trap();
 }
 
+// The same wait without the time limit, for the consumers of a producer that
+// waits with it (a producer that waits on them until their last release
+// traps for both).  A __trap() in code after setmaxnreg.inc makes ptxas
+// allocate that code within the launch's register count, 168 a thread at
+// 384 threads, whatever setmaxnreg grants; without one it takes what
+// setmaxnreg grants.
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
 // --- TMA ----------------------------------------------------------------------
 
 // one box of a 4-D (D, H, S, B) tensor map into shared memory; completion
@@ -118,6 +132,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma reads or writes across the fence, commit and wait.
@@ -130,6 +149,11 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&r)[N][32]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
@@ -305,6 +329,98 @@ __device__ __forceinline__ void store_acc_bf16(bf16* out, long long ss, int row0
   }
 }
 
+// --- 3xTF32 -----------------------------------------------------------------
+
+// The 3xTF32 split: x = hi + lo to about 2^-22 of |x|, with hi = tf32(x)
+// and lo = tf32(x - hi) (the difference is exact in fp32), each rounded to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds.  hi*hi + hi*lo
+// + lo*hi then carries a product to about fp32's accuracy; lo*lo, under
+// 2^-22 of it, is dropped.  The rounding is an integer add of half a TF32
+// ulp (0x1000): hi is then masked to its 19 bits, for the exact x - hi;
+// lo is left unmasked, since TF32 wgmma reads only the top 19 bits of a
+// register.  Two instructions for hi and one for lo, where ptxas spends four
+// on cvt.rna.tf32.f32 (its inf/NaN test); the same bits for finite x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d = a b (accumulate == 0) or d += a b, m64n64k8 in TF32: A (4 registers
+// of the split, mma.sync's m16n8k8 A layout per warp) from registers, B
+// from shared memory K-major.  TF32 wgmma has no transposed operand.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Four 8x4 fp32 matrices (8 rows of 16 bytes, one row address a lane:
+// lanes 8i..8i+7 give matrix i's rows); lane l receives word l % 4 of row
+// l / 4 of each: mma.sync's m16n8k8 TF32 A fragment when the matrices are
+// rows 0-7 / 8-15 x columns 0-3, then the same x columns 4-7.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy
+// (wgmma's operand reads, TMA's writes) after the next barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` over `count` threads (whole warps)
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- clusters -----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; release before, acquire after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address in block `rank`'s shared memory of what lies at `addr` in this
+// block's
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// 16 bytes, or 4, into block `rank`'s shared memory at `addr` (of this block)
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint32_t rank, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   cluster_addr(addr, rank)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster_f32(uint32_t addr, uint32_t rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(cluster_addr(addr, rank)), "f"(v)
+               : "memory");
+}
+
 // --- tensor maps (host) -----------------------------------------------------
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
@@ -332,12 +448,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 4-D map (D, H, S, B) of a bf16 [B, S, H, D] tensor with its own
-// element strides, read in boxes of 64 columns x `rows` rows of one (batch,
-// head), 128-byte swizzled.  Elements past S and past D read as zero.  A
-// dimension of size 1 takes the dense stride (its own is never stepped).
-inline bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
-                       long long sh, long long ss, long long sb, int rows) {
+// The 4-D map (D, H, S, B) of a [B, S, H, D] tensor of `type` (elements of
+// `elem_bytes`) with its own element strides, read in boxes of `atom_cols`
+// columns (128 bytes) x `rows` rows of one (batch, head), 128-byte
+// swizzled.  Elements past S and past D read as zero.  A dimension of size 1
+// takes the dense stride (its own is never stepped).
+inline bool encode_map_typed(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                             int atom_cols, const void* ptr, int D, int H, int S, int B,
+                             long long sh, long long ss, long long sb, int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
@@ -349,13 +467,27 @@ inline bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, i
     dense = st[i] * static_cast<long long>(dims[i + 1]);
   }
   cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(st[i]) * sizeof(bf16);
-  cuuint32_t box[4] = {kAtomCols, 1, static_cast<cuuint32_t>(rows), 1};
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(st[i]) * elem_bytes;
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(atom_cols), 1, static_cast<cuuint32_t>(rows), 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the bf16 map: 64-column atoms
+inline bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
+                       long long sh, long long ss, long long sb, int rows) {
+  return encode_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), kAtomCols, ptr,
+                          D, H, S, B, sh, ss, sb, rows);
+}
+
+// the fp32 map: 32-column atoms
+inline bool encode_map_f32(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
+                           long long sh, long long ss, long long sb, int rows) {
+  return encode_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), kF32AtomCols,
+                          ptr, D, H, S, B, sh, ss, sb, rows);
 }
 
 // SMs of the current device (the grid heuristics' wave size)

@@ -70,6 +70,8 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# flash_stream's widest head dim on its TMA-fed kernel (csrc/flash_stream.cu)
+STREAM_TMA_MAX_D = 512
 
 
 class LaunchCounter:
@@ -163,16 +165,21 @@ def ptxas_usage(log: str) -> List[dict]:
     """Registers and spilled bytes (stores + loads) of each kernel in an
     nvcc log with ``-Xptxas -v``; kernels named like
     ``flash_bwd_dq_wgmma_kernel<48>``, ``flash_stream_kernel<bf16, 512>``,
-    ``flash_fwd_wgmma_kernel<48, 64>`` or ``flash_bwd_dkv_wgmma_kernel<64, 1>``."""
+    ``flash_fwd_wgmma_kernel<48, 64>``, ``flash_bwd_dkv_wgmma_kernel<64, 1>``
+    or, not a template, ``flash_stream_ffma_kernel``."""
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:(?!flash_)\w)*?_kernel)I(\w*?)Li(\d+)E(?:Li(\d+)E)?",
-                          m.group(1))
-            dtype = {"": "", "f": "float, "}.get(k.group(2), "bf16, ") if k else ""
-            ints = ", ".join(i for i in k.groups()[2:] if i) if k else ""
-            name = f"{k.group(1)}<{dtype}{ints}>" if k else m.group(1)
+            k = re.search(r"(flash_(?:(?!flash_)\w)*?_kernel)"
+                          r"(?:I(\w*?)Li(\d+)E(?:Li(\d+)E)?|E)", m.group(1))
+            if k is None:
+                name = m.group(1)
+            elif k.group(3) is None:
+                name = k.group(1)
+            else:
+                dtype = {"": "", "f": "float, "}.get(k.group(2), "bf16, ")
+                name = f"{k.group(1)}<{dtype}{', '.join(i for i in k.groups()[2:] if i)}>"
             spill = 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -252,7 +259,7 @@ def vector_loadable(t: torch.Tensor) -> bool:
 
 
 def tma_mappable(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels' 4-D tensor map (D, H, S, B) can describe
+    """Whether the TMA-fed kernels' 4-D tensor map (D, H, S, B) can describe
     `t` beyond what :func:`vector_loadable` asks: each dimension longer
     than 1 steps by a positive stride whose byte size is below 2**40
     (``cuTensorMapEncodeTiled``'s limit; a dimension of size 1 is given the
@@ -286,7 +293,9 @@ def attention_launch_args(
     return (out, ctypes arguments up to and excluding the scale).  Raises on
     anything the kernel does not take."""
     check_attention_inputs(name, q, k, v, d_min, d_max)
-    if name == "flash_fwd" and q.dtype == torch.bfloat16:
+    # the TMA-fed kernels: every bf16 one, and flash_stream's at D <= 512
+    tma_fed = name == "flash_stream" and q.shape[-1] <= STREAM_TMA_MAX_D
+    if q.dtype == torch.bfloat16 or tma_fed:
         check_tma_mappable(name, {"q": q, "k": k, "v": v})
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

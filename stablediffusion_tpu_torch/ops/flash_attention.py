@@ -8,7 +8,12 @@ sequence masked out, forward only, no mask argument.  It serves the VAE
 mid-block's single 512-wide head (``ops/attention.py`` routes every D > 160
 here), in the decode and, under ``torch.no_grad()``, in the training step's
 encode.  It has no backward, as its Pallas original has none: on CUDA under
-grad it raises rather than return an output without a ``grad_fn``.
+grad it raises rather than return an output without a ``grad_fn``.  At
+D <= 512 the kernel runs both products on the tensor cores in 3xTF32 (each
+fp32 operand split into two TF32 parts, three products summed), which holds
+fp32's accuracy; ``utils/testing.flash_stream_tf32x3_emulated`` emulates
+that split and its products in plain PyTorch, not the kernel's order of
+accumulation.
 
 Layout: q [B, Sq, H, D], k/v [B, Skv, H, D] -> out [B, Sq, H, D].
 """
@@ -45,7 +50,10 @@ def flash_stream(
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v for head dims above 160.  CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise, also when a
-    gradient is needed."""
+    gradient is needed.  The kernel computes in fp32: bf16 q, k, v are
+    widened (exactly) and the result is rounded back to bf16.  At D <= 512,
+    where it reads them through TMA maps, a view no map can read is copied
+    first; the others are read by stride."""
     if q.device.type == "cpu":
         return flash_stream_plain(q, k, v, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -53,6 +61,14 @@ def flash_stream(
             "flash_stream under grad: the kernel is forward only and has no "
             "backward; run it under torch.no_grad()"
         )
+    given = q, k
+    if all(t.dtype == torch.bfloat16 for t in (q, k, v)):
+        q, k, v = (t.float() for t in (q, k, v))
+    if q.shape[-1] <= _build.STREAM_TMA_MAX_D:
+        # a view no TMA map or 16-byte row load can read (a stride-0 expand)
+        # is copied, as ops/attention.dout_for_kernels copies dO
+        q, k, v = (t if _build.vector_loadable(t) and _build.tma_mappable(t)
+                   else t.contiguous() for t in (q, k, v))
     out, args = _build.attention_launch_args("flash_stream", q, k, v, 168, 1024)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
@@ -60,5 +76,5 @@ def flash_stream(
     with torch.cuda.device(q.device):
         err = fn(*args, float(scale), stream)
     _build.check("flash_stream", err)
-    FLASH_STREAM_LAUNCHES.add(q, k)
-    return out
+    FLASH_STREAM_LAUNCHES.add(*given)
+    return out.to(given[0].dtype)

@@ -114,17 +114,51 @@ def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
 @pytest.mark.parametrize("B, Sq, H, D, Skv", [
     (1, 4096, 1, 512, 4100), (1, 300, 2, 192, 77), (1, 64, 1, 1024, 33),
     (8, 4096, 1, 512, 4096), (1, 1001, 1, 512, 4096), (2, 77, 1, 520, 130),
-    (1, 16384, 1, 512, 16384)])
+    (1, 16384, 1, 512, 16384),
+    # the 3xTF32 kernel's edges: one query row either side of a 64-row
+    # tile, fewer keys than one key tile, an odd number of key tiles split
+    # across a cluster (65 = 33 + 32), B*H > 1, a head dim of 5 1/4 atoms
+    # of 32 columns with ragged Sq and Skv, and each of its widths (2, 3, 4
+    # m-tiles a warpgroup)
+    (1, 63, 1, 512, 4096), (1, 65, 1, 512, 4096), (1, 127, 1, 512, 4096),
+    (1, 64, 1, 512, 33), (1, 65, 1, 512, 4160), (2, 4096, 2, 256, 4096),
+    (1, 1001, 1, 168, 4100), (1, 333, 1, 320, 1000), (4, 4096, 1, 512, 4096)])
 def test_flash_stream_matches_plain(cuda, dtype, B, Sq, H, D, Skv):
-    """Every head-dim bucket, the VAE's [1|8, 4096, 1, 512], the 1024²
+    """Every head-dim bucket, the VAE's [1|4|8, 4096, 1, 512], the 1024²
     decode's [1, 16384, 1, 512], a ragged Sq and a head dim that leaves a
-    partial K chunk (520 = 8 * 64 + 8)."""
+    partial K chunk (520 = 8 * 64 + 8); the 3xTF32 kernel's ragged ends and
+    its key split across a cluster (fewer query tiles than SMs)."""
     q, k, v = _qkv(cuda, dtype, B, Sq, H, D, Skv)
     before = FLASH_STREAM_LAUNCHES.count
     out = flash_stream(q, k, v)
     torch.cuda.synchronize()
     assert FLASH_STREAM_LAUNCHES.count == before + 1
     _within_limit(out, flash_stream_plain, q, k, v)
+
+
+@pytest.mark.parametrize("dtype, D", [(torch.float32, 512), (torch.bfloat16, 512),
+                                      (torch.float32, 1024)])
+def test_flash_stream_takes_an_expanded_key(cuda, dtype, D):
+    """A key broadcast along the sequence (stride 0), which no TMA map can
+    read: at D <= 512 the wrapper copies it (bf16 is widened first), above
+    the FFMA kernel reads it by stride; either way one launch."""
+    q, k, v = _qkv(cuda, dtype, 1, 300, 1, D, 1000)
+    k = k[:, :1].expand(1, 1000, 1, D)
+    before = FLASH_STREAM_LAUNCHES.count
+    out = flash_stream(q, k, v)
+    torch.cuda.synchronize()
+    assert FLASH_STREAM_LAUNCHES.count == before + 1
+    _within_limit(out, flash_stream_plain, q, k, v)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_flash_stream_is_the_same_bits_run_to_run(cuda, B):
+    """No atomics in the sums: two launches give the same bits, with the key
+    split across a cluster (B = 1: 64 query tiles for 132 SMs) and without."""
+    q, k, v = _qkv(cuda, torch.float32, B, 4096, 1, 512, 4096)
+    first = flash_stream(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, flash_stream(q, k, v))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

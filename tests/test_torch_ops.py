@@ -208,9 +208,9 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 def test_ptxas_usage_reads_registers_and_spills():
     """chip_smoke.py's register report: nvcc's ``-Xptxas -v`` lines of
-    three kernels (a template instance with a spill, one with a type
-    argument, one with two integer arguments) read back as name, registers
-    and spilled bytes."""
+    four kernels (a template instance with a spill, one with a type
+    argument, one with two integer arguments, one that is no template) read
+    back as name, registers and spilled bytes."""
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__1a_12_flash_bwd_cu_2b"
         "23flash_bwd_dkv_tc_kernelILi80EEEvNS_9BwdParamsE' for 'sm_90a'",
@@ -226,11 +226,16 @@ def test_ptxas_usage_reads_registers_and_spills():
         " for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__b6_15_flash_stream_cu_f2"
+        "24flash_stream_ffma_kernelENS_12StreamParamsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 1 barriers",
     ])
     assert ptxas_usage(log) == [
         {"kernel": "flash_bwd_dkv_tc_kernel<80>", "registers": 255, "spill_bytes": 52},
         {"kernel": "flash_stream_kernel<bf16, 512>", "registers": 254, "spill_bytes": 0},
         {"kernel": "flash_bwd_dkv_wgmma_kernel<64, 1>", "registers": 168, "spill_bytes": 0},
+        {"kernel": "flash_stream_ffma_kernel", "registers": 254, "spill_bytes": 0},
     ]
 
 
