@@ -8,17 +8,19 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    CUDA sources of ``stablediffusion_tpu_torch/csrc`` (one nvcc each, all
    started together) into a fresh kernel build cache directory in the
    checkout (``core/compile_cache``), print each kernel's registers and spilled bytes
-   (``-Xptxas -v``; a spill in ``flash_bwd.cu``, in a bf16 instantiation
-   of ``flash_fwd.cu`` or in an fp32 (3xTF32) instantiation of
-   ``flash_stream.cu`` fails the run, and so does ptxas's notice that it
-   serialized the wgmma of a ``flash_stream`` instantiation); compile the
-   three sources to PTX beside the build (``nvcc -ptx``, the build's
-   flags) and print the counts of ``wgmma.mma_async`` (in ``flash_stream``
-   those with ``.tf32``, and ``mma.sync`` with ``.tf32``) and
-   ``cp.async.bulk.tensor`` in each Hopper instantiation, and, where the
-   toolkit has ``cuobjdump``, of ``HGMMA`` (``flash_stream``: with
-   ``TF32``) and ``UTMALDG`` in the built libraries' SASS (any of them 0
-   fails the run); set and print the TF32 switches.
+   (``-Xptxas -v``; a spill in ``flash_bwd.cu``, in any instantiation of
+   ``flash_fwd.cu`` (bf16 and fp32) or in an fp32 (3xTF32) instantiation
+   of ``flash_stream.cu`` fails the run, and so does ptxas's notice that it
+   serialized the wgmma of a ``flash_fwd`` or ``flash_stream``
+   instantiation); compile the three sources to PTX beside the build
+   (``nvcc -ptx``, the build's flags) and print, for each Hopper kernel of
+   ``HOPPER_KERNELS``, the counts in each of its instantiations of the
+   products it names (``wgmma.mma_async`` with ``.bf16``, or with
+   ``.tf32`` for the fp32 kernels of ``flash_fwd`` and ``flash_stream``)
+   and of ``cp.async.bulk.tensor``, and, where the toolkit has
+   ``cuobjdump``, of ``HGMMA`` with ``BF16`` or ``TF32`` and ``UTMALDG`` in
+   the built libraries' SASS (any of them 0 fails the run); set and print
+   the TF32 switches.
 2. txt2img main path: the full-width SD1.5 model with random weights answers
    three 512x512, 20-step DDIM, CFG 7.5 requests through the pipeline call
    (batch 1, batch 1 with another seed, a two-prompt batch).  Outputs must be
@@ -35,11 +37,12 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    rounding, plus ``P_FLIP_RTOL`` times its p near a rounding
    midpoint); at [2,4096,8,40] bf16 three wrong forwards (no accumulator
    rescale, the scale applied twice, the accumulator kept in bf16 between
-   tiles) must break that limit, and at [1,4096,1,512] fp32 two products
-   that are not fp32-accurate (``utils/testing.
-   flash_stream_tf32_wrong_variants``: TF32 operands rounded once, and
-   hi*hi + hi*lo) must break the fp32 limit that the 3xTF32 kernel keeps
-   (``TEETH_CASES`` names both).  Each kernel's device time (its own kernel
+   tiles) must break that limit, and at [1,4096,1,512] (``flash_stream``)
+   and at [1,257,16,104] and the causal [1,77,12,64] (``flash_fwd``), fp32,
+   two products that are not fp32-accurate (``utils/testing.
+   tf32_wrong_variants``, with the kernel's key tiles and mask: TF32
+   operands rounded once, and hi*hi + hi*lo) must break the fp32 limit that
+   the 3xTF32 kernels keep (``TEETH_CASES`` names them all).  Each kernel's device time (its own kernel
    events under torch.profiler; the event-timed call, which includes the
    wrapper's host work, beside it), the plain version's and one library
    call's (``F.scaled_dot_product_attention``, a yardstick the port never
@@ -374,26 +377,29 @@ def _wrong_bf16_forwards(q, k, v, causal, tile):
 
 
 def _wrong_fp32_products(q, k, v, causal, tile):
-    """products that are not fp32-accurate (1xTF32; hi*hi + hi*lo) against
-    the plain version"""
-    from stablediffusion_tpu_torch.utils.testing import flash_stream_tf32_wrong_variants
+    """products that are not fp32-accurate (1xTF32; hi*hi + hi*lo), with
+    the kernel's key tiles and mask, against the plain version"""
+    from stablediffusion_tpu_torch.utils.testing import tf32_wrong_variants
 
-    return flash_stream_tf32_wrong_variants(q, k, v)
+    return tf32_wrong_variants(q, k, v, causal)
 
 
 # (kernel, B, Sq, H, D, Skv, dtype) where wrong versions of a kernel must
 # break its rule -> the function that makes them.  bf16 flash_fwd: SD1.5's
 # heaviest self-attention; SD3's ragged joint attention at 1024² (served
 # with T5 at 256 tokens, trained with 77), MMDiT-X's attn2 and SD3.5-large's
-# joint attention.  fp32 flash_stream, whose rule 3xTF32 keeps: an SD1.5
-# request's decode.
+# joint attention.  The fp32 kernels, whose rule 3xTF32 keeps: flash_stream
+# at an SD1.5 request's decode; flash_fwd at the SDXL IP-Adapter's image
+# encoder (ViT-bigG/14) and at CLIP-L's causal self-attention.
 TEETH_CASES = {
     **dict.fromkeys([("flash_fwd", 2, 4096, 8, 40, 4096, "bfloat16"),
                      ("flash_fwd", 2, 4429, 24, 64, 4429, "bfloat16"),
                      ("flash_fwd", 1, 4250, 24, 64, 4250, "bfloat16"),
                      ("flash_fwd", 2, 4096, 24, 64, 4096, "bfloat16"),
                      ("flash_fwd", 2, 4429, 38, 64, 4429, "bfloat16")], _wrong_bf16_forwards),
-    ("flash_stream", 1, 4096, 1, 512, 4096, "float32"): _wrong_fp32_products,
+    **dict.fromkeys([("flash_stream", 1, 4096, 1, 512, 4096, "float32"),
+                     ("flash_fwd", 1, 257, 16, 104, 257, "float32"),
+                     ("flash_fwd", 1, 77, 12, 64, 77, "float32")], _wrong_fp32_products),
 }
 # the backward pairs (B, Sq, H, D, Skv, dtype) where four wrong backwards
 # must break the rule: SD1.5's three self-attention widths (D = 40, 80 and
@@ -3159,7 +3165,7 @@ def _max_rel(a, b):
 
 def _fwd_counts_are_bf16(probe, label):
     """Every forward with lse a step launched ran in bf16: a trainer that
-    fell onto the fp32 scalar kernels at the UNet's shapes is a fault."""
+    fell onto the fp32 kernels at the UNet's shapes is a fault."""
     bad = sorted({key for s in probe.steps for key in s["launches"]["flash_fwd"][1]
                   if key[4] and key[2] != "bfloat16"})
     if bad:
@@ -5311,24 +5317,23 @@ def phase_tooling(smi, cold_build_s):
         torch.cuda.empty_cache()
 
 
-# the bf16 flash_fwd kernel's symbol; _device_ms and the profile phases
-# find every flash_fwd kernel by "flash_fwd" in its name
+# the flash_fwd kernels' symbols, bf16 and fp32; _device_ms and the profile
+# phases find every flash_fwd kernel by "flash_fwd" in its name
 FWD_BF16_KERNEL = "flash_fwd_wgmma_kernel"
+FWD_TF32_KERNEL = "flash_fwd_tf32_kernel"
 # the fp32 (3xTF32) flash_stream kernel's symbol
 STREAM_TF32_KERNEL = "flash_stream_tf32_kernel"
 # the Hopper kernels of each source whose PTX and SASS phase 1 reads, and
-# the products each must hold: PTX (mnemonic, qualifier) pairs, of which any
-# one counts, and the words of one SASS line.  The bf16 kernels of flash_fwd
-# and flash_bwd: wgmma, HGMMA; the fp32 one of flash_stream: TF32 wgmma or
-# mma.sync, HGMMA with TF32.
-_BF16_PRODUCTS = dict(ptx=(("wgmma.mma_async", ""),), sass=("HGMMA",))
+# the products each must hold: the words of one PTX line and of one SASS
+# line.  The bf16 kernels: bf16 wgmma, HGMMA with BF16; the fp32 ones: TF32
+# wgmma, HGMMA with TF32.
+_BF16_PRODUCTS = dict(ptx=("wgmma.mma_async", ".bf16"), sass=("HGMMA", "BF16"))
+_TF32_PRODUCTS = dict(ptx=("wgmma.mma_async", ".tf32"), sass=("HGMMA", "TF32"))
 HOPPER_KERNELS = {
-    "flash_fwd": dict(kernels=(FWD_BF16_KERNEL,), **_BF16_PRODUCTS),
-    "flash_bwd": dict(kernels=("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
-                      **_BF16_PRODUCTS),
-    "flash_stream": dict(kernels=(STREAM_TF32_KERNEL,),
-                         ptx=(("wgmma.mma_async", ".tf32"), ("mma.sync", ".tf32")),
-                         sass=("HGMMA", "TF32")),
+    "flash_fwd": {FWD_BF16_KERNEL: _BF16_PRODUCTS, FWD_TF32_KERNEL: _TF32_PRODUCTS},
+    "flash_bwd": {"flash_bwd_dq_wgmma_kernel": _BF16_PRODUCTS,
+                  "flash_bwd_dkv_wgmma_kernel": _BF16_PRODUCTS},
+    "flash_stream": {STREAM_TF32_KERNEL: _TF32_PRODUCTS},
 }
 
 
@@ -5348,11 +5353,11 @@ def _start_ptx(_build, out_dir):
 
 def _check_hopper_isa(_build, ptx_jobs):
     """The Hopper kernels are Hopper's: in the PTX of each instantiation of
-    each kernel of HOPPER_KERNELS, the products it names (lines that hold a
-    mnemonic and its qualifier) and TMA tensor copies (cp.async.bulk.tensor);
-    where the toolkit has cuobjdump, the same in the built library's SASS
-    (lines that hold all the words it names; UTMALDG).  Raises when an
-    instantiation lacks either, or when a kernel has no instantiation."""
+    each kernel of HOPPER_KERNELS, the products its spec names (lines that
+    hold all the words it names) and TMA tensor copies
+    (cp.async.bulk.tensor); where the toolkit has cuobjdump, the same in the
+    built library's SASS (UTMALDG).  Raises when an instantiation lacks either, or when a kernel
+    has no instantiation."""
     import re
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -5360,39 +5365,42 @@ def _check_hopper_isa(_build, ptx_jobs):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise AssertionError(f"nvcc -ptx of {source}.cu failed:\n{log}")
-        spec = HOPPER_KERNELS[source]
-        products = {mn + qual: (mn, qual) for mn, qual in spec["ptx"]}
-        hgmma = ".".join(spec["sass"])
-        text = open(ptx).read()
+        specs = HOPPER_KERNELS[source]
+
+        def spec_of(name):
+            return next(((kn, sp) for kn, sp in specs.items() if kn in name), (None, None))
+
         rows = []
-        for entry in re.split(r"\.entry ", text)[1:]:
+        for entry in re.split(r"\.entry ", open(ptx).read())[1:]:
             name = entry.split("(", 1)[0]
-            if any(kn in name for kn in spec["kernels"]):
+            kernel, spec = spec_of(name)
+            if kernel is not None:
                 lines = entry.splitlines()
-                row = {"kernel": name, "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")}
-                for key, (mn, qual) in products.items():
-                    row[key] = sum(mn in ln and qual in ln for ln in lines)
-                rows.append(row)
+                rows.append({
+                    "kernel": name, "ptx_products": "".join(spec["ptx"]),
+                    "ptx_count": sum(all(w in ln for w in spec["ptx"]) for ln in lines),
+                    "cp.async.bulk.tensor": entry.count("cp.async.bulk.tensor")})
         sass = {}
         if os.path.exists(cuobjdump):
             dump = subprocess.run([cuobjdump, "-sass", str(_build._lib_path(source))],
                                   capture_output=True, text=True, check=True).stdout
             for fn in re.split(r"\n\s*Function : ", dump)[1:]:
                 name = fn.split("\n", 1)[0].strip()
-                if any(kn in name for kn in spec["kernels"]):
-                    sass[name] = {hgmma: sum(all(w in ln for w in spec["sass"])
-                                             for ln in fn.splitlines()),
+                kernel, spec = spec_of(name)
+                if kernel is not None:
+                    sass[name] = {"sass_products": ".".join(spec["sass"]),
+                                  "sass_count": sum(all(w in ln for w in spec["sass"])
+                                                    for ln in fn.splitlines()),
                                   "UTMALDG": fn.count("UTMALDG")}
         for r in rows:
             r.update(sass.get(r["kernel"], {}))
         print(json.dumps({f"{source}_isa": rows, "sass_read": bool(sass)}), flush=True)
-        missing = [kn for kn in spec["kernels"] if not any(kn in r["kernel"] for r in rows)]
-        if missing or any(sum(r[k] for k in products) == 0 or r["cp.async.bulk.tensor"] == 0
-                          for r in rows):
-            raise AssertionError(f"{source}'s Hopper kernels lack {' or '.join(products)} "
-                                 f"or TMA copies (no instantiation of {missing}): {rows}")
-        if sass and any(r.get(hgmma, 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
-            raise AssertionError(f"{source}'s SASS lacks {hgmma} or UTMALDG: {rows}")
+        missing = [kn for kn in specs if not any(kn in r["kernel"] for r in rows)]
+        if missing or any(r["ptx_count"] == 0 or r["cp.async.bulk.tensor"] == 0 for r in rows):
+            raise AssertionError(f"{source}'s Hopper kernels lack their products or TMA copies "
+                                 f"in PTX (no instantiation of {missing}): {rows}")
+        if sass and any(r.get("sass_count", 0) == 0 or r.get("UTMALDG", 0) == 0 for r in rows):
+            raise AssertionError(f"{source}'s SASS lacks its products or UTMALDG: {rows}")
 
 
 def main() -> int:
@@ -5437,13 +5445,8 @@ def main() -> int:
         usage = _build.ptxas_usage(log)
         print(json.dumps({"ptxas": source, "kernels": usage}), flush=True)
         spilled = [u for u in usage if u["spill_bytes"]]
-        if source == "flash_bwd" and spilled:
-            raise AssertionError(f"flash_bwd kernels spill registers: {spilled}")
-        # the bf16 forward's instantiations (the fp32 scalar kernel's <64>
-        # spills 8 bytes, as it did before, off every bf16 path)
-        spilled_bf16 = [u for u in spilled if u["kernel"].startswith(FWD_BF16_KERNEL)]
-        if source == "flash_fwd" and spilled_bf16:
-            raise AssertionError(f"flash_fwd's bf16 kernels spill registers: {spilled_bf16}")
+        if source in ("flash_bwd", "flash_fwd") and spilled:
+            raise AssertionError(f"{source} kernels spill registers: {spilled}")
         # the fp32 flash_stream instantiations every path runs (3xTF32, D <= 512)
         spilled_tf32 = [u for u in spilled if u["kernel"].startswith(STREAM_TF32_KERNEL)]
         if source == "flash_stream" and spilled_tf32:
@@ -5451,8 +5454,8 @@ def main() -> int:
         serialized = [ln for ln in log.splitlines()
                       if "wgmma.mma_async instructions are serialized" in ln]
         print(json.dumps({"wgmma_serialized": source, "notices": len(serialized)}), flush=True)
-        if source == "flash_stream" and serialized:
-            raise AssertionError(f"ptxas serialized flash_stream's wgmma: {serialized}")
+        if source in ("flash_fwd", "flash_stream") and serialized:
+            raise AssertionError(f"ptxas serialized {source}'s wgmma: {serialized}")
     _check_hopper_isa(_build, ptx_jobs)
     if set(_build.SOURCES) - set(_build.BUILD_LOGS):
         print("ptxas: the libraries were built by an earlier run; no report", flush=True)

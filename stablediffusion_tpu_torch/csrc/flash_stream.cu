@@ -14,7 +14,8 @@
 // TPU artifacts and do not carry over.
 //
 // fp32, 160 < D <= 512 (every head dim a path runs): 3xTF32 on the tensor
-// cores.  What bounds it on an H100:
+// cores, its products, split and two-level sum shared with flash_fwd.cu's
+// fp32 kernel (hopper.cuh's 3xTF32 section).  What bounds it on an H100:
 //   * The products: 4 Sq Skv D operations.  On FFMAs (67 TFLOP/s) exact fp32
 //     has a floor of 8.2 ms at [1,16384,1,512].  TF32 runs at 495 TFLOP/s
 //     but keeps 10 mantissa bits, which the fp32 rule (atol 1e-5) refuses.
@@ -446,21 +447,13 @@ cudaError_t launch_ffma(const StreamParams& p, cudaStream_t stream) {
 // fp32, 160 < D <= 512: 3xTF32 wgmma fed by TMA (sm_90a)
 // ---------------------------------------------------------------------------
 
-constexpr int kTfRows = 64;                  // query rows a block (wgmma M)
-constexpr int kTfKeys = 64;                  // keys a tile
+using sdt::kTfAtomBytes;  // the 3xTF32 tiles' geometry (hopper.cuh)
+using sdt::kTfKeys;
+using sdt::kTfRows;
+using sdt::kTfStageBytes;
 constexpr int kTfConsumerWarps = 8;         // two consumer warpgroups
 constexpr int kTfThreads = 128 * 3;          // + the producer warpgroup
 constexpr int kTfWgWarps = 4;                // the warps of a warpgroup
-// registers a thread after setmaxnreg, which counts them by warpgroup: the
-// producer warpgroup gives its share back and the two consumer warpgroups
-// take it.  Launched at 168 = 65536 / 384 rounded down to 8, and
-// 128 * 24 + 256 * 240 = 384 * 168.
-constexpr int kTfProducerRegs = 24;
-constexpr int kTfConsumerRegs = 240;
-constexpr int kTfAtomBytes = kTfRows * sdt::kAtomBytes;  // [64 rows][32 fp32]
-constexpr int kTfStageBytes = 2 * kTfAtomBytes;  // a K chunk (hi, lo) or a V chunk
-constexpr float kTfLog2e = 1.4426950408889634f;
-constexpr float kTfMaskLog2 = sdt::kNegInf * kTfLog2e;  // the -1e30 mask, log2 domain
 
 // Shared memory of one block, in bytes from a 1024-byte aligned base: Q's
 // atoms, p's hi and lo tiles (2 atoms each: [64 rows][64 keys]; the hi tile
@@ -496,19 +489,6 @@ struct TfLayout {
   // the peer's accumulator half lands in the Q atoms at the end
   static_assert(MW * 32 * 128 * 4 <= kAtoms * kTfAtomBytes, "merge buffer");
 };
-
-// o = o * alpha + part over an m64n64 accumulator of o^T, whose N column
-// 8 jn + 2 t4 + (e & 1) is a query row with its rescale factor in alpha
-__device__ __forceinline__ void add_scaled(float (&o)[32], const float (&part)[32],
-                                           const float* alpha, int t4) {
-#pragma unroll
-  for (int jn = 0; jn < 8; ++jn) {
-    const float2 a = *reinterpret_cast<const float2*>(alpha + 8 * jn + 2 * t4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[4 * jn + e] = fmaf(o[4 * jn + e], (e & 1) ? a.y : a.x, part[4 * jn + e]);
-  }
-}
 
 template <int MW, int SPLIT>
 __global__ void __launch_bounds__(kTfThreads, 1)
@@ -626,20 +606,14 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty(n % S));
   };
 
-  // In wgmma's accumulator layout warp w4 of a warpgroup holds M rows 16 w4
-  // + g and 16 w4 + g + 8 (g = lane / 4) and, for each n8 tile j, the N
-  // columns 8 j + 2 t, +1 (t = lane % 4): registers 4 j + e at M row + 8
-  // (e >> 1), N column + (e & 1).
+  // wgmma's accumulator layout: hopper.cuh's 3xTF32 section
   const int wg = warp >> 2;
   const int w4 = warp & 3;
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int tid = threadIdx.x & 127;  // thread of the warpgroup
   const float sl2 = p.scale * kTfLog2e;
-  // this lane's row of an ldmatrix of Q: matrix lm (rows + 8 (lm & 1),
-  // columns + 4 (lm >> 1)) of the warp's 16 rows
-  const int lm = lane >> 3, lr = lane & 7;
-  const uint32_t q_row = sQ + (16 * w4 + lr + 8 * (lm & 1)) * kAtomBytes;
+  const uint32_t q_row = q_ldmatrix_row(sQ);
 
   float o[MW][32];  // o^T of this warpgroup's m-tiles: head dims x query rows
 #pragma unroll
@@ -649,13 +623,11 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   float m[2] = {kTfMaskLog2, kTfMaskLog2};  // rows g, g + 8 (log2 domain)
   float l[2] = {0.f, 0.f};  // this thread's share of its rows' sums over its keys
   // s over this warpgroup's half of the head dims (all 64 keys), and the
-  // tensor core's partial sum of one m-tile of o^T over a key tile.  The
-  // tensor core adds into its fp32 accumulator with truncation, an error
-  // that grows with the number of products added: o^T accumulated over the
-  // 6144 products of 16384 keys broke the fp32 rule, so the FPU adds each
-  // tile's part into o^T, rounding to nearest.  The two accumulators have
-  // registers of their own: ptxas serializes every wgmma of a kernel whose
-  // accumulators share registers.
+  // tensor core's partial sum of one m-tile of o^T over a key tile (the
+  // two-level sum, add_scaled: o^T accumulated in the tensor core over the
+  // 6144 products of 16384 keys broke the fp32 rule).  The two accumulators
+  // have registers of their own: ptxas serializes every wgmma of a kernel
+  // whose accumulators share registers.
   float s[32], part[32];
   // the A fragments, split, of two k-steps: one is built while the other
   // k-step's products run
@@ -666,21 +638,7 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   auto convert = [&](int n) {
     const int st = n % S;
     mbar_wait_spin(full(st), (n / S) & 1);
-    float4* hi = reinterpret_cast<float4*>(gbase + L::kRing + st * kTfStageBytes);
-    float4* lo = hi + kTfAtomBytes / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 x = hi[tid + 128 * i];
-      uint32_t h4[4], l4[4];
-      split_tf32(x.x, h4[0], l4[0]);
-      split_tf32(x.y, h4[1], l4[1]);
-      split_tf32(x.z, h4[2], l4[2]);
-      split_tf32(x.w, h4[3], l4[3]);
-      hi[tid + 128 * i] = make_float4(__uint_as_float(h4[0]), __uint_as_float(h4[1]),
-                                      __uint_as_float(h4[2]), __uint_as_float(h4[3]));
-      lo[tid + 128 * i] = make_float4(__uint_as_float(l4[0]), __uint_as_float(l4[1]),
-                                      __uint_as_float(l4[2]), __uint_as_float(l4[3]));
-    }
+    split_atom_tf32(gbase + L::kRing + st * kTfStageBytes, tid);
     fence_proxy_async();
     named_bar_sync(2 + wg, 128);
   };
@@ -707,21 +665,8 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if (live) {
-          const int b2 = kk & 1;
-          reg_fence(ah[b2]);
-          reg_fence(al[b2]);
-          uint32_t q4[4];
-          ldmatrix_x4(q4, q_row + atom * kTfAtomBytes + (((2 * kk + (lm >> 1)) ^ lr) << 4));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(q4[e]), ah[b2][e], al[b2][e]);
-          wgmma_fence();
-          const uint64_t dh = smem_desc(stage + kk * 32, 16, 1024);
-          const uint64_t dl = smem_desc(stage + kTfAtomBytes + kk * 32, 16, 1024);
-          wgmma_tf32_n64(s, ah[b2], dh, x > 0 || kk > 0);
-          wgmma_tf32_n64(s, ah[b2], dl, 1);
-          wgmma_tf32_n64(s, al[b2], dh, 1);
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous k-step's products are done
+          qk_kstep(s, ah[kk & 1], al[kk & 1], q_row + atom * kTfAtomBytes, stage, kk,
+                   x > 0 || kk > 0);
         } else if (kk == 0) {
           wgmma_wait<0>();
         }
@@ -791,19 +736,15 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       alpha[r] = exp2_approx(m[r] - m_new);
       m[r] = m_new;
     }
+    // p of this warpgroup's 32 keys into its atom of the p tiles
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float pe = exp2_approx(sk[i] - m[(i >> 1) & 1]);
-      ls[(i >> 1) & 1] += pe;
-      // key 8 (i >> 2) + 2 t4 + (i & 1) of this warpgroup's 32 lands at
-      // column 8 (i >> 2) + t4 + 4 (i & 1) of its atom of the p tiles
-      const int row = row0 + 8 * ((i >> 1) & 1);
-      const int off = wg * kTfAtomBytes + row * kAtomBytes +
-                      (((2 * (i >> 2) + (i & 1)) ^ g) << 4) + 4 * t4;
-      uint32_t ph, pl;
-      split_tf32(pe, ph, pl);
-      *reinterpret_cast<uint32_t*>(gbase + L::kPHi + off) = ph;
-      *reinterpret_cast<uint32_t*>(gbase + L::kPLo + off) = pl;
+    for (int i = 0; i < 16; i += 2) {
+      const float p0 = exp2_approx(sk[i] - m[(i >> 1) & 1]);
+      const float p1 = exp2_approx(sk[i + 1] - m[(i >> 1) & 1]);
+      ls[(i >> 1) & 1] += p0;
+      ls[(i >> 1) & 1] += p1;
+      store_p_pair(gbase + L::kPHi, L::kPLo - L::kPHi, row0 + 8 * ((i >> 1) & 1),
+                   4 * wg + (i >> 2), p0, p1);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
@@ -816,10 +757,7 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
     // o^T += v^T p^T: for each m-tile i of this warpgroup its V chunk (the
     // tile's 8 k-steps) into `part`, then o^T = o^T * alpha + part by the
-    // FPU (o^T's N columns are the query rows).  A = v^T of k-step kk: head
-    // dims 16 w4 + g (+8) of the m-tile, keys 8 kk + 2 t4 (column t4) and
-    // + 1 (column t4 + 4), each a row of a [64 keys][32] atom with the
-    // 128-byte swizzle
+    // FPU (o^T's N columns are the query rows)
 #pragma unroll
     for (int i = 0; i < MW; ++i) {
       const int n = n0 + 2 * (2 * MW + i);
@@ -827,36 +765,14 @@ flash_stream_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       if (wg * MW + i < mt) {
 #pragma unroll
         for (int r = 0; r < 32; ++r) part[r] = 0.f;
-        const float* va = reinterpret_cast<const float*>(
-            gbase + L::kRing + (n % S) * kTfStageBytes + (w4 >> 1) * kTfAtomBytes);
-        const int col = 16 * (w4 & 1) + g;
-        auto at = [&](int key, int cc) {
-          return va[key * kF32AtomCols + ((((cc >> 2) ^ (key & 7)) << 2) | (cc & 3))];
-        };
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const int b2 = kk & 1;
-          reg_fence(ah[b2]);
-          reg_fence(al[b2]);
-          const int key = 8 * kk + 2 * t4;
-          split_tf32(at(key, col), ah[b2][0], al[b2][0]);
-          split_tf32(at(key, col + 8), ah[b2][1], al[b2][1]);
-          split_tf32(at(key + 1, col), ah[b2][2], al[b2][2]);
-          split_tf32(at(key + 1, col + 8), ah[b2][3], al[b2][3]);
-          wgmma_fence();
-          const uint32_t pb = sPh + (kk >> 2) * kTfAtomBytes + (kk & 3) * 32;
-          const uint64_t dh = smem_desc(pb, 16, 1024);
-          const uint64_t dl = smem_desc(pb + (L::kPLo - L::kPHi), 16, 1024);
-          wgmma_tf32_n64(part, ah[b2], dh, kk > 0);
-          wgmma_tf32_n64(part, ah[b2], dl, 1);
-          wgmma_tf32_n64(part, al[b2], dh, 1);
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous k-step's products are done
-        }
+        vt_p_product<8, false>(
+            part, ah, al,
+            reinterpret_cast<const float*>(gbase + L::kRing + (n % S) * kTfStageBytes), sPh,
+            L::kPLo - L::kPHi, 0);
         release(n);  // the chunk is in registers: its stage is free
         wgmma_wait<0>();
         reg_fence(part);
-        add_scaled(o[i], part, alpha_s, t4);
+        add_scaled(o[i], part, alpha_s);
       } else {
         release(n);
       }

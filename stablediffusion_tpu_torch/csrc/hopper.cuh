@@ -2,7 +2,9 @@
 // flash_bwd.cu and flash_stream.cu: mbarriers, TMA tensor copies and the
 // maps they read, wgmma with its shared-memory descriptors and fences,
 // setmaxnreg, named and cluster barriers, and the 3xTF32 pieces of the fp32
-// kernel (the TF32 split, TF32 wgmma, ldmatrix, distributed shared memory).
+// kernels (the TF32 split, TF32 wgmma, ldmatrix, distributed shared memory,
+// and the products and two-level sum that flash_fwd's and flash_stream's
+// fp32 kernels both run).
 // Tiles live in shared memory as 128-byte atoms, [rows][64 bf16 or 32 fp32
 // columns] each, written by TMA with the 128-byte swizzle.
 #pragma once
@@ -384,6 +386,199 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` over `count` threads (whole warps)
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- the 3xTF32 attention kernels' products (flash_fwd.cu, flash_stream.cu) --
+//
+// Both run s = q k^T and o^T += v^T p^T per consumer warpgroup over tiles of
+// 64 query rows and 64 keys, with fp32 tiles in 32-column atoms [64 rows][32]
+// (8 KiB) written by TMA with the 128-byte swizzle.  A ring stage holds a K
+// atom (hi in place, its lo 8 KiB above) or a V chunk [64 keys][64 head
+// dims] (two atoms).  In wgmma's accumulator layout warp w4 of a warpgroup
+// holds M rows 16 w4 + g and 16 w4 + g + 8 (g = lane / 4) and, for each n8
+// tile j, the N columns 8 j + 2 t4, +1 (t4 = lane % 4): registers 4 j + e at
+// M row + 8 (e >> 1), N column + (e & 1).
+
+constexpr int kTfRows = 64;                      // query rows a tile (wgmma M of s)
+constexpr int kTfKeys = 64;                      // keys a tile
+constexpr int kTfAtomBytes = kTfRows * kAtomBytes;  // [64 rows][32 fp32]
+constexpr int kTfStageBytes = 2 * kTfAtomBytes;  // a K atom (hi, lo) or a V chunk
+// registers a thread of the 3xTF32 kernels (384 threads, launched at 168)
+// after setmaxnreg: the producer warpgroup gives its share back and the two
+// consumer warpgroups take it, 128 * 24 + 256 * 240 = 384 * 168
+constexpr int kTfProducerRegs = 24;
+constexpr int kTfConsumerRegs = 240;
+constexpr float kTfLog2e = 1.4426950408889634f;
+constexpr float kTfMaskLog2 = kNegInf * kTfLog2e;  // the -1e30 mask, log2 domain
+
+// Split the K atom at `atom` (generic pointer) for the products: hi in place,
+// lo 8 KiB above; one warpgroup's 128 threads (`tid` its thread).  The caller
+// fences for the async proxy and syncs the warpgroup before wgmma reads it.
+__device__ __forceinline__ void split_atom_tf32(unsigned char* atom, int tid) {
+  float4* hi = reinterpret_cast<float4*>(atom);
+  float4* lo = hi + kTfAtomBytes / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = hi[tid + 128 * i];
+    uint32_t h4[4], l4[4];
+    split_tf32(x.x, h4[0], l4[0]);
+    split_tf32(x.y, h4[1], l4[1]);
+    split_tf32(x.z, h4[2], l4[2]);
+    split_tf32(x.w, h4[3], l4[3]);
+    hi[tid + 128 * i] = make_float4(__uint_as_float(h4[0]), __uint_as_float(h4[1]),
+                                    __uint_as_float(h4[2]), __uint_as_float(h4[3]));
+    lo[tid + 128 * i] = make_float4(__uint_as_float(l4[0]), __uint_as_float(l4[1]),
+                                    __uint_as_float(l4[2]), __uint_as_float(l4[3]));
+  }
+}
+
+// This lane's ldmatrix row of a Q atom at `q_tile`: matrix lm = lane / 8
+// (rows + 8 (lm & 1), columns + 4 (lm >> 1)) of its warp's 16 rows.
+__device__ __forceinline__ uint32_t q_ldmatrix_row(uint32_t q_tile) {
+  const int lane = threadIdx.x & 31;
+  const int w4 = (threadIdx.x >> 5) & 3;
+  return q_tile + (16 * w4 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kAtomBytes;
+}
+
+// One k-step (8 head dims) of s += q k^T (s = q k^T when `accumulate` is 0)
+// in 3xTF32 over 64 keys: A = q's k-step kk from the Q atom whose ldmatrix
+// row (q_ldmatrix_row) is at `q_row`, split in registers into (ah, al); B
+// = the split K atom at `k_atom`.  The three products are committed as one
+// group; returns once the group before it is done, so the caller builds the
+// next k-step's A in the other buffer while this one runs.
+__device__ __forceinline__ void qk_kstep(float (&s)[32], uint32_t (&ah)[4], uint32_t (&al)[4],
+                                         uint32_t q_row, uint32_t k_atom, int kk,
+                                         int accumulate) {
+  const int lane = threadIdx.x & 31;
+  reg_fence(ah);
+  reg_fence(al);
+  uint32_t q4[4];
+  ldmatrix_x4(q4, q_row + (((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(q4[e]), ah[e], al[e]);
+  wgmma_fence();
+  const uint64_t dh = smem_desc(k_atom + kk * 32, 16, 1024);
+  const uint64_t dl = smem_desc(k_atom + kTfAtomBytes + kk * 32, 16, 1024);
+  wgmma_tf32_n64(s, ah, dh, accumulate);
+  wgmma_tf32_n64(s, ah, dl, 1);
+  wgmma_tf32_n64(s, al, dh, 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+// p of keys 8 j + 2 t4 and + 1 (n8 tile j < 8 of a 64-key accumulator) of
+// query row `row`, split, into the K-major p tiles (hi at `p_hi`, generic;
+// lo `lo_off` bytes above; two atoms [64 rows][32 keys] each) with the key
+// permutation of vt_p_product's A: key 8 j' + 2 t4 of an atom lies at its
+// column 8 j' + t4, key + 1 at column + 4.  With it the V loads of the
+// product hit 32 banks.
+__device__ __forceinline__ void store_p_pair(unsigned char* p_hi, int lo_off, int row, int j,
+                                             float p0, float p1) {
+  const int t4 = threadIdx.x & 3;
+  const int base = (j >> 2) * kTfAtomBytes + row * kAtomBytes + 4 * t4;
+  const float pe[2] = {p0, p1};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int off = base + (((2 * (j & 3) + e) ^ (row & 7)) << 4);
+    uint32_t ph, pl;
+    split_tf32(pe[e], ph, pl);
+    *reinterpret_cast<uint32_t*>(p_hi + off) = ph;
+    *reinterpret_cast<uint32_t*>(p_hi + lo_off + off) = pl;
+  }
+}
+
+// part = v^T p^T over k-steps kk0 .. kk0 + NK - 1 (8 keys each) of a 64-key
+// tile for one m-tile (64 head dims) of o^T: TF32 wgmma takes no transposed
+// operand and V arrives MN-major, so A = v^T from registers: head dims
+// 16 w4 + g (+8) of the m-tile, keys 8 kk + 2 t4 (column t4) and + 1
+// (column t4 + 4) of k-step kk, 32-bit loads from the V chunk at `chunk`
+// (two [64 keys][32] atoms) split in registers into (ah, al), a k-step built
+// while the previous one runs; B = p^T, the p tiles (store_p_pair) at `p_hi`
+// and `p_hi` + `lo_off` (shared addresses).  The first product overwrites
+// part.  The tensor core truncates each add to its fp32 accumulator, a bias
+// toward zero that grows with the adds: with kSmallFirst the small products
+// (v_hi p_lo, v_lo p_hi) of every k-step go first and v_hi p_hi after (A
+// built twice), so the large ones meet NK truncations instead of 3 NK.
+// Returns with the last k-step in flight and the chunk read.
+template <int NK, bool kSmallFirst>
+__device__ __forceinline__ void vt_p_product(float (&part)[32], uint32_t (&ah)[2][4],
+                                             uint32_t (&al)[2][4], const float* chunk,
+                                             uint32_t p_hi, int lo_off, int kk0) {
+  const int lane = threadIdx.x & 31;
+  const int w4 = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* va = chunk + (w4 >> 1) * (kTfAtomBytes / 4);
+  const int col = 16 * (w4 & 1) + g;
+  // where the four elements of k-step 0 lie in the atom (key 2 t4 + k, head
+  // dim col + 8 c, under the swizzle's XOR with key & 7); k-step kk lies
+  // 8 kk keys = 256 kk floats further, which the swizzle leaves alone.  Four
+  // offsets a thread, not one for each element, which at three m-tiles of
+  // o^T left too few registers.
+  int off[2][2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = 2 * t4 + k, cc = col + 8 * c;
+      off[k][c] = key * kF32AtomCols + ((((cc >> 2) ^ key) << 2) | (cc & 3));
+    }
+  // k-step kk's A into buffer b2, fenced for wgmma
+  auto build = [&](int kk, int b2) {
+    reg_fence(ah[b2]);
+    reg_fence(al[b2]);
+    const float* vk = va + kk * 8 * kF32AtomCols;
+    split_tf32(vk[off[0][0]], ah[b2][0], al[b2][0]);
+    split_tf32(vk[off[0][1]], ah[b2][1], al[b2][1]);
+    split_tf32(vk[off[1][0]], ah[b2][2], al[b2][2]);
+    split_tf32(vk[off[1][1]], ah[b2][3], al[b2][3]);
+    wgmma_fence();
+  };
+  auto p_desc = [&](int kk, int lo) {
+    return smem_desc(p_hi + (kk >> 2) * kTfAtomBytes + (kk & 3) * 32 + lo * lo_off, 16, 1024);
+  };
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    const int kk = kk0 + i, b2 = i & 1;
+    build(kk, b2);
+    if constexpr (kSmallFirst) {
+      wgmma_tf32_n64(part, ah[b2], p_desc(kk, 1), i > 0);
+      wgmma_tf32_n64(part, al[b2], p_desc(kk, 0), 1);
+    } else {
+      wgmma_tf32_n64(part, ah[b2], p_desc(kk, 0), i > 0);
+      wgmma_tf32_n64(part, ah[b2], p_desc(kk, 1), 1);
+      wgmma_tf32_n64(part, al[b2], p_desc(kk, 0), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k-step's products are done
+  }
+  if constexpr (kSmallFirst) {
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      const int kk = kk0 + i, b2 = (NK + i) & 1;
+      build(kk, b2);
+      wgmma_tf32_n64(part, ah[b2], p_desc(kk, 0), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+}
+
+// o = o * alpha + part over an m64n64 accumulator of o^T, whose N column
+// 8 jn + 2 t4 + (e & 1) is a query row with its rescale factor in alpha
+// (shared memory): the two-level sum.  The tensor core adds into its fp32
+// accumulator with truncation, an error that grows with the number of
+// products added, so each key tile's products get an accumulator of their
+// own (part) and the FPU adds it into o, rounding to nearest.
+__device__ __forceinline__ void add_scaled(float (&o)[32], const float (&part)[32],
+                                           const float* alpha) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    const float2 a = *reinterpret_cast<const float2*>(alpha + 8 * jn + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[4 * jn + e] = fmaf(o[4 * jn + e], (e & 1) ? a.y : a.x, part[4 * jn + e]);
+  }
 }
 
 // --- clusters -----------------------------------------------------------------

@@ -293,9 +293,8 @@ def attention_launch_args(
     return (out, ctypes arguments up to and excluding the scale).  Raises on
     anything the kernel does not take."""
     check_attention_inputs(name, q, k, v, d_min, d_max)
-    # the TMA-fed kernels: every bf16 one, and flash_stream's at D <= 512
-    tma_fed = name == "flash_stream" and q.shape[-1] <= STREAM_TMA_MAX_D
-    if q.dtype == torch.bfloat16 or tma_fed:
+    # the TMA-fed kernels: every flash_fwd one, and flash_stream's at D <= 512
+    if name == "flash_fwd" or q.shape[-1] <= STREAM_TMA_MAX_D:
         check_tma_mappable(name, {"q": q, "k": k, "v": v})
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

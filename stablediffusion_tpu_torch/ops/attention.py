@@ -14,6 +14,9 @@ through a kernel (:func:`_route`):
                                     gives the gradients
   * CUDA, D <= 160, no grad      -> ``flash_fwd`` (csrc/flash_fwd.cu): the
                                     UNet in inference, CLIP with causal=True
+                                    (bf16: TMA-fed wgmma; fp32: the same in
+                                    3xTF32, each operand split into two TF32
+                                    parts, which holds fp32's accuracy)
   * CUDA, D <= 160, under grad   -> ``FlashAttnFn``: ``flash_fwd`` writing the
                                     row log-sum-exp, and a backward of two
                                     kernels (csrc/flash_bwd.cu): the UNet in
@@ -194,7 +197,13 @@ def _route(q_shape, k_shape, causal: bool, device_type: str,
 
 
 def _launch_fwd(q, k, v, scale: float, causal: bool, with_lse: bool):
-    """One flash_fwd launch: (out, lse or None)."""
+    """One flash_fwd launch: (out, lse or None).  Both kernels read q, k, v
+    through TMA tensor maps.  In fp32 a view that no map can read but whose
+    rows are 16-byte loadable (a stride-0 expand) is copied first; in bf16
+    such a view raises."""
+    if q.dtype == torch.float32:
+        q, k, v = (t.contiguous() if _build.vector_loadable(t) and not _build.tma_mappable(t)
+                   else t for t in (q, k, v))
     out, args = _build.attention_launch_args("flash_fwd", q, k, v, 8, FLASH_FWD_MAX_D)
     B, Sq, H, _ = q.shape
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

@@ -11,7 +11,7 @@ encode.  It has no backward, as its Pallas original has none: on CUDA under
 grad it raises rather than return an output without a ``grad_fn``.  At
 D <= 512 the kernel runs both products on the tensor cores in 3xTF32 (each
 fp32 operand split into two TF32 parts, three products summed), which holds
-fp32's accuracy; ``utils/testing.flash_stream_tf32x3_emulated`` emulates
+fp32's accuracy; ``utils/testing.attention_tf32x3_emulated`` emulates
 that split and its products in plain PyTorch, not the kernel's order of
 accumulation.
 

@@ -29,15 +29,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import statistics
-import subprocess
 from pathlib import Path
 
 import torch
 
 from stablediffusion_tpu_torch.ops import _build
 from stablediffusion_tpu_torch.ops.attention import _row_dot
+from stablediffusion_tpu_torch.utils import kernel_ablation as ka
 
 # (B, Sq, H, D, Skv): SD3 training's joint stream, SD1.5's heaviest and its
 # cross-attention, the SDXL trainer's heaviest
@@ -71,85 +69,15 @@ def _drop(src: str, lines) -> str:
 
 
 def variants() -> dict:
+    """name -> {file: text} of the files each variant changes."""
     src = (_build.CSRC / "flash_bwd.cu").read_text()
     assert src.count(_EXP_DKV) == 1 and src.count(_EXP_DQ) == 1
     no_exp = src.replace(_EXP_DKV, "const float pe = fmaf(s[i], sl2, -((e & 1) ? l2.y : l2.x));")
     no_exp = no_exp.replace(_EXP_DQ, "s[x] = p.scale * fmaf(s[x], sl2, -lse2[r]) * (dp[x] - dd[r]);")
-    return {"kernel": src, "no_exp": no_exp, "no_first_products": _drop(src, _FIRST),
-            "no_second_products": _drop(src, _SECOND),
-            "ring_only": _drop(_drop(src, _FIRST), _SECOND)}
-
-
-def build(out_dir, sources: dict) -> dict:
-    """Compile every variant (name -> source path), one nvcc each, all
-    started together; each source finds its headers beside it."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in sources.items():
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-            fn = getattr(lib, _build.ENTRIES[kernel][1])
-            fn.argtypes = _build.ENTRIES[kernel][2]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def ablation_sources(out_dir) -> dict:
-    """The kernel and its broken copies written into `out_dir`, beside this
-    source's headers."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, out_dir / header.name)
-    paths = {}
-    for name, text in variants().items():
-        paths[name] = out_dir / f"{name}.cu"
-        paths[name].write_text(text)
-    return paths
-
-
-def _device_ms(launch, key: str, reps: int = 20) -> float:
-    """Median device time of `reps` launches of the kernel whose name holds
-    `key`, from torch.profiler's kernel events, after a warm-up; a profiling
-    run that kept no event of it is repeated, up to three runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                launch()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and key in e.name]
-        if us:
-            return statistics.median(us) / 1e3
-    raise RuntimeError(f"torch.profiler kept no event of {key} in 3 runs")
-
-
-def _event_ms(launch) -> list:
-    times = []
-    for _ in range(2):
-        launch()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(10):
-            launch()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 10)
-    return times
+    texts = {"no_exp": no_exp, "no_first_products": _drop(src, _FIRST),
+             "no_second_products": _drop(src, _SECOND),
+             "ring_only": _drop(_drop(src, _FIRST), _SECOND)}
+    return {"kernel": {}, **{n: {"flash_bwd.cu": t} for n, t in texts.items()}}
 
 
 def main() -> None:
@@ -157,15 +85,14 @@ def main() -> None:
     parser.add_argument("--against", type=Path, default=None,
                         help="a directory with another flash_bwd.cu to time beside this one")
     against = parser.parse_args().against
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(ka.card(), flush=True)
     out_dir = _build.BUILD_DIR / "flash_bwd_ablation"
     if against is None:
-        libs, shapes = build(out_dir, ablation_sources(out_dir)), SHAPES
+        sources, shapes = ka.write_sources(out_dir, "flash_bwd", variants()), SHAPES
     else:
         sources = {"other": against.resolve() / "flash_bwd.cu", "kernel": _build.CSRC / "flash_bwd.cu"}
-        libs, shapes = build(out_dir, sources), PATH_SHAPES
+        shapes = PATH_SHAPES
+    libs = ka.build(out_dir, sources, ["flash_bwd_dq", "flash_bwd_dkv"])
     fwd = _build.entry("flash_fwd")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -190,9 +117,10 @@ def main() -> None:
                 launch = lambda: _build.check(  # noqa: E731
                     kernel, fn(*bwd_args, scale, causal, stream))
                 if against is None:
-                    row[f"{kernel}_{name}_ms"] = _event_ms(launch)
+                    row[f"{kernel}_{name}_ms"] = ka.event_ms(launch)
                 else:
-                    row.setdefault(f"{kernel}_{name}_ms", []).append(_device_ms(launch, kernel))
+                    row.setdefault(f"{kernel}_{name}_ms", []).append(
+                        ka.device_ms(launch, kernel))
         print(json.dumps(row), flush=True)
         del q, k, v, do, out, lse, di, dq, dk, dv
 

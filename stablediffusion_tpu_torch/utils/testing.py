@@ -7,10 +7,10 @@ a random SD3-family model of any configs (``random_sd3_model``), a random
 SDXL refiner, a random
 training batch as
 ``benchmarks/bench_train.py`` builds it, the error rules that hold a CUDA
-kernel against its plain version (with the fp32 flash_stream's 3xTF32
-split and products in plain PyTorch: ``tf32_round``,
-``flash_stream_tf32x3_emulated`` and two products that are not
-fp32-accurate), and files for the adapter and single-file paths: seeded random LoRA factors (``random_lora``, saved by
+kernel against its plain version (with the fp32 kernels' 3xTF32 split and
+products in plain PyTorch: ``tf32_round``, ``attention_tf32x3_emulated``
+with the causal mask and the lse, and two products that are not
+fp32-accurate, ``tf32_wrong_variants``), and files for the adapter and single-file paths: seeded random LoRA factors (``random_lora``, saved by
 ``lora/formats.save_lora_file`` as peft or kohya) and textual-inversion
 embeddings (``random_textual_inversion``), and an A1111/LDM single-file
 writer (``ldm_state_dict``, ``save_ldm_single_file``), the inverse of
@@ -183,20 +183,23 @@ def attention_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for n, kw in variants.items()}
 
 
-# The fp32 flash_stream runs both products on the tensor cores in 3xTF32
-# (csrc/flash_stream.cu): each operand x is split into hi = tf32(x) and
-# lo = tf32(x - hi), TF32 rounding to nearest with ties away from zero as
-# cvt.rna.tf32.f32 does, and a product is hi*hi + hi*lo + lo*hi in fp32.
-# The functions below emulate that split and its three products in plain
-# PyTorch, over the kernel's 64-key tiles (the online softmax's p is split
-# from its running max), and two products that are not fp32-accurate, which
-# the unchanged fp32 rule of KERNEL_TOL must refuse.  They do not emulate
-# the kernel's accumulation: its tensor cores add with truncation and its
-# FPU adds each key tile's part into o, its lo parts keep bits that the
-# tensor core ignores, and it exponentiates with ex2.approx; so they show
-# that the 3xTF32 split is accurate enough, and the card's tests show that
-# the kernel is.
-STREAM_KEY_TILE = 64
+# The fp32 kernels, flash_fwd and flash_stream, run both products on the
+# tensor cores in 3xTF32 (csrc/hopper.cuh): each operand x is split into
+# hi = tf32(x) and lo = tf32(x - hi), TF32 rounding to nearest with ties
+# away from zero as cvt.rna.tf32.f32 does, and a product is hi*hi + hi*lo +
+# lo*hi in fp32.  The functions below emulate that split and its three
+# products in plain PyTorch, over the kernels' 64-key tiles (the online
+# softmax's p is split from its running max), with flash_fwd's causal mask
+# and log-sum-exp, and two products that are not fp32-accurate, which the
+# unchanged fp32 rule of KERNEL_TOL must refuse.  They do not emulate the
+# kernels' accumulation: the tensor cores add with truncation and the FPU
+# adds each part into o (flash_stream's of 64 keys; flash_fwd's of 32, the
+# small products first), flash_fwd's two warpgroups take the key tiles in
+# turn and merge their halves, the lo parts keep bits that the tensor core
+# ignores, and the kernels exponentiate with ex2.approx; so they show that
+# the 3xTF32 split is accurate enough, and the card's tests show that the
+# kernels are.
+TF32_KEY_TILE = 64
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -226,43 +229,52 @@ def _tf32_product(a: torch.Tensor, b: torch.Tensor, terms: str) -> torch.Tensor:
     return out + al @ bh if terms == "3x" else out
 
 
-def _flash_stream_tf32(q, k, v, scale, terms):
+def _attention_tf32(q, k, v, scale, terms, causal=False):
+    """(out [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]) of the 3xTF32
+    arithmetic (or a wrong `terms`), online softmax over TF32_KEY_TILE keys,
+    keys past the diagonal masked to -1e30 when `causal`."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, S, D]
     B, H, Sq, D = qf.shape
     s = _tf32_product(qf, kf.transpose(-1, -2), terms) * scale
+    if causal:
+        keep = torch.ones(Sq, kf.shape[2], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
     m = torch.full((B, H, Sq, 1), -1e30, device=q.device)
     l = torch.zeros((B, H, Sq, 1), device=q.device)
     acc = torch.zeros((B, H, Sq, D), device=q.device)
-    for k0 in range(0, kf.shape[2], STREAM_KEY_TILE):
-        st = s[..., k0:k0 + STREAM_KEY_TILE]
+    for k0 in range(0, kf.shape[2], TF32_KEY_TILE):
+        st = s[..., k0:k0 + TF32_KEY_TILE]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + _tf32_product(p, vf[:, :, k0:k0 + STREAM_KEY_TILE], terms)
+        acc = acc * alpha + _tf32_product(p, vf[:, :, k0:k0 + TF32_KEY_TILE], terms)
         m = m_new
-    return (acc / l).transpose(1, 2).to(q.dtype)
+    return (acc / l).transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_stream_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 scale: Optional[float] = None) -> torch.Tensor:
-    """The fp32 flash_stream's 3xTF32 split and products in plain PyTorch on
-    q's device (fp32 matmuls, so TF32 must be off there): s = q k^T and
-    o += p v each from the three TF32 products, online softmax over 64-key
-    tiles; the kernel's order and rounding of its sums are not emulated.
-    [B, S, H, D] in and out."""
-    return _flash_stream_tf32(q, k, v, scale, "3x")
+def attention_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: Optional[float] = None, causal: bool = False):
+    """The fp32 kernels' 3xTF32 split and products in plain PyTorch on q's
+    device (fp32 matmuls, so TF32 must be off there): s = q k^T and o += p v
+    each from the three TF32 products, online softmax over 64-key tiles,
+    with flash_fwd's causal mask (query i sees keys j <= i) when `causal`;
+    the kernels' order and rounding of their sums are not emulated.  (out
+    [B, Sq, H, D], lse fp32 [B, H, Sq]), the counterpart of
+    ``ops/attention.attention_plain_lse``."""
+    return _attention_tf32(q, k, v, scale, "3x", causal)
 
 
-def flash_stream_tf32_wrong_variants(q: torch.Tensor, k: torch.Tensor,
-                                     v: torch.Tensor) -> dict:
+def tf32_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = False) -> dict:
     """Two products that are not fp32-accurate, in the emulation of
-    :func:`flash_stream_tf32x3_emulated`: "1xTF32" (each operand rounded to
-    TF32 once, as a plain TF32 product) and "hi_hilo" (hi*hi + hi*lo: the
-    lo*hi term dropped)."""
-    return {"1xTF32": _flash_stream_tf32(q, k, v, None, "1x"),
-            "hi_hilo": _flash_stream_tf32(q, k, v, None, "hi_hilo")}
+    :func:`attention_tf32x3_emulated` (the same key tiles and, with
+    `causal`, the same mask): "1xTF32" (each operand rounded to TF32 once,
+    as a plain TF32 product) and "hi_hilo" (hi*hi + hi*lo: the lo*hi term
+    dropped).  Outputs only."""
+    return {"1xTF32": _attention_tf32(q, k, v, None, "1x", causal)[0],
+            "hi_hilo": _attention_tf32(q, k, v, None, "hi_hilo", causal)[0]}
 
 
 # Limit of the backward kernels' gradients (dq, dk, dv) against the plain

@@ -110,6 +110,81 @@ def test_flash_fwd_matches_plain(cuda, dtype, B, Sq, H, D, Skv, causal):
     assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
 
 
+# the fp32 path shapes (B, Sq, H, D, Skv, causal, lse): the IP-Adapter image
+# encoders (ViT-bigG/14 over 257 tokens, ViT-H/14), CLIP-L on an SD1.5
+# request and its burst of 4, bigG on an SDXL request, the SDXL trainer's
+# CLIP-L and bigG with the lse for their backward
+FP32_PATH_SHAPES = [(1, 257, 16, 104, 257, False, False), (1, 257, 16, 80, 257, False, False),
+                    (1, 77, 12, 64, 77, True, False), (4, 77, 12, 64, 77, True, False),
+                    (1, 77, 20, 64, 77, True, False), (2, 77, 12, 64, 77, True, True),
+                    (2, 77, 20, 64, 77, True, True)]
+
+
+@pytest.mark.parametrize("B, Sq, H, D, Skv, causal, with_lse", FP32_PATH_SHAPES)
+def test_flash_fwd_fp32_at_the_path_shapes(cuda, B, Sq, H, D, Skv, causal, with_lse):
+    """The fp32 kernel (3xTF32 wgmma) at every shape an fp32 path launches,
+    out and lse against attention_plain_lse evaluated in fp32, under the
+    unchanged fp32 rule; one launch each; the same bits twice."""
+    q, k, v = _qkv(cuda, torch.float32, B, Sq, H, D, Skv)
+    before = FLASH_FWD_LAUNCHES.count
+    with torch.no_grad():
+        out, lse = _fwd_with_lse(q, k, v, causal, with_lse)
+        again, lse_again = _fwd_with_lse(q, k, v, causal, with_lse)
+    torch.cuda.synchronize()
+    assert FLASH_FWD_LAUNCHES.count == before + 2
+    ref, ref_lse = attention_plain_lse(q, k, v, causal=causal)
+    assert kernel_error(out, ref)["worst_over_limit"] <= 1.0
+    assert torch.equal(out, again)
+    if with_lse:
+        assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
+        assert torch.equal(lse, lse_again)
+
+
+@pytest.mark.parametrize("D", range(8, 161, 8))
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_fp32_every_head_dim(cuda, D, causal):
+    """Every head dim the fp32 kernel takes (its three instantiations: one
+    and two 64-column m-tiles of o^T, and two blocks a query tile above
+    128), over a ragged Sq (two query tiles and 3 rows) and a ragged Skv
+    (two key tiles and 5 keys), causal and not: out and lse against
+    attention_plain_lse under the fp32 rule."""
+    q, k, v = _qkv(cuda, torch.float32, 2, 131, 3, D, 133)
+    with torch.no_grad():
+        out, lse = _fwd_with_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_plain_lse(q, k, v, causal=causal)
+    assert kernel_error(out, ref)["worst_over_limit"] <= 1.0
+    assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
+
+
+@pytest.mark.parametrize("B, Sq, H, D, Skv", [(1, 4096, 2, 40, 4096), (1, 300, 2, 160, 16384)])
+def test_flash_fwd_fp32_long_key_runs(cuda, B, Sq, H, D, Skv):
+    """Many key tiles (64 over 4096 keys, 256 over 16384): o^T's sums in the
+    tensor core add over one key tile at a time and the FPU adds each into
+    o (the two-level sum), so the error does not grow with the keys."""
+    q, k, v = _qkv(cuda, torch.float32, B, Sq, H, D, Skv)
+    with torch.no_grad():
+        out, lse = _fwd_with_lse(q, k, v, False)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_plain_lse(q, k, v)
+    assert kernel_error(out, ref)["worst_over_limit"] <= 1.0
+    assert kernel_error(lse, ref_lse)["worst_over_limit"] <= 1.0
+
+
+def test_flash_fwd_fp32_copies_a_view_no_map_can_read(cuda):
+    """An fp32 key broadcast along the sequence (stride 0) passes the
+    16-byte load check but no TMA map can read it: the wrapper copies it and
+    launches once (in bf16 it raises:
+    test_flash_fwd_refuses_what_a_tensor_map_cannot_take)."""
+    q, k, v = _qkv(cuda, torch.float32, 1, 300, 2, 64, 200)
+    k = k[:, :1].expand_as(k)
+    before = FLASH_FWD_LAUNCHES.count
+    out = flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FLASH_FWD_LAUNCHES.count == before + 1
+    _within_limit(out, attention_plain, q, k, v, causal=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B, Sq, H, D, Skv", [
     (1, 4096, 1, 512, 4100), (1, 300, 2, 192, 77), (1, 64, 1, 1024, 33),
@@ -170,27 +245,29 @@ def test_strided_inputs(cuda, dtype):
                   p_rounded=dtype == torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [40, 64, 80])
-def test_strided_views_the_models_pass(cuda, D):
-    """The bf16 kernel's tensor maps take each tensor's own strides: the
+def test_strided_views_the_models_pass(cuda, D, dtype):
+    """Both kernels' tensor maps take each tensor's own strides: the
     MM-DiT's torch.cat of the image and text streams (models/mmdit.py),
     head-split views of one projection ([B, S, H * D] -> [B, S, H, D]), and
     q/k/v sliced out of a fused [B, S, 3 * H * D] projection, at a ragged
     joint length; each equals the kernel on contiguous copies bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(3)
     B, S, C, H = 2, 1101, 77, 6
-    img = torch.randn(B, S, 3 * H * D, device=cuda, generator=g).to(torch.bfloat16)
-    ctx = torch.randn(B, C, 3 * H * D, device=cuda, generator=g).to(torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
+    img = torch.randn(B, S, 3 * H * D, device=cuda, generator=g).to(dtype)
+    ctx = torch.randn(B, C, 3 * H * D, device=cuda, generator=g).to(dtype)
     heads = lambda t, i: t[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D))  # noqa: E731
     q, k, v = (torch.cat([heads(img, i), heads(ctx, i)], 1) for i in range(3))
     out = flash_fwd(q, k, v)
-    _within_limit(out, attention_plain, q, k, v, p_rounded=True)
+    _within_limit(out, attention_plain, q, k, v, p_rounded=bf16)
     fused = [heads(img, i) for i in range(3)]
     assert not fused[0].is_contiguous()
     out_fused = flash_fwd(*fused)
     torch.cuda.synchronize()
     assert torch.equal(out_fused, flash_fwd(*(t.contiguous() for t in fused)))
-    _within_limit(out_fused, attention_plain, *fused, p_rounded=True)
+    _within_limit(out_fused, attention_plain, *fused, p_rounded=bf16)
 
 
 def test_refusals(cuda):
@@ -367,19 +444,23 @@ def test_flash_bwd_refuses_what_a_tensor_map_cannot_take(cuda):
     assert (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count) == before
 
 
-def _fwd_with_lse(q, k, v, causal):
+def _fwd_with_lse(q, k, v, causal, with_lse=True):
     from stablediffusion_tpu_torch.ops.attention import _launch_fwd
 
-    return _launch_fwd(q, k, v, q.shape[-1] ** -0.5, causal, with_lse=True)
+    return _launch_fwd(q, k, v, q.shape[-1] ** -0.5, causal, with_lse=with_lse)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_attn_fn_matches_plain_autograd(cuda, causal):
+@pytest.mark.parametrize("B, Sq, H, D, Skv, causal",
+                         [(2, 200, 3, 40, 77, False), (2, 200, 3, 40, 200, True),
+                          (2, 77, 12, 64, 77, True), (2, 77, 20, 64, 77, True)])
+def test_flash_attn_fn_matches_plain_autograd(cuda, B, Sq, H, D, Skv, causal):
     """Gradients through FlashAttnFn (the kernels) against torch autograd of
     attention_plain, fp32, with dO strided (a transposed view) so that the
-    wrapper's layout check acts.  (fp32 runs the scalar kernels; bf16
-    through FlashAttnFn is test_flash_attn_fn_bf16_matches_rounded.)"""
-    q, k, v = _qkv(cuda, torch.float32, 2, 200, 3, 40, 200 if causal else 77)
+    wrapper's layout check acts; the SDXL trainer's two CLIP towers among
+    the shapes.  (fp32 runs the 3xTF32 forward, whose lse the scalar
+    backward kernels read; bf16 through FlashAttnFn is
+    test_flash_attn_fn_bf16_matches_rounded.)"""
+    q, k, v = _qkv(cuda, torch.float32, B, Sq, H, D, Skv)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = attention(*leaves, causal=causal)
     assert out.grad_fn is not None and "FlashAttnFn" in type(out.grad_fn).__name__

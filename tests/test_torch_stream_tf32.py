@@ -1,6 +1,6 @@
 """The fp32 flash_stream's 3xTF32 split on the CPU: TF32 rounding on known
 bit patterns, the split, and the plain-torch emulation of its three products
-(``utils/testing.flash_stream_tf32x3_emulated``, which does not emulate the
+(``utils/testing.attention_tf32x3_emulated``, which does not emulate the
 kernel's order and rounding of sums) against the plain version under the
 unchanged fp32 rule of ``KERNEL_TOL``; two products that are not
 fp32-accurate (operands rounded to TF32 once; hi*hi + hi*lo only) must break
@@ -13,11 +13,11 @@ import torch
 
 from stablediffusion_tpu_torch.ops.flash_attention import flash_stream_plain
 from stablediffusion_tpu_torch.utils.testing import (
-    flash_stream_tf32_wrong_variants,
-    flash_stream_tf32x3_emulated,
+    attention_tf32x3_emulated,
     kernel_error,
     tf32_round,
     tf32_split,
+    tf32_wrong_variants,
 )
 from torch_port_helpers import port_test_module  # noqa: F401
 
@@ -69,7 +69,7 @@ def _qkv(B, Sq, H, D, Skv):
 @pytest.mark.parametrize("B, Sq, H, D, Skv", SHAPES)
 def test_emulation_within_the_fp32_rule(B, Sq, H, D, Skv):
     q, k, v = _qkv(B, Sq, H, D, Skv)
-    err = kernel_error(flash_stream_tf32x3_emulated(q, k, v), flash_stream_plain(q, k, v))
+    err = kernel_error(attention_tf32x3_emulated(q, k, v)[0], flash_stream_plain(q, k, v))
     assert err["worst_over_limit"] <= 1.0, err
 
 
@@ -78,5 +78,5 @@ def test_products_not_fp32_accurate_break_the_rule(B, Sq, H, D, Skv):
     q, k, v = _qkv(B, Sq, H, D, Skv)
     ref = flash_stream_plain(q, k, v)
     worst = {n: kernel_error(w, ref)["worst_over_limit"]
-             for n, w in flash_stream_tf32_wrong_variants(q, k, v).items()}
+             for n, w in tf32_wrong_variants(q, k, v).items()}
     assert set(worst) == {"1xTF32", "hi_hilo"} and min(worst.values()) > 1.0, worst
