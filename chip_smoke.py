@@ -11,12 +11,12 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    (``-Xptxas -v``; a spill in ``flash_bwd.cu``, in any instantiation of
    ``flash_fwd.cu`` (bf16 and fp32) or in an fp32 (3xTF32) instantiation
    of ``flash_stream.cu`` fails the run, and so does ptxas's notice that it
-   serialized the wgmma of a ``flash_fwd`` or ``flash_stream``
-   instantiation); compile the three sources to PTX beside the build
-   (``nvcc -ptx``, the build's flags) and print, for each Hopper kernel of
-   ``HOPPER_KERNELS``, the counts in each of its instantiations of the
-   products it names (``wgmma.mma_async`` with ``.bf16``, or with
-   ``.tf32`` for the fp32 kernels of ``flash_fwd`` and ``flash_stream``)
+   serialized the wgmma of any instantiation); compile the three sources to
+   PTX beside the build (``nvcc -ptx``, the build's flags) and print, for
+   each Hopper kernel of ``HOPPER_KERNELS``, the counts in each of its
+   instantiations of the products it names (``wgmma.mma_async`` with
+   ``.bf16``, or with ``.tf32`` for the fp32 kernels of ``flash_fwd``,
+   ``flash_bwd`` and ``flash_stream``)
    and of ``cp.async.bulk.tensor``, and, where the toolkit has
    ``cuobjdump``, of ``HGMMA`` with ``BF16`` or ``TF32`` and ``UTMALDG`` in
    the built libraries' SASS (any of them 0 fails the run); set and print
@@ -73,10 +73,13 @@ Phases, each fatal on failure (nonzero exit, nothing caught):
    ``attention_bwd_rounded`` (p and ds rounded to bf16 where the kernels and
    the JAX library round them) plus ``P_FLIP_RTOL`` times its flip term, in
    fp32 against ``flash_bwd_plain``; the forward's lse against
-   ``attention_plain_lse``; at each ``BWD_TEETH_CASES`` shape (every bf16
-   head-dim instantiation the train paths launch) four wrong backwards (di
-   = 0, dK/dV kept in bf16 between query tiles, ds unscaled, p from the row
-   max) must break the rule; each kernel's device time as the median of 20
+   ``attention_plain_lse``; at each bf16 ``BWD_TEETH_CASES`` shape (every
+   bf16 head-dim instantiation the train paths launch) four wrong backwards
+   (di = 0, dK/dV kept in bf16 between query tiles, ds unscaled, p from the
+   row max), and at each fp32 one (CLIP-L's causal shape, D = 80 and D =
+   160) two backwards whose products are not fp32-accurate (1xTF32; hi*hi
+   + hi*lo: ``utils/testing.tf32_bwd_wrong_variants``, with the mask) must
+   break the rule; each kernel's device time as the median of 20
    profiled launches after warm-up, with their min and max, the plain and
    SDPA-backward times beside the bound.
 9. Train reference: a narrow SD1.5-layout model, card against CPU, fp32:
@@ -401,15 +404,23 @@ TEETH_CASES = {
                      ("flash_fwd", 1, 257, 16, 104, 257, "float32"),
                      ("flash_fwd", 1, 77, 12, 64, 77, "float32")], _wrong_fp32_products),
 }
-# the backward pairs (B, Sq, H, D, Skv, dtype) where four wrong backwards
-# must break the rule: SD1.5's three self-attention widths (D = 40, 80 and
-# 160: every padded width of the bf16 kernels), SD3's ragged joint stream in
-# training at 1024² (4250 = 33 * 128 + 26) and the SDXL trainer's heaviest
+# the backward pairs (B, Sq, H, D, Skv, dtype) where wrong backwards must
+# break the rule.  bf16 (four wrong backwards: attention_bwd_wrong_variants):
+# SD1.5's three self-attention widths (D = 40, 80 and 160: every padded
+# width of the bf16 kernels), SD3's ragged joint stream in training at
+# 1024² (4250 = 33 * 128 + 26) and the SDXL trainer's heaviest.  fp32 (two
+# backwards whose products are not fp32-accurate, which the 3xTF32 kernels'
+# rule must refuse: tf32_bwd_wrong_variants): CLIP-L's causal
+# self-attention (phase 8's and the SDXL trainer's: the fp32 kernels' D <=
+# 64 bucket), D = 80 and D = 160 (their other two)
 BWD_TEETH_CASES = {(TRAIN_BATCH, 4096, 8, 40, 4096, "bfloat16"),
                    (TRAIN_BATCH, 1024, 8, 80, 1024, "bfloat16"),
                    (TRAIN_BATCH, 256, 8, 160, 256, "bfloat16"),
                    (1, 4250, 24, 64, 4250, "bfloat16"),
-                   (2, 4096, 10, 64, 4096, "bfloat16")}
+                   (2, 4096, 10, 64, 4096, "bfloat16"),
+                   (8, 77, 12, 64, 77, "float32"), (2, 77, 12, 64, 77, "float32"),
+                   (TRAIN_BATCH, 1024, 8, 80, 1024, "float32"),
+                   (TRAIN_BATCH, 256, 8, 160, 256, "float32")}
 # profiled launches a backward kernel's time is the median of, after warm-up
 BWD_TIMED_LAUNCHES = 20
 
@@ -1127,7 +1138,9 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
     fp32: ``flash_bwd_plain`` under ``GRAD_TOL``); times of each kernel, of
     the plain backward, and of SDPA's backward (autograd of
     F.scaled_dot_product_attention minus its forward), beside each kernel's
-    bound.  With `teeth`, four wrong bf16 backwards must break the rule."""
+    bound.  With `teeth`, wrong backwards must break the rule: in bf16 four
+    (``attention_bwd_wrong_variants``), in fp32 two whose products are not
+    fp32-accurate (``tf32_bwd_wrong_variants``, with the same mask)."""
     import torch
     import torch.nn.functional as F
 
@@ -1144,6 +1157,7 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
         attention_bwd_wrong_variants,
         grad_error,
         kernel_error,
+        tf32_bwd_wrong_variants,
     )
 
     g = torch.Generator(device="cuda").manual_seed(4321)
@@ -1169,13 +1183,13 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
                 for n, t, r, f in zip(("dq", "dk", "dv"), (dq, dk, dv), refs, flips)}
         rejected = None
         if teeth:
-            # the rule's teeth: wrong backwards, each rounded to bf16 as the
-            # kernels round their outputs, must fail it
+            # the rule's teeth: wrong backwards, each in the kernels' output
+            # dtype, must fail it
+            wrong_fn = attention_bwd_wrong_variants if rounded else tf32_bwd_wrong_variants
             rejected = {
                 name: max(grad_error(w, r, f)["worst_over_limit"]
                           for w, r, f in zip(wrong, refs, flips))
-                for name, wrong in attention_bwd_wrong_variants(
-                    q, k, v, out, do, lse, scale, causal).items()}
+                for name, wrong in wrong_fn(q, k, v, out, do, lse, scale, causal).items()}
         del refs, flips
         torch.cuda.empty_cache()
         fwd_lse_ms = _device_ms(lambda: _launch_fwd(q, k, v, scale, causal, with_lse=True),
@@ -1211,11 +1225,13 @@ def bwd_case(B, Sq, H, D, Skv, causal, dtype, launches, teeth):
         rows.append(row)
         print(json.dumps(row), flush=True)
     if rejected is not None:
-        print(json.dumps({"grad_rule_teeth": "wrong bf16 backwards against "
-                          "attention_bwd_rounded", "shape": [B, Sq, H, D], "skv": Skv,
-                          "dtype": dname, "worst_over_limit": rejected}), flush=True)
+        what = ("wrong bf16 backwards against attention_bwd_rounded" if rounded else
+                "fp32 backwards whose products are not fp32-accurate against flash_bwd_plain")
+        print(json.dumps({"grad_rule_teeth": what, "shape": [B, Sq, H, D], "skv": Skv,
+                          "dtype": dname, "causal": causal, "worst_over_limit": rejected}),
+              flush=True)
         if not min(rejected.values()) > 1.0:
-            raise AssertionError(f"the bf16 gradient rule accepts a wrong backward: {rejected}")
+            raise AssertionError(f"the {dname} gradient rule accepts a wrong backward: {rejected}")
     bad = [r for r in rows if not (r["worst_over_limit"] <= 1.0 and r["lse_worst_over_limit"] <= 1.0)]
     if bad:
         raise AssertionError(f"backward kernels outside the rule: {bad}")
@@ -5332,7 +5348,9 @@ _TF32_PRODUCTS = dict(ptx=("wgmma.mma_async", ".tf32"), sass=("HGMMA", "TF32"))
 HOPPER_KERNELS = {
     "flash_fwd": {FWD_BF16_KERNEL: _BF16_PRODUCTS, FWD_TF32_KERNEL: _TF32_PRODUCTS},
     "flash_bwd": {"flash_bwd_dq_wgmma_kernel": _BF16_PRODUCTS,
-                  "flash_bwd_dkv_wgmma_kernel": _BF16_PRODUCTS},
+                  "flash_bwd_dkv_wgmma_kernel": _BF16_PRODUCTS,
+                  "flash_bwd_dq_tf32_kernel": _TF32_PRODUCTS,
+                  "flash_bwd_dkv_tf32_kernel": _TF32_PRODUCTS},
     "flash_stream": {STREAM_TF32_KERNEL: _TF32_PRODUCTS},
 }
 
@@ -5454,7 +5472,7 @@ def main() -> int:
         serialized = [ln for ln in log.splitlines()
                       if "wgmma.mma_async instructions are serialized" in ln]
         print(json.dumps({"wgmma_serialized": source, "notices": len(serialized)}), flush=True)
-        if source in ("flash_fwd", "flash_stream") and serialized:
+        if serialized:
             raise AssertionError(f"ptxas serialized {source}'s wgmma: {serialized}")
     _check_hopper_isa(_build, ptx_jobs)
     if set(_build.SOURCES) - set(_build.BUILD_LOGS):

@@ -1,6 +1,5 @@
-// Shared helpers of the attention kernels: 8-element fp32 vector loads and
-// the fp32 tile staging of the scalar kernels, cp.async, bf16 packing and
-// exp2.  The Hopper pieces of the bf16 kernels are in hopper.cuh.
+// Shared helpers of the attention kernels: cp.async, bf16 packing and exp2.
+// The Hopper pieces of the kernels are in hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,39 +10,6 @@ namespace sdt {
 // Masked logits use -1e30, not -inf, so that no row yields NaN
 // (stablediffusion_tpu/ops/flash_attention.py:64).
 constexpr float kNegInf = -1e30f;
-
-// Load 8 consecutive fp32 elements at p (16-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-// Stage `rows` rows of `d` elements (row stride `ld_g` elements in global
-// memory) into fp32 shared memory with row stride `ld_s`, times `mul`.
-// Rows at or past `valid` are zero-filled: this is the ragged-end mask that
-// replaces the TPU wrapper's zero padding.
-__device__ __forceinline__ void stage_rows(float* dst, int ld_s, const float* src,
-                                           long long ld_g, int rows, int valid,
-                                           int d, float mul) {
-  const int chunks = d / 8;
-  for (int c = threadIdx.x; c < rows * chunks; c += blockDim.x) {
-    const int r = c / chunks;
-    const int d8 = (c - r * chunks) * 8;
-    float tmp[8];
-    if (r < valid) {
-      load8(src + r * ld_g + d8, tmp);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tmp[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[r * ld_s + d8 + i] = tmp[i] * mul;
-  }
-}
 
 __device__ __forceinline__ unsigned smem_u32(const void* ptr) {
   return static_cast<unsigned>(__cvta_generic_to_shared(ptr));

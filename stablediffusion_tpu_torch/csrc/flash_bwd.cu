@@ -1,15 +1,17 @@
 // flash_bwd: the attention backward.  Given q, k, v, the output gradient dO,
 // the forward's log-sum-exp `lse` [B, H, Sq] and di = rowsum(O * dO) [B, H, Sq]
 // (both fp32), it computes dQ, dK and dV of softmax(q k^T * scale) v, for head
-// dims that are multiples of 8 up to 160, in bf16 (Hopper tensor cores:
-// TMA-fed wgmma) or fp32 (scalar FMAs), with fp32 accumulation.  Two
+// dims that are multiples of 8 up to 160, in bf16 or fp32 (3xTF32), on
+// Hopper's tensor cores (TMA-fed wgmma), with fp32 accumulation.  Two
 // kernels, neither with atomics, so results are deterministic run to run:
 //
-//   flash_bwd_dkv  one block per key tile of one (batch, head): keeps fp32 dK
-//                  and dV of its keys and loops over the query tiles.
+//   flash_bwd_dkv  one block per key tile of one (batch, head) (in fp32, and
+//                  64-column slice of the head dims): keeps fp32 dK and dV of
+//                  its keys and loops over the query tiles.
 //   flash_bwd_dq   one block per query tile of one (batch, head) (in bf16,
-//                  where tiles are short, a persistent block takes several):
-//                  keeps fp32 dQ of its rows and loops over the key tiles.
+//                  where tiles are short, a persistent block takes several;
+//                  in fp32, and 64-column slice of the head dims): keeps fp32
+//                  dQ of its rows and loops over the key tiles.
 //
 // Both recompute, for each (query tile, key tile) pair,
 //   s  = q k^T,           p = exp(scale * s - lse),
@@ -132,15 +134,61 @@
 // cut by the diagonal, and a block whose query loop is empty (causal, keys
 // past Sq), which still waits for its K and V copies before it exits.
 //
-// fp32: exact fp32 cannot use the bf16 tensor cores, so fp32 keeps the
-// scalar kernels: the scale is folded into the staged q, which gives both
-// s and scale * ds^T q (dQ takes it at the end); p and ds stay fp32 and go
-// through shared memory; registers blocked 4 rows x BK/8 keys per thread for
-// the scores and 4 rows (or keys) x D/lanes columns for the accumulators.
-// Tiles: 64 query rows; 64 keys up to D = 80 and 32 above, so that the fp32
-// tiles fit shared memory at D = 160 (dkv: K, V [32][161], Q, dO [64][161],
-// P, dS [64][33]: 141 KB).  On the main path fp32 serves only the card's
-// fp32 tests and the narrow train reference.  128 threads a block.
+// fp32 (flash_bwd_dkv_tf32_kernel<NA>, flash_bwd_dq_tf32_kernel<NA>): the
+// paths run it on the SDXL trainer's and its textual inversion's two text
+// towers (CLIP-L and bigG, causal over 77 tokens) and on the narrow fp32
+// train reference's UNet.  At those shapes a grid of 48-80 blocks leaves
+// most of the 132 SMs idle and the time is each block's chain of products,
+// which 3xTF32 on the tensor cores shortens.  The pieces are the fp32
+// forward's (hopper.cuh's 3xTF32 section: TF32 wgmma m64n64k8, A split in
+// registers, B split in shared memory, hi*hi + hi*lo + lo*hi):
+//   * No transposed TF32 operand: every B is K-major.  dq: s = Q K^T and
+//     dp = dO V^T with A = Q, dO (kept, read by ldmatrix) and B = K, V atoms
+//     [64 keys][32 head dims] split in place; dQ^T += K^T ds^T with A = k^T
+//     built in registers from a K chunk [64 keys][64 head dims]
+//     (vt_p_product, as the forward's v^T) and B = the ds tile [64 rows][64
+//     keys] (store_p_pair).  dkv: s^T = K Q^T and dp^T = V dO^T with A = K,
+//     V (kept) and B = Q, dO atoms; dV^T += dO^T p^T and dK^T += Q^T ds^T
+//     with A built from dO and Q chunks and B = the p^T or ds^T tile [64
+//     keys][64 query rows].  K and Q are thus read twice (an atom for B, a
+//     chunk for A), from L2.
+//   * Blocks: 64 rows (dq: query rows; dkv: keys) and one 64-column m-tile
+//     of the gradient (grid z), 384 threads.  dq: two consumer warpgroups
+//     take the key tiles in turn, each with its own ring, ds tile and sum,
+//     added at the end in a fixed order (warpgroup 0's first) through shared
+//     memory.  dkv: over every query tile warpgroup 0 computes s^T and
+//     p^T, writes p^T to its tile and accumulates dV; warpgroup 1 computes
+//     dp^T, reads p^T from that tile (hi + lo: p to 2^-22) for ds^T and
+//     accumulates dK, two named barriers a tile handing the tile over; each
+//     has its own ring (Q's atoms and dO's chunk, dO's atoms and Q's
+//     chunk), so the two chains are about as long.  Warps 8 and 9 (one
+//     thread each) feed the two rings (setmaxnreg 24 / 240; consumers wait by mbar_wait_spin, the
+//     producers with the time limit).  Two m-tiles of a gradient with s, dp
+//     and the part accumulators would not fit a consumer's registers (three
+//     m-tiles of the forward's o^T spilled), so at D > 64 each block of a
+//     tile recomputes s and dp for its m-tile.
+//   * Sums.  The tensor core's fp32 adds truncate.  s adds its k-steps in
+//     one accumulator, as the forward's s (the same rounding, so p agrees
+//     with the forward's lse).  dp adds each k-step's three products in an
+//     accumulator of its own, added by the FPU: dp - di cancels, and dp in
+//     one accumulator moved the narrow fp32 train step's LoRA gradients by
+//     4.4e-3 of their largest element, over its 1e-3 rule
+//     (utils/tf32_accumulation on the CPU; PERF.md).  The gradients add each
+//     tile's products (k-step order) in an accumulator of their own, added
+//     by the FPU: two-level sums over the tiles.
+//   * Softmax in registers: p = exp2(s * scale * log2(e) - lse * log2(e)),
+//     ds = p (dp - di), the scale applied to dK and dQ at the store; query
+//     rows past Sq, keys past Skv and past the diagonal masked behind one
+//     tile-uniform branch.  dq reads its rows' lse and di once; dkv stages
+//     a query tile's lse (warpgroup 0) and di (1) in shared memory, loaded
+//     under the products.
+//   * Copies: TMA with 4-D fp32 maps (D, H, S, B) over the tensors' own
+//     strides, 128-byte swizzle, 64 rows a box; the zero fill takes rows
+//     past Sq and Skv and columns past D.  Rings of 16 KiB stages (4, 3 or 2
+//     a warpgroup: NA = 2, 4, 5 atoms of a kept tensor; 226, 226 and 210
+//     KiB of shared memory), full and empty mbarriers.
+// The fp32 wrappers copy a view no TMA map can read (stride 0) before
+// FlashAttnFn's launches; the kernel entries refuse it (ops/attention).
 //
 // The largest dynamic shared memory of each instantiation is set once, at
 // its first launch.
@@ -148,9 +196,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;       // query rows per tile (fp32)
-constexpr int kThreads = 128;
 
 struct BwdParams {
   const void* q;
@@ -173,325 +218,6 @@ struct BwdParams {
   float scale;
   int causal;
 };
-
-// ---------------------------------------------------------------------------
-// fp32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kRows = 4;      // query rows per thread in the score tile
-
-__host__ __device__ constexpr int key_tile(int maxd) { return maxd <= 80 ? 64 : 32; }
-
-// p and ds of one (query tile at q0, key tile at k0) pair for the entries
-// this thread owns: rows rg*4 + i, keys cl + 8*j.  Qs holds scale * q; rows of
-// Qs/dOs past Sq and rows of Ks/Vs past Skv are zero.
-template <int BK>
-__device__ __forceinline__ void score_tile(
-    const BwdParams& p, const float* Qs, const float* dOs, const float* Ks,
-    const float* Vs, int ld, const float* lse_s, const float* di_s, int q0,
-    int k0, float (&P)[kRows][BK / 8], float (&dS)[kRows][BK / 8]) {
-  constexpr int kCols = BK / 8;
-  const int rg = threadIdx.x >> 3;
-  const int cl = threadIdx.x & 7;
-  float s[kRows][kCols], dp[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = dp[i][j] = 0.f;
-
-  for (int d = 0; d < p.D; ++d) {
-    float qv[kRows], ov[kRows], kv[kCols], vv[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      qv[i] = Qs[(rg * kRows + i) * ld + d];
-      ov[i] = dOs[(rg * kRows + i) * ld + d];
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      kv[j] = Ks[(cl + 8 * j) * ld + d];
-      vv[j] = Vs[(cl + 8 * j) * ld + d];
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = rg * kRows + i;
-    const int qi = q0 + r;
-    const float l = lse_s[r];
-    const float dd = di_s[r];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int kj = k0 + cl + 8 * j;
-      const bool keep = qi < p.Sq && kj < p.Skv && !(p.causal && kj > qi);
-      const float e = keep ? __expf(s[i][j] - l) : 0.f;
-      P[i][j] = e;
-      dS[i][j] = e * (dp[i][j] - dd);
-    }
-  }
-}
-
-// lse and di of query rows q0 .. q0 + kBQ - 1 into shared memory; rows past
-// Sq are zero and never read their global values.
-__device__ __forceinline__ void stage_row_stats(float* lse_s, float* di_s,
-                                                const float* lse_g,
-                                                const float* di_g, int valid) {
-  for (int r = threadIdx.x; r < kBQ; r += blockDim.x) {
-    lse_s[r] = r < valid ? lse_g[r] : 0.f;
-    di_s[r] = r < valid ? di_g[r] : 0.f;
-  }
-}
-
-template <int MAXD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int BK = key_tile(MAXD);
-  constexpr int kCols = BK / 8;
-  constexpr int kLanes = kThreads / (BK / 4);  // threads that share 4 keys
-  constexpr int kDPT = (MAXD + kLanes - 1) / kLanes;
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;  // odd row stride: conflict-free column reads
-  float* Ks = smem;
-  float* Vs = Ks + BK * ld;
-  float* Qs = Vs + BK * ld;
-  float* dOs = Qs + kBQ * ld;
-  float* Ps = dOs + kBQ * ld;     // [kBQ][BK + 1]
-  float* dSs = Ps + kBQ * (BK + 1);  // [kBQ][BK + 1]
-  float* lse_s = dSs + kBQ * (BK + 1);
-  float* di_s = lse_s + kBQ;
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int k0 = blockIdx.x * BK;
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* dog = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* lse_g = p.lse + static_cast<long long>(blockIdx.y) * p.Sq;
-  const float* di_g = p.di + static_cast<long long>(blockIdx.y) * p.Sq;
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cl = tid & 7;
-  const int kg = tid / kLanes;  // keys kg*4 .. kg*4+3 of the tile
-  const int ln = tid - kg * kLanes;
-
-  const int kvalid = min(BK, p.Skv - k0);
-  sdt::stage_rows(Ks, ld,
-                  static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh +
-                      static_cast<long long>(k0) * p.k_ss,
-                  p.k_ss, BK, kvalid, D, 1.f);
-  sdt::stage_rows(Vs, ld,
-                  static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh +
-                      static_cast<long long>(k0) * p.v_ss,
-                  p.v_ss, BK, kvalid, D, 1.f);
-
-  float dk[kRows][kDPT], dv[kRows][kDPT];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int jj = 0; jj < kDPT; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
-
-  // causal: query rows below k0 see no key of this tile
-  const int qt_first = p.causal ? k0 / kBQ : 0;
-  const int n_qt = (p.Sq + kBQ - 1) / kBQ;
-  for (int qt = qt_first; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    const int qvalid = min(kBQ, p.Sq - q0);
-    __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are no longer read
-    sdt::stage_rows(Qs, ld, qg + static_cast<long long>(q0) * p.q_ss, p.q_ss,
-                    kBQ, qvalid, D, p.scale);
-    sdt::stage_rows(dOs, ld, dog + static_cast<long long>(q0) * p.do_ss,
-                    p.do_ss, kBQ, qvalid, D, 1.f);
-    stage_row_stats(lse_s, di_s, lse_g + q0, di_g + q0, qvalid);
-    __syncthreads();
-
-    float P[kRows][kCols], dS[kRows][kCols];
-    score_tile<BK>(p, Qs, dOs, Ks, Vs, ld, lse_s, di_s, q0, k0, P, dS);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        Ps[(rg * kRows + i) * (BK + 1) + cl + 8 * j] = P[i][j];
-        dSs[(rg * kRows + i) * (BK + 1) + cl + 8 * j] = dS[i][j];
-      }
-    __syncthreads();
-
-    // dV += p^T dO, dK += ds^T (scale q) over the tile's valid rows
-    for (int c = 0; c < qvalid; ++c) {
-      float pv[kRows], sv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        pv[i] = Ps[c * (BK + 1) + kg * kRows + i];
-        sv[i] = dSs[c * (BK + 1) + kg * kRows + i];
-      }
-#pragma unroll
-      for (int jj = 0; jj < kDPT; ++jj) {
-        const int d = ln + kLanes * jj;
-        if (d < D) {
-          const float o = dOs[c * ld + d];
-          const float qq = Qs[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            dv[i][jj] = fmaf(pv[i], o, dv[i][jj]);
-            dk[i][jj] = fmaf(sv[i], qq, dk[i][jj]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkg = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  float* dvg = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int key = k0 + kg * kRows + i;
-    if (key < p.Skv) {
-#pragma unroll
-      for (int jj = 0; jj < kDPT; ++jj) {
-        const int d = ln + kLanes * jj;
-        if (d < D) {
-          sdt::store1(dkg + static_cast<long long>(key) * p.dk_ss + d, dk[i][jj]);
-          sdt::store1(dvg + static_cast<long long>(key) * p.dv_ss + d, dv[i][jj]);
-        }
-      }
-    }
-  }
-}
-
-template <int MAXD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int BK = key_tile(MAXD);
-  constexpr int kCols = BK / 8;
-  constexpr int kDPT = MAXD / 8;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  const int D = p.D;
-  const int ld = D + 1;
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * ld;
-  float* Ks = dOs + kBQ * ld;
-  float* Vs = Ks + BK * ld;
-  float* dSs = Vs + BK * ld;  // [kBQ][BK + 1]
-  float* lse_s = dSs + kBQ * (BK + 1);
-  float* di_s = lse_s + kBQ;
-
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y - b * p.H;
-  const int q0 = blockIdx.x * kBQ;
-  const int qvalid = min(kBQ, p.Sq - q0);
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 3;
-  const int cl = tid & 7;
-
-  sdt::stage_rows(Qs, ld,
-                  static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
-                      static_cast<long long>(q0) * p.q_ss,
-                  p.q_ss, kBQ, qvalid, D, p.scale);
-  sdt::stage_rows(dOs, ld,
-                  static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh +
-                      static_cast<long long>(q0) * p.do_ss,
-                  p.do_ss, kBQ, qvalid, D, 1.f);
-  const long long row0 = static_cast<long long>(blockIdx.y) * p.Sq + q0;
-  stage_row_stats(lse_s, di_s, p.lse + row0, p.di + row0, qvalid);
-
-  float acc[kRows][kDPT];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int jj = 0; jj < kDPT; ++jj) acc[i][jj] = 0.f;
-
-  int n_tiles = (p.Skv + BK - 1) / BK;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / BK + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    const int kvalid = min(BK, p.Skv - k0);
-    __syncthreads();  // the previous tile's Ks/Vs/dSs are no longer read
-    sdt::stage_rows(Ks, ld, kg + static_cast<long long>(k0) * p.k_ss, p.k_ss,
-                    BK, kvalid, D, 1.f);
-    sdt::stage_rows(Vs, ld, vg + static_cast<long long>(k0) * p.v_ss, p.v_ss,
-                    BK, kvalid, D, 1.f);
-    __syncthreads();
-
-    float P[kRows][kCols], dS[kRows][kCols];
-    score_tile<BK>(p, Qs, dOs, Ks, Vs, ld, lse_s, di_s, q0, k0, P, dS);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        dSs[(rg * kRows + i) * (BK + 1) + cl + 8 * j] = dS[i][j];
-    __syncthreads();
-
-    // dQ += ds k over the tile's valid keys (scale applied at the end)
-    for (int c = 0; c < kvalid; ++c) {
-      float sv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) sv[i] = dSs[(rg * kRows + i) * (BK + 1) + c];
-#pragma unroll
-      for (int jj = 0; jj < kDPT; ++jj) {
-        const int d = cl + 8 * jj;
-        if (d < D) {
-          const float kk = Ks[c * ld + d];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][jj] = fmaf(sv[i], kk, acc[i][jj]);
-        }
-      }
-    }
-  }
-
-  float* dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh +
-           static_cast<long long>(q0) * p.dq_ss;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = rg * kRows + i;
-    if (r < qvalid) {
-#pragma unroll
-      for (int jj = 0; jj < kDPT; ++jj) {
-        const int d = cl + 8 * jj;
-        if (d < D) sdt::store1(dqg + static_cast<long long>(r) * p.dq_ss + d, acc[i][jj] * p.scale);
-      }
-    }
-  }
-}
-
-template <int MAXD, bool kDKV>
-cudaError_t launch_f32(const BwdParams& p, cudaStream_t stream) {
-  constexpr int BK = key_tile(MAXD);
-  // both kernels: Q, dO [kBQ][D+1], K, V [BK][D+1], lse and di [kBQ]; dkv
-  // stages P and dS [kBQ][BK+1], dq only dS
-  auto smem_bytes = [](int d) {
-    return sizeof(float) * (2 * (kBQ + BK) * (d + 1) + (kDKV ? 2 : 1) * kBQ * (BK + 1) + 2 * kBQ);
-  };
-  void (*kernel)(const BwdParams) =
-      kDKV ? flash_bwd_dkv_kernel<MAXD> : flash_bwd_dq_kernel<MAXD>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes(MAXD)));
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid(kDKV ? (p.Skv + BK - 1) / BK : (p.Sq + kBQ - 1) / kBQ, p.B * p.H);
-  kernel<<<grid, kThreads, smem_bytes(p.D), stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <bool kDKV>
-cudaError_t dispatch_f32(const BwdParams& p, cudaStream_t stream) {
-  // the forward's buckets: exact for the main path's 40/80/160
-  if (p.D <= 16) return launch_f32<16, kDKV>(p, stream);
-  if (p.D <= 32) return launch_f32<32, kDKV>(p, stream);
-  if (p.D <= 40) return launch_f32<40, kDKV>(p, stream);
-  if (p.D <= 64) return launch_f32<64, kDKV>(p, stream);
-  if (p.D <= 80) return launch_f32<80, kDKV>(p, stream);
-  if (p.D <= 96) return launch_f32<96, kDKV>(p, stream);
-  if (p.D <= 128) return launch_f32<128, kDKV>(p, stream);
-  return launch_f32<160, kDKV>(p, stream);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised, TMA-fed wgmma (sm_90a)
@@ -1155,6 +881,565 @@ cudaError_t dispatch_bf16(const BwdParams& p, cudaStream_t stream) {
     case 9: return launch_bf16<kDKV, 144>(p, stream);
     default: return launch_bf16<kDKV, 160>(p, stream);
   }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 wgmma fed by TMA (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kTfTileBytes = 4 * kTfAtomBytes;  // a B tile [64][64], hi then lo
+constexpr int kTfTileLo = 2 * kTfAtomBytes;     // its lo part past its hi part
+constexpr int kTfBwdStatBytes = 2 * kTfRows * 4;  // dkv's lse (warpgroup 0) and di (1)
+constexpr int tf_bwd_bytes(int na, int stages) {
+  return 2 * na * kTfAtomBytes + 2 * kTfTileBytes + 2 * stages * kTfStageBytes +
+         kTfBwdStatBytes + 8 * (1 + 4 * stages) + 1024;  // + alignment slack
+}
+constexpr int tf_bwd_stages(int na) {
+  return tf_bwd_bytes(na, 4) <= kSmemLimit ? 4 : tf_bwd_bytes(na, 3) <= kSmemLimit ? 3 : 2;
+}
+
+// Shared memory of one block of the fp32 kernels <NA> (NA: the head-dim
+// bucket's atoms, D <= 32 NA), in bytes from a 1024-byte aligned base: the
+// two tensors a block keeps (dq: Q and dO; dkv: K and V; NA atoms each, as
+// TMA wrote them: the A of s and dp, read by ldmatrix), one B tile a
+// consumer warpgroup (dq: its ds; dkv: p^T (warpgroup 0) or ds^T (1); hi
+// then lo, two atoms [64 rows][32 columns] each), each warpgroup's ring of
+// 16 KiB stages (an atom split in place, its lo 8 KiB above, or a chunk
+// [64 rows][64 head dims] as TMA wrote it), dkv's row statistics of a
+// query tile (warpgroup 0's lse in the log2 domain, warpgroup 1's di), the
+// mbarriers (kept_full, then the full and the empty barrier of every
+// stage).  As many stages as fit, up to 4 a warpgroup.
+template <int NA>
+struct TfBwdLayout {
+  static constexpr int kStages = tf_bwd_stages(NA);  // a warpgroup's
+  static constexpr int kKept = 0;  // tensor t's atom a at kKept + (t NA + a) kTfAtomBytes
+  static constexpr int kTile = 2 * NA * kTfAtomBytes;  // warpgroup w's at kTile + w kTfTileBytes
+  static constexpr int kRing = kTile + 2 * kTfTileBytes;  // warpgroup w's stages from kRing + w S
+  static constexpr int kStats = kRing + 2 * kStages * kTfStageBytes;
+  static constexpr int kBar = kStats + kTfBwdStatBytes;
+  static constexpr int kBytes = tf_bwd_bytes(NA, kStages);
+  static_assert(kBar + 8 * (1 + 4 * kStages) + 1024 == kBytes, "layout");
+  static_assert(kBytes <= kSmemLimit, "shared memory of one block");
+  // dq's warpgroups exchange half of dQ^T through their own rings
+  static_assert(4 * 128 * 16 <= kStages * kTfStageBytes, "merge buffer");
+};
+
+// What the two fp32 kernels share: a block's barriers and ring, its
+// producer warps, and the products of one consumer warpgroup.
+template <int NA>
+struct TfBwdBlock {
+  using L = TfBwdLayout<NA>;
+  static constexpr int S = L::kStages;
+  uint32_t base;          // shared address of the aligned base
+  unsigned char* gbase;   // generic pointer to it
+
+  __device__ __forceinline__ uint32_t kept_full() const { return base + L::kBar; }
+  // stage s of warpgroup w's ring: its barriers and its chunk c's stage
+  __device__ __forceinline__ uint32_t full(int w, int s) const {
+    return base + L::kBar + 8u * (1 + w * S + s);
+  }
+  __device__ __forceinline__ uint32_t empty(int w, int s) const {
+    return base + L::kBar + 8u * (1 + 2 * S + w * S + s);
+  }
+  __device__ __forceinline__ int stage_off(int w, int c) const {
+    return L::kRing + (w * S + c % S) * kTfStageBytes;
+  }
+
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      mbar_init(kept_full(), 1);
+      for (int s = 0; s < 2 * S; ++s) {
+        mbar_init(base + L::kBar + 8u * (1 + s), 1);
+        mbar_init(base + L::kBar + 8u * (1 + 2 * S + s), 4);  // the 4 warps of the warpgroup
+      }
+      init_fence();
+    }
+    __syncthreads();
+  }
+
+  // The producer thread of warpgroup w's ring: `total` chunks, chunk c of
+  // them once the 4 warps of the warpgroup have released chunk c - S, each
+  // issued by `issue(c, dst, full barrier)`; then the wait for the release of
+  // the last ones (these waits trap after kWaitLimitClocks and the
+  // consumers' do not, so a copy that never lands traps here).
+  template <class Issue>
+  __device__ __forceinline__ void feed(int w, int total, Issue issue) const {
+    for (int c = 0; c < total; ++c) {
+      const int s = c % S;
+      if (c >= S) mbar_wait(empty(w, s), ((c / S) & 1) ^ 1);
+      issue(c, base + stage_off(w, c), full(w, s));
+    }
+    for (int c = max(total - S, 0); c < total; ++c) mbar_wait(empty(w, c % S), (c / S) & 1);
+  }
+
+  // the kept tensors: `na` atoms each of rows r0 of two maps
+  __device__ __forceinline__ void load_kept(const CUtensorMap* m0, const CUtensorMap* m1, int na,
+                                            int h, int r0, int b) const {
+    mbar_expect_tx(kept_full(), 2 * na * kTfAtomBytes);
+    for (int a = 0; a < na; ++a) {
+      tma_load(base + L::kKept + a * kTfAtomBytes, m0, kept_full(), a * kF32AtomCols, h, r0, b);
+      tma_load(base + L::kKept + (NA + a) * kTfAtomBytes, m1, kept_full(), a * kF32AtomCols, h,
+               r0, b);
+    }
+  }
+
+  // this warp of warpgroup wg is done with chunk c: once all 4 warps of the
+  // warpgroup are, the producer refills the stage
+  __device__ __forceinline__ void release(int wg, int c) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(wg, c % S));
+  }
+
+  // wait for atom chunk c of warpgroup wg and split it (hi in place, lo 8 KiB
+  // above), fenced for wgmma's reads
+  __device__ __forceinline__ void convert(int wg, int c) const {
+    mbar_wait_spin(full(wg, c % S), (c / S) & 1);
+    split_atom_tf32(gbase + stage_off(wg, c), threadIdx.x & 127);
+    fence_proxy_async();
+    named_bar_sync(2 + wg, 128);
+  }
+
+  // acc = a b^T over the head dims (3xTF32, each k-step's products in
+  // the order hi*hi, hi*lo, lo*hi) for warpgroup wg: A = its 64 rows of a
+  // kept tensor (`a_row`: this lane's ldmatrix row of its first atom), B =
+  // the `na` atoms chunks c0 .. c0 + na - 1 of the ring, each split under
+  // the previous atom's products and released once its products are done;
+  // k-steps past D are skipped.  kFlush = false: one accumulator over the
+  // head dims, as the forward's s (so s has the forward's rounding).  kFlush
+  // = true (dp): each k-step's products in an accumulator of their own
+  // (part), added into acc by the FPU.  The tensor core's adds truncate,
+  // and dp - di cancels: with one accumulator the narrow fp32 train step's
+  // gradients would miss their rule (PERF.md, utils/tf32_accumulation).
+  // (Two part buffers in turn, one k-step's products running while the FPU
+  // adds the other's, made ptxas serialize every wgmma of the kernel:
+  // C7514.)
+  template <bool kFlush>
+  __device__ __forceinline__ void headdim_product(int wg, float (&acc)[32], float (&part)[32],
+                                                  uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+                                                  uint32_t a_row, int c0, int na, int D) const {
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+    convert(wg, c0);
+    for (int x = 0; x < na; ++x) {
+      const uint32_t b_atom = base + stage_off(wg, c0 + x);
+      const int steps = min(4, (D - x * kF32AtomCols) / 8);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < steps) {
+          if constexpr (kFlush) {
+            qk_kstep(part, ah[kk & 1], al[kk & 1], a_row + x * kTfAtomBytes, b_atom, kk, 0);
+            wgmma_wait<0>();
+            reg_fence(part);
+#pragma unroll
+            for (int r = 0; r < 32; ++r) acc[r] += part[r];
+          } else {
+            qk_kstep(acc, ah[kk & 1], al[kk & 1], a_row + x * kTfAtomBytes, b_atom, kk,
+                     x > 0 || kk > 0);
+          }
+        }
+        if (kk == 0 && x > 0) release(wg, c0 + x - 1);  // its products are done
+        if (kk == 0 && x + 1 < na) convert(wg, c0 + x + 1);
+      }
+    }
+    if constexpr (!kFlush) {
+      wgmma_wait<0>();
+      reg_fence(acc);
+    }
+    release(wg, c0 + na - 1);
+  }
+
+  // acc += a^T b over the 64 rows of a tile (dq: keys; dkv: query rows) for
+  // one m-tile of the gradient: A = a^T built in registers from chunk cv
+  // (raw [64 rows][64 head dims], split; vt_p_product), B = warpgroup wg's
+  // B tile (its rows the gradient's columns, K-major).  The tile's products
+  // in k-step order go to an accumulator of their own (part), added into
+  // acc by the FPU: the tensor core's adds truncate, a bias that grows with
+  // the adds (PERF.md: the order was chosen with utils/tf32_accumulation).
+  // The chunk is released once its A is built.
+  __device__ __forceinline__ void grad_product(int wg, float (&acc)[32], float (&part)[32],
+                                               uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+                                               int cv) const {
+    mbar_wait_spin(full(wg, cv % S), (cv / S) & 1);
+    const float* chunk = reinterpret_cast<const float*>(gbase + stage_off(wg, cv));
+#pragma unroll
+    for (int r = 0; r < 32; ++r) part[r] = 0.f;
+    vt_p_product<8, false>(part, ah, al, chunk, base + L::kTile + wg * kTfTileBytes, kTfTileLo,
+                           0);
+    release(wg, cv);
+    wgmma_wait<0>();
+    reg_fence(part);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] += part[r];
+  }
+
+  // x (an m64n64 accumulator: row 16 w4 + g (+8), columns 8 j + 2 t4 (+1))
+  // into warpgroup wg's B tile, split (store_p_pair), fenced for wgmma and
+  // the warpgroup synced
+  __device__ __forceinline__ void store_tile(int wg, const float (&x)[32]) const {
+    unsigned char* const tile = gbase + L::kTile + wg * kTfTileBytes;
+    const int row0 = 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      store_p_pair(tile, kTfTileLo, row0 + 8 * ((i >> 1) & 1), i >> 2, x[i], x[i + 1]);
+    fence_proxy_async();
+    named_bar_sync(2 + wg, 128);
+  }
+};
+
+// Named barriers of a dkv block's two consumer warpgroups (1 is the 256
+// consumers', 2 and 3 each warpgroup's own): warpgroup 0 has written a
+// query tile's p^T (kPReady), warpgroup 1 has read it (kPFree).
+constexpr int kPReady = 4;
+constexpr int kPFree = 5;
+
+// One consumer warpgroup of a dkv block, for the block's 64 keys at k0 and
+// head dims 64 mi .. + 63.  Per query tile (64 rows at q0): DK = false
+// (warpgroup 0), s^T = K Q^T, p^T = exp(scale s^T - lse) in registers,
+// masked (query rows past Sq, keys past Skv and past the diagonal), into its
+// B tile, then dV^T += dO^T p^T.  DK = true (warpgroup 1), dp^T = V dO^T,
+// then ds^T = p^T (dp^T - di) with p^T read from warpgroup 0's tile (0
+// where it is masked), into its B tile, then dK^T += Q^T ds^T.  So s^T is
+// computed once and the two warpgroups' chains are about as long: dp^T's
+// flushed sums against s^T and the softmax.  Returns the m-tile's sum over
+// the query tiles, dV^T or dK^T / scale: head dims 16 w4 + g (+8) x keys
+// 8 jn + 2 t4 (+1).
+template <int NA, bool DK>
+__device__ __forceinline__ void dkv_tf32_consume(const TfBwdBlock<NA>& blk, const BwdParams& p,
+                                                 int k0, int qt_first, int n,
+                                                 float (&acc)[32]) {
+  using L = TfBwdLayout<NA>;
+  constexpr int wg = DK ? 1 : 0;
+  const int lane = threadIdx.x & 31;
+  const int w4 = (threadIdx.x >> 5) & 3;
+  const int t4 = lane & 3;
+  const int tid = threadIdx.x & 127;
+  const int row0 = 16 * w4 + (lane >> 2);  // this thread's first key of s^T, in the tile
+  const float sl2 = p.scale * kTfLog2e;
+  const int na = (p.D + kF32AtomCols - 1) / kF32AtomCols;
+  const int per = na + 1;  // ring chunks a query tile: na atoms and a chunk
+  // A: K's rows (s^T) or V's (dp^T)
+  const uint32_t a_row = q_ldmatrix_row(blk.base + L::kKept) + (DK ? NA * kTfAtomBytes : 0);
+  float* const stats = reinterpret_cast<float*>(blk.gbase + L::kStats) + wg * kTfRows;
+  const float* const row_g =
+      (DK ? p.di : p.lse) + static_cast<long long>(blockIdx.y) * p.Sq;
+  const unsigned char* const p_tile = blk.gbase + L::kTile;  // warpgroup 0's
+
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+  // s^T (warpgroup 0) or ds^T (1) and the product's part: registers of
+  // their own (ptxas serializes every wgmma of a kernel whose accumulators
+  // share them)
+  float s[32], part[32];
+  uint32_t ah[2][4], al[2][4];
+  mbar_wait_spin(blk.kept_full(), 0);
+  for (int t = 0, c = 0; t < n; ++t, c += per) {
+    const int q0 = (qt_first + t) * kTfRows;
+    // the tile's lse (log2 domain) or di of query row q0 + tid (tid < 64),
+    // loaded under the products and staged after them
+    const int qr = q0 + tid;
+    float stat = 0.f;
+    if (tid < kTfRows && qr < p.Sq) stat = DK ? row_g[qr] : row_g[qr] * kTfLog2e;
+    if constexpr (DK) {
+      float dp[32];
+      blk.template headdim_product<true>(wg, dp, part, ah, al, a_row, c, na, p.D);
+      if (tid < kTfRows) stats[tid] = stat;
+      named_bar_sync(kPReady, 256);  // warpgroup 0's p^T of this tile, and the stats
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        float p0, p1;
+        load_p_pair(p_tile, kTfTileLo, row0 + 8 * ((i >> 1) & 1), i >> 2, p0, p1);
+        const float2 d2 = *reinterpret_cast<const float2*>(stats + 8 * (i >> 2) + 2 * t4);
+        s[i] = p0 * (dp[i] - d2.x);
+        s[i + 1] = p1 * (dp[i + 1] - d2.y);
+      }
+      if (t + 1 < n) named_bar_arrive(kPFree, 256);  // warpgroup 0 may write the next
+    } else {
+      blk.template headdim_product<false>(wg, s, part, ah, al, a_row, c, na, p.D);
+      if (tid < kTfRows) stats[tid] = stat;
+      named_bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        const float2 l2 = *reinterpret_cast<const float2*>(stats + 8 * jn + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          s[i] = exp2_approx(fmaf(s[i], sl2, -((e & 1) ? l2.y : l2.x)));
+        }
+      }
+      // the mask, behind one tile-uniform branch (most tiles mask nothing)
+      if (q0 + kTfRows > p.Sq || k0 + kTfRows > p.Skv || (p.causal && k0 + kTfRows - 1 > q0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int query = q0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          const int key = k0 + row0 + 8 * ((i >> 1) & 1);
+          if (query >= p.Sq || key >= p.Skv || (p.causal && key > query)) s[i] = 0.f;
+        }
+      }
+      if (t > 0) named_bar_sync(kPFree, 256);  // warpgroup 1 has read the last tile's
+    }
+    blk.store_tile(wg, s);
+    if constexpr (!DK) named_bar_arrive(kPReady, 256);
+    // dV^T += dO^T p^T or dK^T += Q^T ds^T
+    blk.grad_product(wg, acc, part, ah, al, c + na);
+  }
+}
+
+// dK and dV of the 64 keys at 64 blockIdx.x of one (batch, head), head dims
+// 64 blockIdx.z .. + 63 (a block an m-tile: at D > 64 the blocks of a key
+// tile each recompute s^T and dp^T, since two m-tiles of a gradient with
+// s^T, dp^T and the parts would not fit a thread's registers), over the
+// query tiles that see them.  Warps 0-3 (warpgroup 0) accumulate dV, warps
+// 4-7 (warpgroup 1) dK (dkv_tf32_consume); warps 8 and 9 (one thread each)
+// feed their rings, warp 8 also the kept K and V.
+template <int NA>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  TfBwdBlock<NA> blk;
+  blk.base = (raw + 1023u) & ~1023u;
+  blk.gbase = smem_raw + (blk.base - raw);
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y - b * p.H;
+  const int k0 = blockIdx.x * kTfRows;
+  const int mi = blockIdx.z;
+  const int na = (p.D + kF32AtomCols - 1) / kF32AtomCols;
+  // causal: query rows below k0 see no key of this block
+  const int qt_first = p.causal ? k0 / kTfRows : 0;
+  const int n = max((p.Sq + kTfRows - 1) / kTfRows - qt_first, 0);
+  const int warp = threadIdx.x >> 5;
+  blk.init();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer: warp 8 + w (one thread) feeds warpgroup w, per query
+    // tile warpgroup 0 Q's na atoms and dO's chunk of m-tile mi, warpgroup
+    // 1 dO's na atoms and Q's chunk.  Warps 10 and 11 only give their
+    // registers back.
+    setmaxnreg_dec<kTfProducerRegs>();
+    const int w = warp - kConsumerWarps;
+    if (w < 2 && (threadIdx.x & 31) == 0) {
+      if (w == 0) {
+        tma_prefetch(&tq);
+        tma_prefetch(&tdo);
+        tma_prefetch(&tk);
+        tma_prefetch(&tv);
+        blk.load_kept(&tk, &tv, na, h, k0, b);
+      }
+      const CUtensorMap* const atoms = w == 0 ? &tq : &tdo;
+      const CUtensorMap* const chunks = w == 0 ? &tdo : &tq;
+      blk.feed(w, n * (na + 1), [&](int c, uint32_t dst, uint32_t bar) {
+        const int q0 = (qt_first + c / (na + 1)) * kTfRows;
+        const int x = c % (na + 1);
+        if (x < na) {
+          mbar_expect_tx(bar, kTfAtomBytes);
+          tma_load(dst, atoms, bar, x * kF32AtomCols, h, q0, b);
+        } else {
+          mbar_expect_tx(bar, kTfStageBytes);
+          tma_load(dst, chunks, bar, 2 * mi * kF32AtomCols, h, q0, b);
+          tma_load(dst + kTfAtomBytes, chunks, bar, (2 * mi + 1) * kF32AtomCols, h, q0, b);
+        }
+      });
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<kTfConsumerRegs>();
+  const int wg = warp >> 2;
+  float acc[32];
+  if (wg == 0)
+    dkv_tf32_consume<NA, false>(blk, p, k0, qt_first, n, acc);
+  else
+    dkv_tf32_consume<NA, true>(blk, p, k0, qt_first, n, acc);
+  // the transposed sum: keys < Skv, head dims < D; dK takes the scale
+  const int lane = threadIdx.x & 31;
+  const int w4 = warp & 3;
+  float* const out = wg == 0 ? static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh
+                             : static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  const long long ss = wg == 0 ? p.dv_ss : p.dk_ss;
+  const float mul = wg == 0 ? 1.f : p.scale;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * jn + 2 * (lane & 3) + (e & 1);
+      const int d = 64 * mi + 16 * w4 + (lane >> 2) + 8 * (e >> 1);
+      if (key < p.Skv && d < p.D) out[static_cast<long long>(key) * ss + d] = acc[4 * jn + e] * mul;
+    }
+}
+
+// dQ of the 64 query rows at 64 blockIdx.x of one (batch, head), head dims
+// 64 blockIdx.z .. + 63 (as dkv: a block an m-tile).  Warpgroups 0 and 1
+// take the key tiles in turn (w the tiles w, w + 2, ...), each with its own
+// ring, ds tile and sum; per key tile s = Q K^T and dp = dO V^T, ds = p (dp
+// - di) into its tile, dQ^T += K^T ds^T.  At the end they add their sums,
+// warpgroup 0's first, each storing half of the rows.  Warps 8 and 9 (one
+// thread each) feed the rings (per key tile K's na atoms, V's, K's chunk of
+// m-tile z), warp 8 also the kept Q and dO.
+template <int NA>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const BwdParams p) {
+  using L = TfBwdLayout<NA>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  TfBwdBlock<NA> blk;
+  blk.base = (raw + 1023u) & ~1023u;
+  blk.gbase = smem_raw + (blk.base - raw);
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y - b * p.H;
+  const int q0 = blockIdx.x * kTfRows;
+  const int mi = blockIdx.z;
+  const int na = (p.D + kF32AtomCols - 1) / kF32AtomCols;
+  const int per = 2 * na + 1;  // ring chunks a key tile
+  int n_tiles = (p.Skv + kTfKeys - 1) / kTfKeys;
+  if (p.causal) n_tiles = min(n_tiles, q0 / kTfKeys + 1);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  blk.init();
+
+  if (warp >= kConsumerWarps) {
+    setmaxnreg_dec<kTfProducerRegs>();
+    const int w = warp - kConsumerWarps;
+    if (w < 2 && lane == 0) {
+      if (w == 0) {
+        tma_prefetch(&tq);
+        tma_prefetch(&tdo);
+        tma_prefetch(&tk);
+        tma_prefetch(&tv);
+        blk.load_kept(&tq, &tdo, na, h, q0, b);
+      }
+      blk.feed(w, (n_tiles - w + 1) / 2 * per, [&](int c, uint32_t dst, uint32_t bar) {
+        const int k0 = (w + 2 * (c / per)) * kTfKeys;
+        const int x = c % per;
+        if (x < per - 1) {
+          mbar_expect_tx(bar, kTfAtomBytes);
+          tma_load(dst, x < na ? &tk : &tv, bar, (x % na) * kF32AtomCols, h, k0, b);
+        } else {
+          mbar_expect_tx(bar, kTfStageBytes);
+          tma_load(dst, &tk, bar, 2 * mi * kF32AtomCols, h, k0, b);
+          tma_load(dst + kTfAtomBytes, &tk, bar, (2 * mi + 1) * kF32AtomCols, h, k0, b);
+        }
+      });
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg; s and dp hold rows 16 w4 + g (+8) and keys
+  // 8 j + 2 t4 (+1), dQ^T head dims 16 w4 + g (+8) and rows 8 jn + 2 t4 (+1)
+  setmaxnreg_inc<kTfConsumerRegs>();
+  const int wg = warp >> 2;
+  const int w4 = warp & 3;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int tid = threadIdx.x & 127;
+  const int row0 = q0 + 16 * w4 + g;  // this thread's first query row of s
+  const float sl2 = p.scale * kTfLog2e;
+  const uint32_t q_row = q_ldmatrix_row(blk.base + L::kKept);
+  // lse (log2 domain) and di of rows row0 and row0 + 8; rows past Sq read
+  // nothing (their Q and dO rows are zero, so their ds is too)
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at = static_cast<long long>(blockIdx.y) * p.Sq + row0 + 8 * r;
+    lse2[r] = row0 + 8 * r < p.Sq ? p.lse[at] * kTfLog2e : 0.f;
+    dd[r] = row0 + 8 * r < p.Sq ? p.di[at] : 0.f;
+  }
+
+  float acc[32];  // dQ^T / scale over this warpgroup's key tiles
+#pragma unroll
+  for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+  // s, dp and the product's part: registers of their own (as dkv's)
+  float s[32], dp[32], part[32];
+  uint32_t ah[2][4], al[2][4];
+  mbar_wait_spin(blk.kept_full(), 0);
+  for (int j = wg, c = 0; j < n_tiles; j += 2, c += per) {
+    blk.template headdim_product<false>(wg, s, part, ah, al, q_row, c, na, p.D);
+    blk.template headdim_product<true>(wg, dp, part, ah, al, q_row + NA * kTfAtomBytes, c + na,
+                                       na, p.D);
+    // ds = p (dp - di) kept in s, then 0 for keys past Skv and past the
+    // diagonal (a tile-uniform branch)
+    const int k0 = j * kTfKeys;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2_approx(fmaf(s[i], sl2, -lse2[r])) * (dp[i] - dd[r]);
+    }
+    if (k0 + kTfKeys > p.Skv || (p.causal && k0 + kTfKeys - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (key >= p.Skv || (p.causal && key > row0 + 8 * ((i >> 1) & 1))) s[i] = 0.f;
+      }
+    }
+    blk.store_tile(wg, s);
+    blk.grad_product(wg, acc, part, ah, al, c + per - 1);
+  }
+
+  // ---- the two warpgroups' sums: warpgroup wg stores rows 32 wg .. +31
+  // (dQ^T's n8 tiles jn = 4 wg .. +3) and sends the other warpgroup its sum
+  // of the other rows through its own ring (every chunk of it is consumed).
+  // The loops run over all 8 n8 tiles behind a warpgroup-uniform test, so
+  // that acc is indexed by constants.
+  float4* const send = reinterpret_cast<float4*>(blk.gbase + blk.stage_off(wg, 0));
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    if ((jn >> 2) == wg) continue;
+    send[(jn & 3) * 128 + tid] =
+        make_float4(acc[4 * jn], acc[4 * jn + 1], acc[4 * jn + 2], acc[4 * jn + 3]);
+  }
+  named_bar_sync(1, 256);
+  const float4* const recv =
+      reinterpret_cast<const float4*>(blk.gbase + L::kRing + (wg ^ 1) * S * kTfStageBytes);
+  float* const dqg = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int jn = 0; jn < 8; ++jn) {
+    if ((jn >> 2) != wg) continue;
+    const float4 peer = recv[(jn & 3) * 128 + tid];
+    const float pv[4] = {peer.x, peer.y, peer.z, peer.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float own = acc[4 * jn + e];
+      const float o0 = wg ? pv[e] : own, o1 = wg ? own : pv[e];
+      const int row = q0 + 8 * jn + 2 * t4 + (e & 1);
+      const int d = 64 * mi + 16 * w4 + g + 8 * (e >> 1);
+      if (row < p.Sq && d < p.D) dqg[static_cast<long long>(row) * p.dq_ss + d] = (o0 + o1) * p.scale;
+    }
+  }
+}
+
+template <int NA, bool kDKV>
+cudaError_t launch_tf32(const BwdParams& p, cudaStream_t stream) {
+  using L = TfBwdLayout<NA>;
+  auto kernel = flash_bwd_dq_tf32_kernel<NA>;
+  if constexpr (kDKV) kernel = flash_bwd_dkv_tf32_kernel<NA>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!encode_map_f32(&tq, p.q, p.D, p.H, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, kTfRows) ||
+      !encode_map_f32(&tdo, p.dout, p.D, p.H, p.Sq, p.B, p.do_sh, p.do_ss, p.do_sb, kTfRows) ||
+      !encode_map_f32(&tk, p.k, p.D, p.H, p.Skv, p.B, p.k_sh, p.k_ss, p.k_sb, kTfKeys) ||
+      !encode_map_f32(&tv, p.v, p.D, p.H, p.Skv, p.B, p.v_sh, p.v_ss, p.v_sb, kTfKeys))
+    return cudaErrorInvalidValue;
+  // a block per 64 keys (dkv) or query rows (dq) and m-tile of the gradient
+  const dim3 grid(((kDKV ? p.Skv : p.Sq) + kTfRows - 1) / kTfRows, p.B * p.H, (p.D + 63) / 64);
+  kernel<<<grid, kWsThreads, L::kBytes, stream>>>(tq, tdo, tk, tv, p);
+  return cudaGetLastError();
+}
+
+template <bool kDKV>
+cudaError_t dispatch_f32(const BwdParams& p, cudaStream_t stream) {
+  // atoms of the kept tensors: D <= 64, D <= 128, D <= 160
+  if (p.D <= 64) return launch_tf32<2, kDKV>(p, stream);
+  if (p.D <= 128) return launch_tf32<4, kDKV>(p, stream);
+  return launch_tf32<5, kDKV>(p, stream);
 }
 
 template <bool kDKV>

@@ -388,6 +388,13 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// arrive at named barrier `id` over `count` threads without waiting: this
+// thread's earlier shared-memory accesses are performed for the threads that
+// wait at it (named_bar_sync)
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // --- the 3xTF32 attention kernels' products (flash_fwd.cu, flash_stream.cu) --
 //
 // Both run s = q k^T and o^T += v^T p^T per consumer warpgroup over tiles of
@@ -485,6 +492,23 @@ __device__ __forceinline__ void store_p_pair(unsigned char* p_hi, int lo_off, in
     *reinterpret_cast<uint32_t*>(p_hi + off) = ph;
     *reinterpret_cast<uint32_t*>(p_hi + lo_off + off) = pl;
   }
+}
+
+// The pair store_p_pair(p_hi, lo_off, row, j, ...) wrote, read back as
+// hi + lo (lo masked to its TF32 bits): p to about 2^-22 of itself.
+__device__ __forceinline__ void load_p_pair(const unsigned char* p_hi, int lo_off, int row, int j,
+                                            float& p0, float& p1) {
+  const int t4 = threadIdx.x & 3;
+  const int base = (j >> 2) * kTfAtomBytes + row * kAtomBytes + 4 * t4;
+  float pe[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int off = base + (((2 * (j & 3) + e) ^ (row & 7)) << 4);
+    const uint32_t lo = *reinterpret_cast<const uint32_t*>(p_hi + lo_off + off) & 0xffffe000u;
+    pe[e] = *reinterpret_cast<const float*>(p_hi + off) + __uint_as_float(lo);
+  }
+  p0 = pe[0];
+  p1 = pe[1];
 }
 
 // part = v^T p^T over k-steps kk0 .. kk0 + NK - 1 (8 keys each) of a 64-key

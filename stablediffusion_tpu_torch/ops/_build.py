@@ -311,8 +311,8 @@ def bwd_launch_args(
     dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
 ) -> List:
     """The backward entries' ctypes arguments up to and excluding the scale.
-    q/k/v/dO are checked as the forward checks q/k/v (in bf16 also that a
-    TMA map can read each, :func:`check_tma_mappable`); lse and di must be
+    q/k/v/dO are checked as the forward checks q/k/v (and that a TMA map
+    can read each, :func:`check_tma_mappable`); lse and di must be
     contiguous fp32 [B, H, Sq]; an output that is None is not written by the
     entry called (its pointer is null)."""
     check_attention_inputs("flash_bwd", q, k, v, 8, 160)
@@ -321,8 +321,7 @@ def bwd_launch_args(
         raise ValueError(f"flash_bwd: dO {tuple(do.shape)} {do.dtype} does not match q")
     if not vector_loadable(do):
         raise ValueError("flash_bwd: dO is not laid out for 16-byte row loads")
-    if q.dtype == torch.bfloat16:
-        check_tma_mappable("flash_bwd", {"q": q, "k": k, "v": v, "dO": do})
+    check_tma_mappable("flash_bwd", {"q": q, "k": k, "v": v, "dO": do})
     for t, tn in ((lse, "lse"), (di, "di")):
         if (t.shape != (B, H, Sq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):

@@ -196,14 +196,20 @@ def _route(q_shape, k_shape, causal: bool, device_type: str,
     return "flash_stream"
 
 
+def _fp32_mappable(*tensors):
+    """The fp32 tensors that no TMA map can read but whose rows are 16-byte
+    loadable (a stride-0 expand) copied contiguous, the rest as they lie; in
+    bf16 all as they lie (such a view raises at the launch)."""
+    return tuple(t.contiguous() if t.dtype == torch.float32 and _build.vector_loadable(t)
+                 and not _build.tma_mappable(t) else t for t in tensors)
+
+
 def _launch_fwd(q, k, v, scale: float, causal: bool, with_lse: bool):
     """One flash_fwd launch: (out, lse or None).  Both kernels read q, k, v
     through TMA tensor maps.  In fp32 a view that no map can read but whose
     rows are 16-byte loadable (a stride-0 expand) is copied first; in bf16
     such a view raises."""
-    if q.dtype == torch.float32:
-        q, k, v = (t.contiguous() if _build.vector_loadable(t) and not _build.tma_mappable(t)
-                   else t for t in (q, k, v))
+    q, k, v = _fp32_mappable(q, k, v)
     out, args = _build.attention_launch_args("flash_fwd", q, k, v, 8, FLASH_FWD_MAX_D)
     B, Sq, H, _ = q.shape
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -267,12 +273,14 @@ def dout_for_kernels(do: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def flash_bwd(q, k, v, o, do, lse, scale: Optional[float] = None, causal: bool = False):
     """(dq, dk, dv): di = rowsum(O * dO) in plain torch, as the JAX library
     computes it outside its kernels, then the two backward kernels.  dO goes
-    through :func:`dout_for_kernels` first; q, k and v are taken as they lie,
-    and a layout the kernels cannot read raises.  CPU tensors take the plain
+    through :func:`dout_for_kernels` first; q, k and v are taken as the
+    forward takes them (in fp32 a view no TMA map can read is copied), and a
+    layout the kernels cannot read raises.  CPU tensors take the plain
     version."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, do, lse, scale, causal)
+    q, k, v = _fp32_mappable(q, k, v)
     do = dout_for_kernels(do, q.dtype)
     di = _row_dot(o, do)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, scale, causal)
@@ -283,7 +291,7 @@ def flash_bwd(q, k, v, o, do, lse, scale: Optional[float] = None, causal: bool =
 class FlashAttnFn(torch.autograd.Function):
     """Attention whose forward is ``flash_fwd`` writing the row
     log-sum-exp and whose backward is the two kernels of csrc/flash_bwd.cu
-    (in bf16 TMA-fed wgmma, as the forward): the port of the library
+    (TMA-fed wgmma, as the forward; fp32 in 3xTF32): the port of the library
     kernel's custom VJP (flash_attention.py:234-323).  Saves q, k, v, out
     and lse; no [Sq, Skv] tensor is kept.  The incoming dO may be any view:
     :func:`flash_bwd` makes it contiguous where the kernels cannot read it."""

@@ -10,7 +10,8 @@ training batch as
 kernel against its plain version (with the fp32 kernels' 3xTF32 split and
 products in plain PyTorch: ``tf32_round``, ``attention_tf32x3_emulated``
 with the causal mask and the lse, and two products that are not
-fp32-accurate, ``tf32_wrong_variants``), and files for the adapter and single-file paths: seeded random LoRA factors (``random_lora``, saved by
+fp32-accurate, ``tf32_wrong_variants``; the backward's,
+``attention_bwd_tf32x3_emulated`` and ``tf32_bwd_wrong_variants``), and files for the adapter and single-file paths: seeded random LoRA factors (``random_lora``, saved by
 ``lora/formats.save_lora_file`` as peft or kohya) and textual-inversion
 embeddings (``random_textual_inversion``), and an A1111/LDM single-file
 writer (``ldm_state_dict``, ``save_ldm_single_file``), the inverse of
@@ -275,6 +276,62 @@ def tf32_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropped).  Outputs only."""
     return {"1xTF32": _attention_tf32(q, k, v, None, "1x", causal)[0],
             "hi_hilo": _attention_tf32(q, k, v, None, "hi_hilo", causal)[0]}
+
+
+# The fp32 backward kernels (csrc/flash_bwd.cu) run every product of the
+# backward in 3xTF32 as well: s = q k^T and dp = dO v^T, then dV = p^T dO,
+# dK = scale ds^T q and dQ = scale ds k with ds = p (dp - di).  The functions
+# below emulate the split and the three products of each (sums in fp32
+# matmuls, one batch element at a time), with the causal mask on p, and two
+# products that are not fp32-accurate, which the unchanged fp32 rule of
+# GRAD_TOL must refuse.  As for the forward, the kernels' order and rounding
+# of their sums are not emulated here (utils/tf32_accumulation does that).
+
+
+def _attention_bwd_tf32(q, k, v, o, do, lse, scale, terms, causal):
+    """(dq, dk, dv) in q's dtype of the backward from the TF32 parts named by
+    `terms` (:func:`_tf32_product`); p = 0 past the diagonal when `causal`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    di = _row_dot(o, do)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, D]
+    grads = []
+    for b in range(q.shape[0]):
+        s = _tf32_product(qf[b], kf[b].transpose(-1, -2), terms) * scale
+        p = torch.exp(s - lse[b].float()[..., None])
+        if causal:
+            keep = torch.ones(p.shape[-2:], dtype=torch.bool, device=p.device).tril()
+            p = p.masked_fill(~keep, 0.0)
+        del s
+        ds = p * (_tf32_product(dof[b], vf[b].transpose(-1, -2), terms) - di[b].float()[..., None])
+        grads.append((_tf32_product(ds, kf[b], terms) * scale,
+                      _tf32_product(ds.transpose(-1, -2), qf[b], terms) * scale,
+                      _tf32_product(p.transpose(-1, -2), dof[b], terms)))
+        del p, ds
+    return tuple(torch.stack(ts).transpose(1, 2).to(q.dtype) for ts in zip(*grads))
+
+
+def attention_bwd_tf32x3_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                                  scale: Optional[float] = None, causal: bool = False):
+    """The fp32 backward kernels' 3xTF32 split and products in plain PyTorch
+    on q's device (fp32 matmuls, so TF32 must be off there), given the
+    forward's output `o` and lse: each of the five products from hi*hi +
+    hi*lo + lo*hi, di = rowsum(o * dO) in fp32, p masked to 0 past the
+    diagonal when `causal`; the kernels' order and rounding of their sums
+    are not emulated.  (dq, dk, dv) [B, S, H, D], the counterpart of
+    ``ops/attention.flash_bwd_plain``."""
+    return _attention_bwd_tf32(q, k, v, o, do, lse, scale, "3x", causal)
+
+
+def tf32_bwd_wrong_variants(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                            scale: Optional[float] = None, causal: bool = False) -> dict:
+    """Two backwards whose products are not fp32-accurate, in the emulation
+    of :func:`attention_bwd_tf32x3_emulated` (with `causal`, the same mask):
+    "1xTF32" (each operand rounded to TF32 once) and "hi_hilo" (hi*hi +
+    hi*lo: the lo*hi term dropped).  Each (dq, dk, dv)."""
+    return {name: _attention_bwd_tf32(q, k, v, o, do, lse, scale, terms, causal)
+            for name, terms in (("1xTF32", "1x"), ("hi_hilo", "hi_hilo"))}
 
 
 # Limit of the backward kernels' gradients (dq, dk, dv) against the plain

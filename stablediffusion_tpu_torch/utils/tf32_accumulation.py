@@ -3,26 +3,35 @@ reach a training step's gradients, on the CPU:
 
     python3 -m stablediffusion_tpu_torch.utils.tf32_accumulation [VARIANT ...]
 
-Runs chip_smoke.py phase 8's narrow fp32 train step (an SD1.5-layout UNet of
-two levels, LoRA on its attention, the same seeds) on the CPU twice: with
-the plain attention, and with every unmasked attention's forward replaced by
-an emulation of a 3xTF32 kernel's arithmetic (its backward is
-``ops/attention.flash_bwd_plain`` on the emulated output and lse, as the
-fp32 backward kernels compute it), and prints the largest difference of the
-loss and of each LoRA gradient relative to that tensor's largest element,
-the quantity phase 8 holds to 1e-3 (``TRAIN_REF_TOL``).
+Runs chip_smoke.py's narrow fp32 train step (an SD1.5-layout UNet of two
+levels, LoRA on its attention, the same seeds; ``phase_train_reference``)
+on the CPU twice: with the plain attention, and with every unmasked
+attention replaced by an emulation of the 3xTF32 kernels' arithmetic, and
+prints the largest difference of the loss and of each LoRA gradient relative
+to that tensor's largest element, the quantity that phase holds to 1e-3
+(``TRAIN_REF_TOL``).
 
 The emulation splits every operand into TF32 hi and lo parts and adds each
-wgmma's product (hi*hi, hi*lo, lo*hi over 8 head dims or keys, exact) to an
-fp32 accumulator, rounding each sum toward zero where a VARIANT says so, as
-Hopper's tensor cores do; parts are added into o by the FPU, rounding to
-nearest.  A VARIANT is "s,pv,keys,order": s and pv are 1 where q k^T and
-p v truncate (0: round to nearest), keys is the keys one part of p v adds
-(64, 32, 16 or 8) and order is "kstep" (each k-step's three products in
-turn) or "small" (every hi*lo and lo*hi of a part before its hi*hi).  With
-no VARIANT it runs "1,1,64,kstep" (one part a 64-key tile, as flash_stream
-adds) and "1,1,32,small" (as flash_fwd adds).  Each variant takes a few
-minutes on a few cores.
+wgmma's product (hi*hi, hi*lo, lo*hi over 8 head dims, keys or query rows,
+exact) to an fp32 accumulator, rounding each sum toward zero where a VARIANT
+says so, as Hopper's tensor cores do; parts are added by the FPU, rounding
+to nearest.  A VARIANT is "FWD" or "FWD/BWD".  FWD is "s,pv,keys,order"
+(flash_fwd): s and pv are 1 where q k^T and p v truncate (0: round to
+nearest), keys is the keys one part of p v adds (64, 32, 16 or 8) and order
+is "kstep" (each k-step's three products in turn) or "small" (every hi*lo
+and lo*hi of a part before its hi*hi).  BWD is "s,dp,grads,rows,order"
+(flash_bwd_dkv and flash_bwd_dq): s and dp say how s = q k^T and dp = dO
+v^T add over the head dims in k-step order (0: one accumulator rounding to
+nearest; 1: one truncating accumulator; 8, 16 or 32: a truncating
+accumulator for each part of that many head dims, the parts added by the
+FPU); grads is 1 where the gradients' products (p^T dO, ds^T q, ds k)
+truncate, rows the query rows (dV, dK) or keys (dQ) one part of a
+gradient's product adds within a 64-row tile (64, 32, 16 or 8), and order
+as above, for the gradients' products.  With no BWD the backward is
+``ops/attention.flash_bwd_plain`` on the emulated output and lse.  With no
+VARIANT it runs DEFAULT_VARIANTS: the forward as flash_fwd adds, with the
+backward as the kernels add (KERNEL_BWD_VARIANT) and with dp in one
+accumulator.  Each variant takes a few minutes on a few cores.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import contextlib
 import dataclasses
 import json
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +48,11 @@ import torch
 from stablediffusion_tpu_torch.ops import attention as attn_ops
 from stablediffusion_tpu_torch.utils.testing import tf32_split
 
-DEFAULT_VARIANTS = ("1,1,64,kstep", "1,1,32,small")
+# how csrc/flash_bwd.cu's fp32 kernels add: s in one accumulator, dp one a
+# k-step, each gradient's products one a 64-row tile, in k-step order
+KERNEL_BWD_VARIANT = "1,8,1,64,kstep"
+DEFAULT_VARIANTS = ("1,1,32,small/" + KERNEL_BWD_VARIANT, "1,1,32,small/1,1,1,64,kstep")
+TILE = 64  # keys (forward, dq) or query rows (dkv) of one tile of the kernels
 
 
 def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
@@ -69,20 +83,54 @@ def tc_product(a: torch.Tensor, b: torch.Tensor, truncate: bool,
     return acc
 
 
+def parts_product(a: torch.Tensor, b: torch.Tensor, rows: int, truncate: bool,
+                  small_first: bool) -> torch.Tensor:
+    """a @ b with a's last dimension cut into parts of `rows` (within tiles
+    of TILE, as the kernels' tiles start at 0): each part's product on the
+    emulated tensor core (:func:`tc_product`), the parts added by the FPU in
+    order, rounding to nearest."""
+    out = None
+    for c0 in range(0, a.shape[-1], rows):
+        part = tc_product(a[..., c0:c0 + rows], b[..., c0:c0 + rows, :], truncate, small_first)
+        out = part if out is None else out + part
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdVariant:
+    s_part: int  # head dims one part of s adds: 0 round to nearest, 1 all of them
+    dp_part: int  # the same for dp
+    grads_truncate: bool
+    rows: int
+    small_first: bool
+
+    @classmethod
+    def parse(cls, text: str) -> "BwdVariant":
+        s, dp, grads, rows, order = text.split(",")
+        if (order not in ("kstep", "small") or int(rows) not in (8, 16, 32, 64)
+                or not {s, dp} <= {"0", "1", "8", "16", "32"}):
+            raise ValueError(f"backward variant {text!r}: want s,dp,grads,rows,order "
+                             "(s, dp 0, 1, 8, 16 or 32; rows 8-64, order kstep or small)")
+        return cls(int(s), int(dp), grads == "1", int(rows), order == "small")
+
+
 @dataclasses.dataclass(frozen=True)
 class Variant:
     s_truncates: bool
     pv_truncates: bool
     pv_keys: int
     small_first: bool
+    bwd: Optional[BwdVariant] = None
 
     @classmethod
     def parse(cls, text: str) -> "Variant":
-        s, pv, keys, order = text.split(",")
+        fwd, _, bwd = text.partition("/")
+        s, pv, keys, order = fwd.split(",")
         if order not in ("kstep", "small") or int(keys) not in (8, 16, 32, 64):
             raise ValueError(f"variant {text!r}: want s,pv,keys,order (keys 8-64, "
                              "order kstep or small)")
-        return cls(s == "1", pv == "1", int(keys), order == "small")
+        return cls(s == "1", pv == "1", int(keys), order == "small",
+                   BwdVariant.parse(bwd) if bwd else None)
 
 
 def attention_tc(q, k, v, scale: float, causal: bool, variant: Variant):
@@ -99,8 +147,8 @@ def attention_tc(q, k, v, scale: float, causal: bool, variant: Variant):
     m = torch.full((B, H, Sq, 1), -1e30)
     l = torch.zeros((B, H, Sq, 1))
     o = torch.zeros((B, H, Sq, D))
-    for k0 in range(0, Skv, 64):
-        st = s[..., k0:k0 + 64]
+    for k0 in range(0, Skv, TILE):
+        st = s[..., k0:k0 + TILE]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(st - m_new)
@@ -114,18 +162,50 @@ def attention_tc(q, k, v, scale: float, causal: bool, variant: Variant):
     return (o / l).transpose(1, 2).contiguous(), (m + torch.log(l))[..., 0]
 
 
+def attention_bwd_tc(q, k, v, o, do, lse, scale: float, causal: bool, variant: BwdVariant):
+    """(dq, dk, dv) [B, S, H, D] fp32 of the emulated fp32 backward kernels:
+    s = q k^T and dp = dO v^T on the tensor core in k-step order over the
+    head dims, p = exp(scale s - lse) (0 past the diagonal when `causal`),
+    ds = p (dp - di) with di = rowsum(o dO) in fp32; dV = p^T dO and dK =
+    scale ds^T q over the query rows, dQ = scale ds k over the keys, each in
+    parts of `variant.rows` added by the FPU, the scale applied to the sum."""
+    di = attn_ops._row_dot(o, do)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))  # [B, H, S, D]
+    Sq, Skv = qf.shape[2], kf.shape[2]
+    def headdim(a, b, part):
+        if part <= 1:
+            return tc_product(a, b, part == 1)
+        return parts_product(a, b, part, True, False)
+
+    s = headdim(qf, kf.transpose(-1, -2), variant.s_part)
+    p = torch.exp(s * scale - lse.float()[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones(Sq, Skv, dtype=torch.bool).tril(), 0.0)
+    ds = p * (headdim(dof, vf.transpose(-1, -2), variant.dp_part) - di[..., None])
+    grad = lambda a, b: parts_product(a, b, variant.rows, variant.grads_truncate,  # noqa: E731
+                                      variant.small_first)
+    dv = grad(p.transpose(-1, -2), dof)
+    dk = grad(ds.transpose(-1, -2), qf) * scale
+    dq = grad(ds, kf) * scale
+    return tuple(t.transpose(1, 2).contiguous() for t in (dq, dk, dv))
+
+
 class _TcAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, variant):
         out, lse = attention_tc(q, k, v, scale, causal, variant)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.variant = scale, causal, variant
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = attn_ops.flash_bwd_plain(q, k, v, out, do, lse, ctx.scale, ctx.causal)
+        if ctx.variant.bwd is None:
+            dq, dk, dv = attn_ops.flash_bwd_plain(q, k, v, out, do, lse, ctx.scale, ctx.causal)
+        else:
+            dq, dk, dv = attention_bwd_tc(q, k, v, out, do, lse, ctx.scale, ctx.causal,
+                                          ctx.variant.bwd)
         return dq, dk, dv, None, None, None
 
 

@@ -425,13 +425,15 @@ def test_flash_attn_fn_takes_an_expanded_dout(cuda):
     _bwd_within_rule(grads, q, k, v, out.detach(), do, lse, False)
 
 
-def test_flash_bwd_refuses_what_a_tensor_map_cannot_take(cuda):
-    """A bf16 q broadcast along the sequence (stride 0) passes the 16-byte
-    load check but no TMA map can read it: the backward's wrapper raises a
-    ValueError that names q and launches neither kernel."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_refuses_what_a_tensor_map_cannot_take(cuda, dtype):
+    """A q broadcast along the sequence (stride 0) passes the 16-byte load
+    check but no TMA map can read it: the backward's wrappers raise a
+    ValueError that names q and launch neither kernel (both dtypes' kernels
+    read through TMA maps; FlashAttnFn copies such an fp32 view first)."""
     from stablediffusion_tpu_torch.ops.attention import flash_bwd_dkv, flash_bwd_dq
 
-    q, k, v = _qkv(cuda, torch.bfloat16, 1, 64, 2, 64, 64)
+    q, k, v = _qkv(cuda, dtype, 1, 64, 2, 64, 64)
     do = torch.randn_like(q)
     with torch.no_grad():
         out, lse = _fwd_with_lse(q, k, v, False)
@@ -442,6 +444,32 @@ def test_flash_bwd_refuses_what_a_tensor_map_cannot_take(cuda):
         with pytest.raises(ValueError, match="flash_bwd: q cannot be read through a TMA"):
             fn(broadcast, k, v, do, lse, di, 0.125)
     assert (FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count) == before
+
+
+def test_flash_attn_fn_fp32_copies_a_view_no_map_can_read(cuda):
+    """fp32 gradients through FlashAttnFn with the query broadcast along the
+    sequence (stride 0, a view no TMA map can read; the causal mask keeps
+    the rows apart): the forward and the backward each copy it and launch
+    once, and the gradients (the query's summed over the broadcast by
+    autograd) agree with torch autograd of attention_plain under the fp32
+    rule.  (A broadcast key would have no gradient to test: the softmax of
+    equal logits does not move with them.)"""
+    q, k, v = _qkv(cuda, torch.float32, 2, 200, 3, 64, 150)
+    q1 = q[:, :1].clone().requires_grad_(True)
+    leaves = [q1, k.clone().requires_grad_(True), v.clone().requires_grad_(True)]
+    before = (FLASH_FWD_LAUNCHES.count, FLASH_BWD_DQ_LAUNCHES.count, FLASH_BWD_DKV_LAUNCHES.count)
+    out = attention(q1.expand_as(q), leaves[1], leaves[2], causal=True)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (FLASH_FWD_LAUNCHES.count, FLASH_BWD_DQ_LAUNCHES.count,
+            FLASH_BWD_DKV_LAUNCHES.count) == tuple(n + 1 for n in before)
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    ref_out = attention_plain(ref_leaves[0].expand_as(q), ref_leaves[1], ref_leaves[2],
+                              causal=True)
+    ref = torch.autograd.grad(ref_out, ref_leaves, do)
+    for g, r in zip(got, ref):
+        assert grad_error(g, r)["worst_over_limit"] <= 1.0
 
 
 def _fwd_with_lse(q, k, v, causal, with_lse=True):
@@ -457,9 +485,8 @@ def test_flash_attn_fn_matches_plain_autograd(cuda, B, Sq, H, D, Skv, causal):
     """Gradients through FlashAttnFn (the kernels) against torch autograd of
     attention_plain, fp32, with dO strided (a transposed view) so that the
     wrapper's layout check acts; the SDXL trainer's two CLIP towers among
-    the shapes.  (fp32 runs the 3xTF32 forward, whose lse the scalar
-    backward kernels read; bf16 through FlashAttnFn is
-    test_flash_attn_fn_bf16_matches_rounded.)"""
+    the shapes.  (fp32 runs the 3xTF32 forward and backward kernels; bf16
+    through FlashAttnFn is test_flash_attn_fn_bf16_matches_rounded.)"""
     q, k, v = _qkv(cuda, torch.float32, B, Sq, H, D, Skv)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = attention(*leaves, causal=causal)
